@@ -1,0 +1,178 @@
+"""The four-step spectrum's row stage as a hand-written CUDA kernel
+(counterpart of ``basic_dsp_tpu/kernels/spectrum_pallas.py``).
+
+:func:`rowfft_mag` takes the post-stage-1 planes of the DIF four-step,
+applies the factored big twiddle, runs each row's length-n2 FFT, folds the
+global fftshift into a 64-column rotation and returns magnitudes, in the
+layout (n1, L2, 128) of the JAX kernel's ``permuted=False`` output.
+
+For a CUDA tensor it launches ``csrc/rowfft_mag.cu`` (two passes; the
+source says why) or raises; for a CPU tensor it runs the plain PyTorch
+version :func:`rowfft_mag_plain`.  The kernel is built at its first
+launch, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+
+LANES = 128
+
+
+@functools.lru_cache(maxsize=8)
+def _inner_consts(L2: int, n2: int):
+    """(Wr, Wi) numpy f32 planes of the inner twiddle
+    W[k1', j2] = w_n2^(k1' j2), shape (L2, 128); bit-equal to the first two
+    planes of the JAX kernel's ``_inner_consts(L2, n2, shift_cols)``."""
+    k1 = np.arange(L2)[:, None]
+    j2 = np.arange(LANES)[None, :]
+    W = np.exp(-2j * np.pi * (k1 * j2) / n2).astype(np.complex64)
+    return np.ascontiguousarray(W.real), np.ascontiguousarray(W.imag)
+
+
+def inner_twiddle(L2: int, n2: int, device) -> tuple:
+    """:func:`_inner_consts` as f32 tensors on ``device``."""
+    return tuple(torch.from_numpy(p).to(device) for p in _inner_consts(L2, n2))
+
+
+def supported(n1: int, n2: int) -> bool:
+    """Geometries the kernel takes: n2 = L2 * 128 with L2 a power of two
+    in [2, 1024] (pass A holds L2 x 16 complex values in shared memory:
+    128 KiB at L2 = 1024), and 1 <= n1 <= 65535 (one grid row per k1)."""
+    L2 = n2 // LANES
+    return (L2 * LANES == n2 and 2 <= L2 <= 1024 and (L2 & (L2 - 1)) == 0
+            and 1 <= n1 <= 65535)
+
+
+def rowfft_mag_plain(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
+                     Tfac=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rowfft_mag`: ``torch.fft.fft`` of
+    ``(Br + i Bi) * T`` along the rows, reindexed as
+    M[k1, k1', k2s] = |D[k1, k1' + L2 * ((k2s + 64*shift) % 128)]|."""
+    n1, n2 = Br.shape
+    L2 = n2 // LANES
+    C = torch.complex(Br, Bi)
+    if Tfac is not None:
+        Ar, Ai, Btr, Bti = Tfac
+        T = (torch.complex(Ar, Ai)[:, :, None]
+             * torch.complex(Btr, Bti)[:, None, :])
+        C = C * T.reshape(n1, n2)
+    D = torch.fft.fft(C, dim=-1).reshape(n1, LANES, L2).transpose(1, 2)
+    if shift:
+        D = torch.roll(D, -(LANES // 2), dims=-1)
+    return torch.abs(D).contiguous()
+
+
+def _check_planes(name, planes, shapes, device):
+    if len(planes) != len(shapes):
+        raise ValueError(f"{name}: expected {len(shapes)} planes, "
+                         f"got {len(planes)}")
+    for p, shape in zip(planes, shapes):
+        if not isinstance(p, torch.Tensor) or p.dtype != torch.float32:
+            raise TypeError(f"{name}: planes must be float32 tensors")
+        if tuple(p.shape) != shape:
+            raise ValueError(f"{name}: plane shape {tuple(p.shape)}, "
+                             f"expected {shape}")
+        if p.device != device:
+            raise ValueError(f"{name}: plane on {p.device}, data on {device}")
+        if not p.is_contiguous():
+            raise ValueError(f"{name}: planes must be contiguous")
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rowfft_mag")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rowfft_mag_launch.argtypes = [vp] * 11 + [ci, ci, ci, vp]
+    lib.rowfft_mag_launch.restype = ci
+    lib.rowfft_mag_error_string.argtypes = [ci]
+    lib.rowfft_mag_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
+               Tfac=None, W=None) -> torch.Tensor:
+    """|FFT(rows)| of planar rows, with the global fftshift folded in.
+
+    Br, Bi: (n1, n2) float32 planes after stage 1 of the DIF four-step,
+    pre-twiddle when ``Tfac`` = (Ar, Ai, Br, Bi) factored twiddle planes
+    (A: (n1, L2), B: (n1, 128)) is given, post-twiddle otherwise.
+    n2 = L2 * 128 with ``supported(n1, n2)``.  ``W``: optional (Wr, Wi)
+    inner-twiddle planes (:func:`inner_twiddle`); built when None.
+
+    Returns (n1, L2, 128) f32, M[k1, k1', k2s] = |X_row[k1' + L2 *
+    ((k2s + 64) % 128)]| (no rotation when ``shift`` is False); flatten
+    with :func:`natural_flatten`.  A CPU tensor takes
+    :func:`rowfft_mag_plain`; a CUDA tensor launches the kernel and adds
+    one to ``rowfft_mag.launches``.
+    """
+    if Br.dim() != 2 or Br.shape != Bi.shape:
+        raise ValueError(f"Br, Bi must be equal 2-D shapes, got "
+                         f"{tuple(Br.shape)} and {tuple(Bi.shape)}")
+    n1, n2 = Br.shape
+    if not supported(n1, n2):
+        raise ValueError(f"rowfft_mag: unsupported geometry ({n1}, {n2})")
+    L2 = n2 // LANES
+    dev = Br.device
+    _check_planes("Br/Bi", (Br, Bi), [(n1, n2)] * 2, dev)
+    if Tfac is not None:
+        _check_planes("Tfac", Tfac, [(n1, L2)] * 2 + [(n1, LANES)] * 2, dev)
+    if dev.type == "cpu":
+        return rowfft_mag_plain(Br, Bi, shift, Tfac)
+    if dev.type != "cuda":
+        raise ValueError(f"rowfft_mag: no kernel for device {dev}")
+    if W is None:
+        W = inner_twiddle(L2, n2, dev)
+    _check_planes("W", W, [(L2, LANES)] * 2, dev)
+    lib = _lib()
+    H = torch.empty((2, n1, L2, LANES), dtype=torch.float32, device=dev)
+    out = torch.empty((n1, L2, LANES), dtype=torch.float32, device=dev)
+    tf = [p.data_ptr() for p in Tfac] if Tfac is not None else [None] * 4
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.rowfft_mag_launch(
+            Br.data_ptr(), Bi.data_ptr(), *tf, W[0].data_ptr(),
+            W[1].data_ptr(), H[0].data_ptr(), H[1].data_ptr(),
+            out.data_ptr(), n1, L2, LANES // 2 if shift else 0, stream)
+    if rc != 0:
+        raise RuntimeError("rowfft_mag kernel launch failed: "
+                           + lib.rowfft_mag_error_string(rc).decode())
+    rowfft_mag.launches += 1
+    return out
+
+
+rowfft_mag.launches = 0
+
+
+def natural_flatten(M: torch.Tensor) -> torch.Tensor:
+    """Flatten a :func:`rowfft_mag` (n1, L2, 128) magnitude block to the
+    natural shifted-spectrum order: flat index (k2s*L2 + k1')*n1 + k1."""
+    return M.permute(2, 1, 0).reshape(-1)
+
+
+def dif_spectrum_mag_cuda(xw: torch.Tensor, n1: int = 0) -> torch.Tensor:
+    """|fftshift(FFT(xw))| of a 1-D signal by the DIF four-step: stage 1 as
+    three Karatsuba matmuls, then :func:`rowfft_mag` with the factored
+    twiddle, then :func:`natural_flatten`.  Counterpart of
+    ``spectrum_pallas.dif_spectrum_mag_pallas`` on ``supported`` lengths."""
+    from ..ops import fourstep
+
+    n = xw.shape[-1]
+    n1, n2 = fourstep.factor(n, n1)
+    dev = xw.device
+    Fr, Fp, Fm = (torch.from_numpy(p).to(dev)
+                  for p in fourstep._dft_planes(n1))
+    if xw.is_complex():
+        xc = xw.to(torch.complex64)
+        Ar, Ai = xc.real.reshape(n1, n2), xc.imag.reshape(n1, n2)
+    else:
+        Ar, Ai = xw.to(torch.float32).reshape(n1, n2), None
+    Br, Bi = fourstep.stage1_planar(Fr, Fp, Fm, Ar, Ai)
+    Tfac = tuple(torch.from_numpy(p).to(dev)
+                 for p in fourstep._dif_twiddle_factored(n1, n2))
+    return natural_flatten(rowfft_mag(Br, Bi, shift=True, Tfac=Tfac))

@@ -1,0 +1,153 @@
+"""The flagship FIR + FFT spectrum chain (counterpart of
+``basic_dsp_tpu/pipelines.py``).
+
+``fir_fft_chain_planar`` runs, on (re, im) float32 planes:
+
+1. the centered circular FIR against real taps as banded 128x128 Toeplitz
+   matmuls (``ops.conv_ops``);
+2. the window multiply;
+3. stage 1 of the DIF four-step, a DFT-n1 over columns as three Karatsuba
+   matmuls (``ops.fourstep.stage1_planar``);
+4. the row stage, ``kernels.spectrum_cuda.rowfft_mag`` (the CUDA kernel on
+   the card), then one transpose into spectrum order.
+
+:class:`FirFftChainPlanar` holds the chain's constants as buffers, so a
+call computes and does not rebuild them.
+"""
+from __future__ import annotations
+
+import torch
+
+from .kernels import spectrum_cuda
+from .ops import conv_ops, fft_ops, fourstep
+
+BUDGETS = (None, "high", "high-xla", "high-kernel")
+
+
+def _shifted_mag(windowed: torch.Tensor) -> torch.Tensor:
+    """|fftshift(FFT(windowed))| — four-step with the row kernel for
+    factorable 1-D lengths, a whole-signal FFT otherwise."""
+    n = windowed.shape[-1]
+    n1, n2 = fourstep.factor(n)
+    if windowed.dim() == 1 and n1 >= 64 and n2 % 2 == 0:
+        if spectrum_cuda.supported(n1, n2):
+            return spectrum_cuda.dif_spectrum_mag_cuda(windowed, n1)
+        return fourstep.dif_spectrum_mag(windowed, n1)
+    return torch.abs(fft_ops.fft_shifted(windowed))
+
+
+def fir_fft_chain(x: torch.Tensor, taps: torch.Tensor, window: torch.Tensor,
+                  fft_len: int = 0) -> torch.Tensor:
+    """Centered FIR, then a windowed, shifted FFT magnitude spectrum.
+
+    Only the direct (Toeplitz) FIR is ported: taps up to 202 and signals
+    longer than 1000 samples.  The overlap-save path the JAX chain takes
+    otherwise (``fft_len``) raises NotImplementedError."""
+    m = taps.shape[-1]
+    n = x.shape[-1]
+    if not (m <= 202 and n > 1000):
+        raise NotImplementedError(
+            "fir_fft_chain: the overlap-save FIR (taps > 202 or n <= 1000) "
+            "is not ported yet")
+    filtered = conv_ops.toeplitz_conv(x, taps, True)
+    return _shifted_mag(filtered * window.to(filtered.dtype))
+
+
+def windowed_spectrum(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
+    """Windowed FFT magnitude of a real or complex signal; a real input
+    stays real up to the four-step's stage-1 dots."""
+    return _shifted_mag(x * window.to(x.dtype))
+
+
+def _check_budget(budget):
+    # Grammar of the JAX chain's per-stage precision budget: "high" = every
+    # dot reduced-precision, "-xla" / "-kernel" restrict it to the matmuls
+    # outside / inside the row kernel.
+    if budget not in BUDGETS:
+        raise ValueError(
+            f"unknown budget {budget!r}: expected None, 'high', "
+            f"'high-xla' or 'high-kernel'")
+    if budget is not None:
+        raise NotImplementedError(
+            "fir_fft_chain_planar: reduced-precision budgets are not "
+            "ported yet; budget=None runs f32-exact")
+
+
+def _planar_chain(xr, xi, taps, bands, window, dft, Tfac, W, n1, n2):
+    fr, fi = conv_ops.toeplitz_conv_planar(xr, xi, taps, bands)
+    Ar = (fr * window).reshape(n1, n2)
+    Ai = (fi * window).reshape(n1, n2)
+    Br, Bi = fourstep.stage1_planar(*dft, Ar, Ai)
+    M = spectrum_cuda.rowfft_mag(Br, Bi, shift=True, Tfac=Tfac, W=W)
+    return spectrum_cuda.natural_flatten(M)
+
+
+def _geometry(n: int, n1: int):
+    n1, n2 = fourstep.factor(n, n1)
+    if not spectrum_cuda.supported(n1, n2):
+        raise ValueError(f"no row-kernel geometry for n={n} "
+                         f"(n1={n1}, n2={n2})")
+    return n1, n2
+
+
+def _constants(n1: int, n2: int, device):
+    dft = tuple(torch.from_numpy(p).to(device)
+                for p in fourstep._dft_planes(n1))
+    Tfac = tuple(torch.from_numpy(p).to(device)
+                 for p in fourstep._dif_twiddle_factored(n1, n2))
+    W = spectrum_cuda.inner_twiddle(n2 // spectrum_cuda.LANES, n2, device)
+    return dft, Tfac, W
+
+
+def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
+                         taps: torch.Tensor, window: torch.Tensor,
+                         n1: int = 0, budget: str = None) -> torch.Tensor:
+    """All-planar flagship chain: centered real-tap FIR + window + shifted
+    FFT magnitude, complex data as (re, im) planes from entry to exit.
+
+    Same math as :func:`fir_fft_chain` with real ``taps``.  ``budget``
+    keeps the JAX chain's grammar; only None (f32-exact) is ported.
+    Builds the constants on every call; :class:`FirFftChainPlanar` holds
+    them."""
+    n1, n2 = _geometry(xr.shape[-1], n1)
+    _check_budget(budget)
+    tf = taps.to(xr.dtype)
+    dft, Tfac, W = _constants(n1, n2, xr.device)
+    return _planar_chain(xr, xi, tf, conv_ops.toeplitz_bands(tf, n1 * n2),
+                         window.to(xr.dtype), dft, Tfac, W, n1, n2)
+
+
+class FirFftChainPlanar(torch.nn.Module):
+    """:func:`fir_fft_chain_planar` with its constants as buffers: the
+    Toeplitz band matrices, the DFT-n1 Karatsuba planes, the factored big
+    twiddle, the inner twiddle and the window.  The signal length is the
+    window's.  ``forward(xr, xi)`` returns the (n,) magnitude spectrum."""
+
+    def __init__(self, taps: torch.Tensor, window: torch.Tensor,
+                 n1: int = 0):
+        super().__init__()
+        n = window.shape[-1]
+        self.n1, self.n2 = _geometry(n, n1)
+        dev = window.device
+        taps = taps.to(device=dev, dtype=torch.float32)
+        dft, Tfac, W = _constants(self.n1, self.n2, dev)
+        self.register_buffer("taps", taps)
+        self.register_buffer("bands", conv_ops.toeplitz_bands(taps, n))
+        self.register_buffer("window", window.to(torch.float32))
+        for name, p in zip(("dft_r", "dft_p", "dft_m"), dft):
+            self.register_buffer(name, p)
+        for name, p in zip(("tw_ar", "tw_ai", "tw_br", "tw_bi"), Tfac):
+            self.register_buffer(name, p)
+        self.register_buffer("w_r", W[0])
+        self.register_buffer("w_i", W[1])
+
+    def forward(self, xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+        n = self.n1 * self.n2
+        if xr.shape != (n,) or xi.shape != (n,):
+            raise ValueError(f"expected two ({n},) planes, got "
+                             f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+        return _planar_chain(
+            xr, xi, self.taps, self.bands, self.window,
+            (self.dft_r, self.dft_p, self.dft_m),
+            (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi),
+            (self.w_r, self.w_i), self.n1, self.n2)

@@ -1,0 +1,45 @@
+"""Conversion of the JAX chain's parameters into the port's tensors.
+
+The JAX package builds its chain constants as host numpy arrays; this
+module moves them onto a torch device unchanged, so that both packages
+can be held to the same numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Parameter name -> number of planes kept (None: a single array).
+# ``_inner_consts`` of the JAX kernel also carries the lane DFT-128 planes
+# its MXU finish used; the CUDA kernel computes that DFT with butterflies,
+# so only the inner twiddle (Wr, Wi) is kept.
+_KEYS = {"taps": None, "window": None, "_dif_planes": 4,
+         "_dif_twiddle_factored": 4, "_inner_consts": 2, "_dft_planes": 3}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype != np.float32:
+        raise TypeError(f"expected float32 arrays, got {a.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def from_numpy(params: dict, device) -> dict:
+    """Maps ``{"taps": ..., "window": ..., "_dif_planes": (4 planes),
+    "_dif_twiddle_factored": (4), "_inner_consts": (5), "_dft_planes":
+    (3)}`` of float32 numpy arrays (any subset of these keys) to the same
+    keys holding float32 tensors on ``device``: a tensor for taps and
+    window, a tuple of plane tensors for each constant family."""
+    out = {}
+    for key, value in params.items():
+        if key not in _KEYS:
+            raise KeyError(f"unknown parameter {key!r}; expected one of "
+                           f"{sorted(_KEYS)}")
+        keep = _KEYS[key]
+        if keep is None:
+            out[key] = _tensor(value, device)
+        else:
+            if len(value) < keep:
+                raise ValueError(f"{key}: expected at least {keep} planes")
+            out[key] = tuple(_tensor(p, device) for p in value[:keep])
+    return out
