@@ -45,6 +45,13 @@ def default_config() -> DspConfig:
     return _default_config
 
 
+def set_default_config(cfg: DspConfig) -> None:
+    """Installs ``cfg`` as the process default; the dispatch reads it at
+    each call."""
+    global _default_config
+    _default_config = cfg
+
+
 # The dial's three settings map onto PyTorch's float32 matmul precision:
 # "highest" keeps full f32 products (the reference's f32-exact contract),
 # "high" allows TF32 or bf16x3, "default" allows bf16.

@@ -40,16 +40,17 @@ def fir_fft_chain(x: torch.Tensor, taps: torch.Tensor, window: torch.Tensor,
                   fft_len: int = 0) -> torch.Tensor:
     """Centered FIR, then a windowed, shifted FFT magnitude spectrum.
 
-    Only the direct (Toeplitz) FIR is ported: taps up to 202 and signals
-    longer than 1000 samples.  The overlap-save path the JAX chain takes
-    otherwise (``fft_len``) raises NotImplementedError."""
+    The FIR is the direct (Toeplitz) path for taps up to 202 on signals
+    longer than 1000 samples, and otherwise the blocked overlap-save on
+    ``torch.fft`` (:func:`ops.conv_ops.overlap_save`, block length
+    ``pick_fft_len(m, fft_len)``), as in the JAX chain."""
     m = taps.shape[-1]
     n = x.shape[-1]
-    if not (m <= 202 and n > 1000):
-        raise NotImplementedError(
-            "fir_fft_chain: the overlap-save FIR (taps > 202 or n <= 1000) "
-            "is not ported yet")
-    filtered = conv_ops.toeplitz_conv(x, taps, True)
+    if m <= 202 and n > 1000:
+        filtered = conv_ops.toeplitz_conv(x, taps, True)
+    else:
+        filtered = conv_ops.overlap_save(x, taps, True,
+                                         conv_ops.pick_fft_len(m, fft_len))
     return _shifted_mag(filtered * window.to(filtered.dtype))
 
 

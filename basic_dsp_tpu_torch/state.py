@@ -15,21 +15,25 @@ import torch
 # so only the inner twiddle (Wr, Wi) is kept.
 _KEYS = {"taps": None, "window": None, "_dif_planes": 4,
          "_dif_twiddle_factored": 4, "_inner_consts": 2, "_dft_planes": 3}
+# Complex taps are what the overlap-save path's own tests convolve with.
+_DTYPES = {"taps": (np.float32, np.complex64)}
 
 
-def _tensor(a, device) -> torch.Tensor:
+def _tensor(a, device, dtypes=(np.float32,)) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype != np.float32:
-        raise TypeError(f"expected float32 arrays, got {a.dtype}")
+    if a.dtype not in dtypes:
+        raise TypeError(f"expected {' or '.join(map(str, dtypes))} arrays, "
+                        f"got {a.dtype}")
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def from_numpy(params: dict, device) -> dict:
     """Maps ``{"taps": ..., "window": ..., "_dif_planes": (4 planes),
     "_dif_twiddle_factored": (4), "_inner_consts": (5), "_dft_planes":
-    (3)}`` of float32 numpy arrays (any subset of these keys) to the same
-    keys holding float32 tensors on ``device``: a tensor for taps and
-    window, a tuple of plane tensors for each constant family."""
+    (3)}`` of float32 numpy arrays (any subset of these keys; taps may
+    also be complex64) to the same keys holding tensors of the same dtype
+    on ``device``: a tensor for taps and window, a tuple of plane tensors
+    for each constant family."""
     out = {}
     for key, value in params.items():
         if key not in _KEYS:
@@ -37,7 +41,7 @@ def from_numpy(params: dict, device) -> dict:
                            f"{sorted(_KEYS)}")
         keep = _KEYS[key]
         if keep is None:
-            out[key] = _tensor(value, device)
+            out[key] = _tensor(value, device, _DTYPES.get(key, (np.float32,)))
         else:
             if len(value) < keep:
                 raise ValueError(f"{key}: expected at least {keep} planes")

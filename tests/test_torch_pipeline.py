@@ -149,12 +149,17 @@ def test_budget_grammar():
 
 
 def test_unported_paths_raise():
+    """Reduced-precision budgets and lengths outside the row kernel's
+    geometry raise; fir_fft_chain's overlap-save FIR (taps > 202) is
+    ported and no longer does (its parity: test_torch_conv_dispatch)."""
     xr, _, taps, window = (torch.from_numpy(a)
                            for a in _params(n=1 << 15, m=7))
     with pytest.raises(NotImplementedError):
-        bt.fir_fft_chain(xr, torch.ones(300), window)
+        bt.fir_fft_chain_planar(xr, xr, taps, window, budget="high")
     with pytest.raises(ValueError):
         bt.FirFftChainPlanar(taps, torch.ones(1000))
+    out = bt.fir_fft_chain(xr, torch.ones(300) / 300, window)
+    assert out.shape == xr.shape and bool(torch.isfinite(out).all())
 
 
 def test_precision_dial_maps_onto_torch():
