@@ -13,10 +13,17 @@ what it runs on, with kernel ``kernels.spectrum_cuda.rowfft_mag``; and the
 convolution family of ``ops.conv_ops`` (the ``convolve_signal`` dispatch,
 its planar entry, overlap-save, analytic-function convolution, frequency
 multiplication, correlation) with the lookup tables of ``conv_types`` and
-kernel ``kernels.overlap_save_cuda.blocked_linear_conv_cuda``.
+kernel ``kernels.overlap_save_cuda.blocked_linear_conv_cuda``; and the
+resampling family of ``ops.interp_ops`` (``interpolatef`` and its
+polyphase resampler, ``interpolatei``, ``interpolate``/``interpft``,
+``decimatei``, ``interpolate_lin``/``_hermite``) with the modulation chain
+(:func:`pipelines.modulation_chain_planar`, :class:`ModulationChainPlanar`)
+and kernels ``kernels.resample_cuda.resample_direct_cuda`` and
+``resample_rowblock_cuda``.
 """
 from .config import (DspConfig, default_config, matmul_precision,
                      set_default_config, set_matmul_precision)
+from .errors import DspError, ErrorReason, PerformanceError
 from .conv_types import (ComplexFrequencyLinearTableLookup,
                          ComplexFrequencyResponse, ComplexImpulseResponse,
                          ComplexTimeLinearTableLookup, RaisedCosineFunction,
@@ -26,11 +33,16 @@ from .conv_types import (ComplexFrequencyLinearTableLookup,
 from .kernels.overlap_save_cuda import (blocked_linear_conv_cuda,
                                         blocked_linear_conv_plain,
                                         overlap_save_cuda)
+from .kernels.resample_cuda import (resample_direct_cuda,
+                                    resample_direct_plain,
+                                    resample_rowblock_cuda,
+                                    resample_rowblock_plain)
 from .kernels.spectrum_cuda import (dif_spectrum_mag_cuda, natural_flatten,
                                     rowfft_mag, rowfft_mag_plain, supported)
-from .ops import conv_ops, fft_ops, fourstep, reorg_ops
-from .pipelines import (FirFftChainPlanar, fir_fft_chain,
-                        fir_fft_chain_planar, windowed_spectrum)
+from .ops import conv_ops, fft_ops, fourstep, interp_ops, reorg_ops
+from .pipelines import (FirFftChainPlanar, ModulationChainPlanar,
+                        fir_fft_chain, fir_fft_chain_planar,
+                        modulation_chain_planar, windowed_spectrum)
 from .state import from_numpy
 from .windows import (BlackmanHarrisWindow, HammingWindow,
                       RectangularWindow, TriangularWindow, WindowFunction)
@@ -38,15 +50,19 @@ from .windows import (BlackmanHarrisWindow, HammingWindow,
 __all__ = [
     "BlackmanHarrisWindow", "ComplexFrequencyLinearTableLookup",
     "ComplexFrequencyResponse", "ComplexImpulseResponse",
-    "ComplexTimeLinearTableLookup", "DspConfig", "FirFftChainPlanar",
-    "HammingWindow", "RaisedCosineFunction",
+    "ComplexTimeLinearTableLookup", "DspConfig", "DspError", "ErrorReason",
+    "FirFftChainPlanar", "HammingWindow", "ModulationChainPlanar",
+    "PerformanceError", "RaisedCosineFunction",
     "RealFrequencyLinearTableLookup", "RealFrequencyResponse",
     "RealImpulseResponse", "RealTimeLinearTableLookup", "RectangularWindow",
     "SincFunction", "TriangularWindow", "WindowFunction",
     "blocked_linear_conv_cuda", "blocked_linear_conv_plain", "conv_ops",
     "default_config", "dif_spectrum_mag_cuda", "fft_ops", "fir_fft_chain",
-    "fir_fft_chain_planar", "fourstep", "from_numpy", "matmul_precision",
-    "natural_flatten", "overlap_save_cuda", "reorg_ops", "rowfft_mag",
-    "rowfft_mag_plain", "set_default_config", "set_matmul_precision",
-    "supported", "windowed_spectrum",
+    "fir_fft_chain_planar", "fourstep", "from_numpy", "interp_ops",
+    "matmul_precision", "modulation_chain_planar", "natural_flatten",
+    "overlap_save_cuda", "reorg_ops", "resample_direct_cuda",
+    "resample_direct_plain", "resample_rowblock_cuda",
+    "resample_rowblock_plain", "rowfft_mag", "rowfft_mag_plain",
+    "set_default_config", "set_matmul_precision", "supported",
+    "windowed_spectrum",
 ]

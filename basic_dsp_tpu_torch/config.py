@@ -28,6 +28,9 @@ class DspConfig:
       direct_conv_min_len: signal length above which the direct path is
         taken.
       fft_block_len: 0 = auto blocked-FFT length.
+      fail_on_slow_path: when True, ``interp_ops.interpolatef`` raises
+        :class:`errors.PerformanceError` instead of warning when a long
+        signal would take the per-sample gather path.
     """
 
     overlap_save_min_len: int = 10_000
@@ -36,6 +39,7 @@ class DspConfig:
     direct_conv_max_imp_len: int = 202
     direct_conv_min_len: int = 1_000
     fft_block_len: int = 0
+    fail_on_slow_path: bool = False
 
 
 _default_config = DspConfig()

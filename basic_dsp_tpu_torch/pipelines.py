@@ -1,5 +1,5 @@
-"""The flagship FIR + FFT spectrum chain (counterpart of
-``basic_dsp_tpu/pipelines.py``).
+"""The flagship FIR + FFT spectrum chain and the modulation chain
+(counterpart of ``basic_dsp_tpu/pipelines.py``).
 
 ``fir_fft_chain_planar`` runs, on (re, im) float32 planes:
 
@@ -13,13 +13,19 @@
 
 :class:`FirFftChainPlanar` holds the chain's constants as buffers, so a
 call computes and does not rebuild them.
+
+``modulation_chain_planar`` (config #4) pulse-shapes two PRBS symbol
+planes with raised-cosine taps through the polyphase resampler
+(``ops.interp_ops``, kernel ``kernels.resample_cuda``);
+:class:`ModulationChainPlanar` holds its taps as a buffer.
 """
 from __future__ import annotations
 
 import torch
 
+from .conv_types import RaisedCosineFunction
 from .kernels import spectrum_cuda
-from .ops import conv_ops, fft_ops, fourstep
+from .ops import conv_ops, fft_ops, fourstep, interp_ops
 
 BUDGETS = (None, "high", "high-xla", "high-kernel")
 
@@ -152,3 +158,58 @@ class FirFftChainPlanar(torch.nn.Module):
             (self.dft_r, self.dft_p, self.dft_m),
             (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi),
             (self.w_r, self.w_i), self.n1, self.n2)
+
+
+def modulation_chain_planar(sr: torch.Tensor, si: torch.Tensor,
+                            beta: float = 0.35, factor: float = 10.0,
+                            delay: float = 0.0, conv_len: int = 10):
+    """Config #4 chain (reference examples/modulation.rs:14-41): two PRBS
+    symbol planes -> complex baseband by raised-cosine pulse shaping
+    (``interpolatef``), as planes.  The taps are real, so the planes
+    resample independently: both go through the resampler as two rows of
+    one call.  Returns ``(baseband_re, baseband_im)``; the example's real
+    passband output is ``baseband_re``."""
+    out = interp_ops.interpolatef(torch.stack((sr, si)),
+                                  RaisedCosineFunction(beta), factor, delay,
+                                  conv_len, 1.0)
+    return out[0], out[1]
+
+
+class ModulationChainPlanar(torch.nn.Module):
+    """:func:`modulation_chain_planar` with the raised-cosine polyphase
+    taps sampled once, as a float32 buffer (the phase offsets ``offs``
+    are a tuple of ints: they are part of the resampler's geometry).
+    ``forward(sr, si)`` returns ``(baseband_re, baseband_im)`` for symbol
+    planes long enough that the tap window is ``conv_len`` and the call
+    takes the polyphase resampler (for factor 10: n >= 2*conv_len + 1)."""
+
+    def __init__(self, beta: float = 0.35, factor: float = 10.0,
+                 delay: float = 0.0, conv_len: int = 10, device=None):
+        super().__init__()
+        self.factor, self.L = float(factor), int(conv_len)
+        self.P, self.Q = interp_ops.parse_rational_factor(
+            factor, "ModulationChainPlanar", 512)
+        taps, self.offs = interp_ops.polyphase_taps(
+            RaisedCosineFunction(beta), self.P, self.Q, float(delay),
+            self.L, torch.float32, device)
+        self.register_buffer("taps", taps)
+
+    def forward(self, sr: torch.Tensor, si: torch.Tensor):
+        if sr.shape != si.shape or sr.dim() != 1:
+            raise ValueError(f"expected two equal 1-D planes, got "
+                             f"{tuple(sr.shape)} and {tuple(si.shape)}")
+        n = sr.shape[-1]
+        L = min(self.L, n // 2)
+        new_points = int(round(n * self.factor))
+        new_points += new_points % 2
+        kind, P, Q = interp_ops._branch(n, self.factor, L, new_points)
+        c = interp_ops._choose_c(P, Q) if kind == "general" else 128
+        if (kind == "gather" or (P, Q, L) != (self.P, self.Q, self.L)
+                or not interp_ops._direct_eligible(self.taps, P, Q, L, c)):
+            raise ValueError(f"{n} symbols do not take the resampler this "
+                             "module holds taps for")
+        # Each resampler branch produces new_points outputs.
+        out = interp_ops._interpolatef_direct(
+            torch.stack((sr, si)), self.taps, P, Q, self.offs, L,
+            new_points, c)
+        return out[0].to(sr.dtype), out[1].to(si.dtype)

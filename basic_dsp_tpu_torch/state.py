@@ -9,14 +9,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Parameter name -> number of planes kept (None: a single array).
+# Parameter name -> number of planes kept (None: a single array; 0: all
+# planes, as many as the JAX package made).
 # ``_inner_consts`` of the JAX kernel also carries the lane DFT-128 planes
 # its MXU finish used; the CUDA kernel computes that DFT with butterflies,
 # so only the inner twiddle (Wr, Wi) is kept.
 _KEYS = {"taps": None, "window": None, "_dif_planes": 4,
-         "_dif_twiddle_factored": 4, "_inner_consts": 2, "_dft_planes": 3}
-# Complex taps are what the overlap-save path's own tests convolve with.
-_DTYPES = {"taps": (np.float32, np.complex64)}
+         "_dif_twiddle_factored": 4, "_inner_consts": 2, "_dft_planes": 3,
+         "polyphase_taps": None, "_rowblock_matrices": 0}
+# Complex taps are what the overlap-save path's own tests convolve with;
+# the resampler's constants are float64 where lin/hermite build them so.
+_DTYPES = {"taps": (np.float32, np.complex64),
+           "polyphase_taps": (np.float32, np.float64),
+           "_rowblock_matrices": (np.float32, np.float64)}
 
 
 def _tensor(a, device, dtypes=(np.float32,)) -> torch.Tensor:
@@ -30,10 +35,12 @@ def _tensor(a, device, dtypes=(np.float32,)) -> torch.Tensor:
 def from_numpy(params: dict, device) -> dict:
     """Maps ``{"taps": ..., "window": ..., "_dif_planes": (4 planes),
     "_dif_twiddle_factored": (4), "_inner_consts": (5), "_dft_planes":
-    (3)}`` of float32 numpy arrays (any subset of these keys; taps may
-    also be complex64) to the same keys holding tensors of the same dtype
-    on ``device``: a tensor for taps and window, a tuple of plane tensors
-    for each constant family."""
+    (3), "polyphase_taps": (P, 2L+1), "_rowblock_matrices": [(Q, P),
+    ...]}`` of float32 numpy arrays (any subset of these keys; taps may
+    also be complex64, the resampler's two constants float64) to the same
+    keys holding tensors of the same dtype on ``device``: a tensor for
+    taps, window and polyphase_taps, a tuple of plane tensors for each
+    constant family."""
     out = {}
     for key, value in params.items():
         if key not in _KEYS:
@@ -45,5 +52,7 @@ def from_numpy(params: dict, device) -> dict:
         else:
             if len(value) < keep:
                 raise ValueError(f"{key}: expected at least {keep} planes")
-            out[key] = tuple(_tensor(p, device) for p in value[:keep])
+            dtypes = _DTYPES.get(key, (np.float32,))
+            out[key] = tuple(_tensor(p, device, dtypes)
+                             for p in value[:keep or len(value)])
     return out

@@ -6,12 +6,17 @@
 Phases (any failure raises and exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles and loads both CUDA kernels (rowfft_mag, overlap_save),
-   one nvcc each, started together;
+1. build: compiles and loads the three CUDA libraries (rowfft_mag,
+   overlap_save, resample), one nvcc each, started together;
 2. kernels vs plain, on the card, <= 2e-6 relative to the maximum:
-   ``rowfft_mag`` against ``rowfft_mag_plain`` at four geometries, and
+   ``rowfft_mag`` against ``rowfft_mag_plain`` at four geometries,
    ``blocked_linear_conv_cuda`` against ``blocked_linear_conv_plain`` at
-   five (n, taps, fft_len), with complex and with real taps;
+   five (n, taps, fft_len), with complex and with real taps, and the
+   resampler's two wrappers against their plain versions on one row and
+   on two: ``resample_direct_cuda`` (K4) at six (P, Q, L, n), among them
+   interpolate_lin's 2-tap geometry with zero offsets, and
+   ``resample_rowblock_cuda`` (K5) at three, among them an n that 147
+   does not divide;
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    a. the spectrum chain: ``FirFftChainPlanar`` at n = 2^22 with 128
@@ -23,7 +28,18 @@ Phases (any failure raises and exits non-zero):
       oracle (<= 5e-6); then ``convolve_signal`` once, and
       ``fir_fft_chain`` with 384 raised-cosine taps (its overlap-save FIR
       runs on ``torch.fft``, its spectrum through ``rowfft_mag``);
-4. times with CUDA events (median of 20 after warm-up).
+   c. config #3: ``interp_ops.interpolatef`` of 2^20 complex samples x 1.5
+      with ``SincFunction``, conv_len 10 (K4);
+   d. config #4: ``ModulationChainPlanar(0.35, 10.0, 0.0, 10)`` on 2^17
+      +-0.5 PRBS symbols per plane, then ``modulation_chain_planar`` once
+      (K4); every 10th output sample must be its symbol within 1e-5;
+   e. 44.1 -> 48 kHz audio: ``interpolatef`` of 2^20 real samples at
+      160/147 (K5);
+   c-e are checked against the defining sum in float64 on the card, with
+   taps sampled in float64 (<= 5e-6 relative);
+4. times with CUDA events (median of 20 after warm-up): every path, and
+   each kernel against its plain version in turns; ``torch.profiler``
+   device time of each resampling path (c-e), for its idle share.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -48,6 +64,15 @@ OS_GEOMETRIES = [(4096, 33, 1024), (8192, 129, 2048), (5000, 63, 1024),
 KERNEL_TOL = 2e-6
 CHAIN_TOL = 5e-6
 REPS = 20
+# Resampler geometries (P, Q, L, n); K4 also at interpolate_lin's 2-tap
+# geometry (5/2, delay 0.3, zero offsets) below.
+K4_GEOMETRIES = [(3, 2, 10, 1 << 20), (10, 1, 10, 1 << 17), (2, 1, 5, 4096),
+                 (5, 4, 10, 8192), (6, 5, 10, 1 << 16)]
+K5_GEOMETRIES = [(160, 147, 10, 1 << 20), (160, 147, 10, (1 << 20) + 37),
+                 (147, 160, 10, 1 << 16)]
+CFG3_N = 1 << 20
+CFG4_SYMBOLS = 1 << 17
+AUDIO_N = 1 << 20
 
 
 def rel_err(got, ref):
@@ -102,6 +127,52 @@ def rc_taps(m, dev):
     return (taps / taps.sum()).to(dev)
 
 
+def resample_oracle(x, fun, P, Q, L, out_len, delay=0.0):
+    """out[i] = sum_t x[((i//P)*Q + offs[p] + t - L) mod n]
+    * fun(t - L - frac[p] + delay), p = i % P, offs[p] = (p*Q)//P,
+    frac[p] = (p*Q mod P)/P, in float64 (complex128) on x's device, with
+    the taps sampled in float64."""
+    n, dev = x.shape[-1], x.device
+    p = np.arange(P)
+    offs = torch.from_numpy((p * Q) // P).to(dev)
+    frac = torch.from_numpy(((p * Q) % P) / P).to(dev)
+    s = torch.arange(-L, L + 1, dtype=torch.float64, device=dev)
+    taps = fun.calc(s[None, :] - frac[:, None] + delay)
+    i = torch.arange(out_len, device=dev)
+    ph = i % P
+    idx = (((i // P) * Q + offs[ph])[:, None] + s.long()[None, :]) % n
+    xd = x.to(torch.complex128 if x.is_complex() else torch.float64)
+    return (xd[..., idx] * taps[ph]).sum(-1)
+
+
+def evened(n, P, Q):
+    """interpolatef's output length of a real signal: round(n P/Q),
+    evened."""
+    m = int(round(n * P / Q))
+    return m + m % 2
+
+
+def device_ms_per_call(fn, calls=10):
+    """Device ms per call from torch.profiler (the device-side events'
+    time over ``calls`` calls), and the ms of each kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.key_averages():
+        # device-side events only: a CPU op's self device time repeats the
+        # time of the kernels it launched
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.self_device_time_total > 0:
+            per_kernel[e.key] = e.self_device_time_total / calls / 1e3
+    return sum(per_kernel.values()), per_kernel
+
+
 def in_turns(name, plain_fn, kernel_fn, smi):
     """Median ms of the plain and the kernel version, in turns plain,
     kernel, kernel, plain; each run a median of REPS."""
@@ -129,8 +200,9 @@ def main():
     import basic_dsp_tpu_torch as bt
     from basic_dsp_tpu_torch.kernels import _build
     from basic_dsp_tpu_torch.kernels import overlap_save_cuda as osc
+    from basic_dsp_tpu_torch.kernels import resample_cuda as rsc
     from basic_dsp_tpu_torch.kernels import spectrum_cuda as sc
-    from basic_dsp_tpu_torch.ops import conv_ops, fourstep
+    from basic_dsp_tpu_torch.ops import conv_ops, fourstep, interp_ops
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -146,15 +218,19 @@ def main():
     def reset_counts():
         sc.rowfft_mag.launches = 0
         osc.blocked_linear_conv_cuda.launches = 0
+        rsc.resample_direct_cuda.launches = 0
+        rsc.resample_rowblock_cuda.launches = 0
 
     # 1. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(lib) for lib in (sc._lib, osc._lib)]:
+    libs = (sc._lib, osc._lib, rsc._lib)
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib) for lib in libs]:
             f.result()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path('rowfft_mag').name}, "
-          f"{_build.library_path('overlap_save').name})")
+          f"{_build.library_path('overlap_save').name}, "
+          f"{_build.library_path('resample').name})")
 
     # 2. kernel against its plain version, on the card
     abs_err_4m = None
@@ -192,6 +268,47 @@ def main():
             if (n, m, fl, kind) == (N, CONV_TAPS, CONV_FFT_LEN, "complex"):
                 os_abs_err_4m = abs_err
     del got, ref
+
+    sinc = bt.SincFunction()
+    lin_taps, lin_L, _ = interp_ops._lin_taps(5, 2, 0.3)
+    resample_checks = (
+        [("direct", P, Q, L, n, None) for P, Q, L, n in K4_GEOMETRIES]
+        + [("direct", 5, 2, lin_L, 1 << 16, lin_taps)]
+        + [("rowblock", P, Q, L, n, None) for P, Q, L, n in K5_GEOMETRIES])
+    rs_abs_err = {}
+    for kind, P, Q, L, n, taps_np in resample_checks:
+        if taps_np is None:
+            taps_k, offs = interp_ops.polyphase_taps(sinc, P, Q, 0.0, L,
+                                                     torch.float32, dev)
+        else:
+            taps_k, offs = taps_np, (0,) * P
+        out_len = evened(n, P, Q)
+        wrapper = getattr(rsc, f"resample_{kind}_cuda")
+        for nrows in (1, 2):
+            rows = torch.from_numpy(
+                rng.standard_normal((nrows, n), np.float32)).to(dev)
+            got = wrapper(rows, taps_k, P, Q, offs, L, out_len)
+            if kind == "direct":
+                ref = rsc.resample_direct_plain(rows, taps_k, P, Q, offs, L,
+                                                out_len,
+                                                interp_ops._choose_c(P, Q))
+            else:
+                ref = rsc.resample_rowblock_plain(rows, taps_k, P, Q, offs,
+                                                  L, out_len)
+            torch.cuda.synchronize()
+            err = rel_err(got, ref)
+            print(f"resample_{kind}_cuda vs plain at (P={P}, Q={Q}, L={L}, "
+                  f"n={n}, offs {'0' if taps_np is not None else 'pQ/P'}), "
+                  f"{nrows} row(s): {err:.3e} relative to max "
+                  f"(tol {KERNEL_TOL})")
+            assert got.shape == ref.shape == (nrows, out_len)
+            assert got.dtype == torch.float32
+            assert err <= KERNEL_TOL, (kind, P, Q, L, n, nrows, err)
+            rs_abs_err[(kind, P, Q, n, nrows)] = float(
+                (got - ref).abs().max())
+    assert rsc.resample_direct_cuda.launches == 12
+    assert rsc.resample_rowblock_cuda.launches == 6
+    del got, ref, rows
 
     # 3a. main path: the spectrum chain at full size
     taps = rc_taps(TAPS, dev)
@@ -268,6 +385,84 @@ def main():
     assert sc.rowfft_mag.launches == before + 1
     del got
 
+    # 3c. main path: config #3, x1.5 of 2^20 complex samples (Sinc, L 10)
+    rng0 = np.random.default_rng(0)
+    x3 = torch.from_numpy((rng0.standard_normal(CFG3_N)
+                           + 1j * rng0.standard_normal(CFG3_N))
+                          .astype(np.complex64)).to(dev)
+    reset_counts()
+    y3 = interp_ops.interpolatef(x3, sinc, 1.5, 0.0, 10, 1.0)
+    torch.cuda.synchronize()
+    cfg3_launches = rsc.resample_direct_cuda.launches
+    print(f"main path: interpolatef x1.5 of {CFG3_N} complex samples, "
+          f"resample_direct_cuda launches: {cfg3_launches}, "
+          f"resample_rowblock_cuda launches: "
+          f"{rsc.resample_rowblock_cuda.launches}")
+    assert cfg3_launches >= 1, "config #3 did not launch the K4 kernel"
+    assert rsc.resample_rowblock_cuda.launches == 0
+    assert y3.shape == (CFG3_N * 3 // 2,) and y3.dtype == torch.complex64
+    assert bool(torch.isfinite(torch.view_as_real(y3)).all())
+    err = rel_err(y3.to(torch.complex128),
+                  resample_oracle(x3, sinc, 3, 2, 10, CFG3_N * 3 // 2))
+    print(f"interpolatef x1.5 vs float64 oracle: {err:.3e} relative to max "
+          f"(tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    del y3
+
+    # 3d. main path: config #4, the modulation chain (RC 0.35, x10, L 10)
+    rng0 = np.random.default_rng(0)
+    sym_r, sym_i = (torch.from_numpy(rng0.choice([-0.5, 0.5], CFG4_SYMBOLS)
+                                     .astype(np.float32)).to(dev)
+                    for _ in range(2))
+    mod = bt.ModulationChainPlanar(0.35, 10.0, 0.0, 10, device=dev)
+    reset_counts()
+    bb_r, bb_i = mod(sym_r, sym_i)
+    torch.cuda.synchronize()
+    cfg4_launches = rsc.resample_direct_cuda.launches
+    print(f"main path: ModulationChainPlanar on {CFG4_SYMBOLS} symbols per "
+          f"plane, resample_direct_cuda launches: {cfg4_launches}")
+    assert cfg4_launches == 1, "config #4 did not launch the K4 kernel once"
+    assert bb_r.shape == bb_i.shape == (10 * CFG4_SYMBOLS,)
+    assert bool(torch.isfinite(bb_r).all() and torch.isfinite(bb_i).all())
+    ref4 = resample_oracle(torch.stack((sym_r, sym_i)),
+                           bt.RaisedCosineFunction(0.35), 10, 1, 10,
+                           10 * CFG4_SYMBOLS)
+    err, _ = planes_err((bb_r.double(), bb_i.double()), (ref4[0], ref4[1]))
+    print(f"ModulationChainPlanar vs float64 oracle: {err:.3e} relative to "
+          f"max (tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    isi = max(float((bb_r[::10] - sym_r).abs().max()),
+              float((bb_i[::10] - sym_i).abs().max()))
+    print(f"symbols recovered at every 10th sample: max error {isi:.3e} "
+          f"(tol 1e-5)")
+    assert isi <= 1e-5, isi
+    f_r, f_i = bt.modulation_chain_planar(sym_r, sym_i)
+    torch.cuda.synchronize()
+    assert rsc.resample_direct_cuda.launches == 2
+    assert torch.equal(f_r, bb_r) and torch.equal(f_i, bb_i)
+    del ref4, f_r, f_i
+
+    # 3e. main path: 44.1 -> 48 kHz, 160/147 of 2^20 real samples
+    xa = torch.from_numpy(np.random.default_rng(0).standard_normal(AUDIO_N)
+                          .astype(np.float32)).to(dev)
+    audio_len = evened(AUDIO_N, 160, 147)
+    reset_counts()
+    ya = interp_ops.interpolatef(xa, sinc, 160 / 147, 0.0, 10, 1.0)
+    torch.cuda.synchronize()
+    audio_launches = rsc.resample_rowblock_cuda.launches
+    print(f"main path: interpolatef 160/147 of {AUDIO_N} real samples, "
+          f"resample_rowblock_cuda launches: {audio_launches}")
+    assert audio_launches == 1, "the audio path did not launch K5 once"
+    assert rsc.resample_direct_cuda.launches == 0
+    assert ya.shape == (audio_len,) and ya.dtype == torch.float32
+    assert bool(torch.isfinite(ya).all())
+    err = rel_err(ya.double(),
+                  resample_oracle(xa, sinc, 160, 147, 10, audio_len))
+    print(f"interpolatef 160/147 vs float64 oracle: {err:.3e} relative to "
+          f"max (tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    del ya
+
     # 4. times (CUDA events, median of REPS after warm-up)
     chain_ms = median_ms(lambda: chain(xr, xi))
     print(f"chain: {chain_ms:.4f} ms/call, {N / chain_ms / 1e3:.1f} "
@@ -295,6 +490,47 @@ def main():
         lambda: osc.blocked_linear_conv_plain(xr, xi, hr, hi, CONV_FFT_LEN),
         lambda: osc.blocked_linear_conv_cuda(xr, xi, hr, hi, CONV_FFT_LEN),
         smi)
+    paths = [
+        ("config #3: interpolatef x1.5, 2^20 complex", CFG3_N * 3 // 2,
+         lambda: interp_ops.interpolatef(x3, sinc, 1.5, 0.0, 10, 1.0)),
+        ("config #4: ModulationChainPlanar, 2^17 symbols x 2 planes",
+         2 * 10 * CFG4_SYMBOLS, lambda: mod(sym_r, sym_i)),
+        ("audio: interpolatef 160/147, 2^20 real", audio_len,
+         lambda: interp_ops.interpolatef(xa, sinc, 160 / 147, 0.0, 10, 1.0)),
+    ]
+    for name, outputs, fn in paths:
+        ms = median_ms(fn)
+        print(f"{name}: {ms:.4f} ms/call, "
+              f"{outputs / ms / 1e3:.1f} Msamples/s out on {smi}")
+        dev_ms, per_kernel = device_ms_per_call(fn)
+        if dev_ms > 0:
+            print(f"{name}: device {dev_ms:.4f} ms/call (torch.profiler, "
+                  f"10 calls), idle share {1 - dev_ms / ms:.3f} of the "
+                  f"{ms:.4f} ms event time; kernels "
+                  + ", ".join(f"{k[:48]} {v * 1e3:.1f} us" for k, v in
+                              sorted(per_kernel.items(),
+                                     key=lambda kv: -kv[1])))
+        else:
+            print(f"{name}: device time not measured (the profiler showed "
+                  f"no device time)")
+    rows3 = torch.stack((x3.real, x3.imag))
+    taps3, offs3 = interp_ops.polyphase_taps(sinc, 3, 2, 0.0, 10,
+                                             torch.float32, dev)
+    k4_ms, k4_plain_ms = in_turns(
+        f"resample_direct_cuda (P=3, Q=2, L=10, 2 x {CFG3_N})",
+        lambda: rsc.resample_direct_plain(rows3, taps3, 3, 2, offs3, 10,
+                                          CFG3_N * 3 // 2),
+        lambda: rsc.resample_direct_cuda(rows3, taps3, 3, 2, offs3, 10,
+                                         CFG3_N * 3 // 2), smi)
+    rowsa = xa[None]
+    tapsa, offsa = interp_ops.polyphase_taps(sinc, 160, 147, 0.0, 10,
+                                             torch.float32, dev)
+    k5_ms, k5_plain_ms = in_turns(
+        f"resample_rowblock_cuda (P=160, Q=147, L=10, 1 x {AUDIO_N})",
+        lambda: rsc.resample_rowblock_plain(rowsa, tapsa, 160, 147, offsa,
+                                            10, audio_len),
+        lambda: rsc.resample_rowblock_cuda(rowsa, tapsa, 160, 147, offsa,
+                                           10, audio_len), smi)
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -308,7 +544,19 @@ def main():
         "source": "basic_dsp_tpu_torch/csrc/overlap_save.cu",
         "replaces": "basic_dsp_tpu/kernels/overlap_save_pallas.py:192",
         "launches": os_launches, "max_abs_err": os_abs_err_4m,
-        "ms": os_ms, "plain_ms": os_plain_ms}]}))
+        "ms": os_ms, "plain_ms": os_plain_ms}, {
+        "name": "resample_direct", "route": "cuda",
+        "source": "basic_dsp_tpu_torch/csrc/resample.cu",
+        "replaces": "basic_dsp_tpu/kernels/resample_pallas.py:119",
+        "launches": cfg3_launches,
+        "max_abs_err": rs_abs_err[("direct", 3, 2, 1 << 20, 2)],
+        "ms": k4_ms, "plain_ms": k4_plain_ms}, {
+        "name": "resample_rowblock", "route": "cuda",
+        "source": "basic_dsp_tpu_torch/csrc/resample.cu",
+        "replaces": "basic_dsp_tpu/kernels/resample_pallas.py:260",
+        "launches": audio_launches,
+        "max_abs_err": rs_abs_err[("rowblock", 160, 147, 1 << 20, 1)],
+        "ms": k5_ms, "plain_ms": k5_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
