@@ -19,7 +19,12 @@ polyphase resampler, ``interpolatei``, ``interpolate``/``interpft``,
 ``decimatei``, ``interpolate_lin``/``_hermite``) with the modulation chain
 (:func:`pipelines.modulation_chain_planar`, :class:`ModulationChainPlanar`)
 and kernels ``kernels.resample_cuda.resample_direct_cuda`` and
-``resample_rowblock_cuda``.
+``resample_rowblock_cuda``; and the channelizer of config #5
+(``parallel.channelizer``: ``polyphase_channelizer``, ``fm_demodulate``,
+``channelize_and_demod`` and its planar entry,
+:class:`ChannelizeAndDemodPlanar`) with kernel
+``kernels.channelizer_cuda.channelize_demod_cuda``.  Four CUDA libraries
+in all, one per ``csrc/*.cu``.
 """
 from .config import (DspConfig, default_config, matmul_precision,
                      set_default_config, set_matmul_precision)
@@ -30,6 +35,8 @@ from .conv_types import (ComplexFrequencyLinearTableLookup,
                          RealFrequencyLinearTableLookup,
                          RealFrequencyResponse, RealImpulseResponse,
                          RealTimeLinearTableLookup, SincFunction)
+from .kernels.channelizer_cuda import (channelize_demod_cuda,
+                                       channelize_demod_plain)
 from .kernels.overlap_save_cuda import (blocked_linear_conv_cuda,
                                         blocked_linear_conv_plain,
                                         overlap_save_cuda)
@@ -40,6 +47,10 @@ from .kernels.resample_cuda import (resample_direct_cuda,
 from .kernels.spectrum_cuda import (dif_spectrum_mag_cuda, natural_flatten,
                                     rowfft_mag, rowfft_mag_plain, supported)
 from .ops import conv_ops, fft_ops, fourstep, interp_ops, reorg_ops
+from . import parallel
+from .parallel import (ChannelizeAndDemodPlanar, channelize_and_demod,
+                       channelize_and_demod_planar, fm_demodulate,
+                       polyphase_channelizer)
 from .pipelines import (FirFftChainPlanar, ModulationChainPlanar,
                         fir_fft_chain, fir_fft_chain_planar,
                         modulation_chain_planar, windowed_spectrum)
@@ -48,7 +59,8 @@ from .windows import (BlackmanHarrisWindow, HammingWindow,
                       RectangularWindow, TriangularWindow, WindowFunction)
 
 __all__ = [
-    "BlackmanHarrisWindow", "ComplexFrequencyLinearTableLookup",
+    "BlackmanHarrisWindow", "ChannelizeAndDemodPlanar",
+    "ComplexFrequencyLinearTableLookup",
     "ComplexFrequencyResponse", "ComplexImpulseResponse",
     "ComplexTimeLinearTableLookup", "DspConfig", "DspError", "ErrorReason",
     "FirFftChainPlanar", "HammingWindow", "ModulationChainPlanar",
@@ -56,11 +68,14 @@ __all__ = [
     "RealFrequencyLinearTableLookup", "RealFrequencyResponse",
     "RealImpulseResponse", "RealTimeLinearTableLookup", "RectangularWindow",
     "SincFunction", "TriangularWindow", "WindowFunction",
-    "blocked_linear_conv_cuda", "blocked_linear_conv_plain", "conv_ops",
+    "blocked_linear_conv_cuda", "blocked_linear_conv_plain",
+    "channelize_and_demod", "channelize_and_demod_planar",
+    "channelize_demod_cuda", "channelize_demod_plain", "conv_ops",
     "default_config", "dif_spectrum_mag_cuda", "fft_ops", "fir_fft_chain",
-    "fir_fft_chain_planar", "fourstep", "from_numpy", "interp_ops",
-    "matmul_precision", "modulation_chain_planar", "natural_flatten",
-    "overlap_save_cuda", "reorg_ops", "resample_direct_cuda",
+    "fir_fft_chain_planar", "fm_demodulate", "fourstep", "from_numpy",
+    "interp_ops", "matmul_precision", "modulation_chain_planar",
+    "natural_flatten", "overlap_save_cuda", "parallel",
+    "polyphase_channelizer", "reorg_ops", "resample_direct_cuda",
     "resample_direct_plain", "resample_rowblock_cuda",
     "resample_rowblock_plain", "rowfft_mag", "rowfft_mag_plain",
     "set_default_config", "set_matmul_precision", "supported",

@@ -16,7 +16,8 @@ import torch
 # so only the inner twiddle (Wr, Wi) is kept.
 _KEYS = {"taps": None, "window": None, "_dif_planes": 4,
          "_dif_twiddle_factored": 4, "_inner_consts": 2, "_dft_planes": 3,
-         "polyphase_taps": None, "_rowblock_matrices": 0}
+         "polyphase_taps": None, "_rowblock_matrices": 0, "prototype": None,
+         "taps_merged": None}
 # Complex taps are what the overlap-save path's own tests convolve with;
 # the resampler's constants are float64 where lin/hermite build them so.
 _DTYPES = {"taps": (np.float32, np.complex64),
@@ -36,11 +37,13 @@ def from_numpy(params: dict, device) -> dict:
     """Maps ``{"taps": ..., "window": ..., "_dif_planes": (4 planes),
     "_dif_twiddle_factored": (4), "_inner_consts": (5), "_dft_planes":
     (3), "polyphase_taps": (P, 2L+1), "_rowblock_matrices": [(Q, P),
-    ...]}`` of float32 numpy arrays (any subset of these keys; taps may
-    also be complex64, the resampler's two constants float64) to the same
-    keys holding tensors of the same dtype on ``device``: a tensor for
-    taps, window and polyphase_taps, a tuple of plane tensors for each
-    constant family."""
+    ...], "prototype": (t*C,), "taps_merged": (t+1, C)}`` of float32
+    numpy arrays (any subset of these keys; taps may also be complex64,
+    the resampler's two constants float64) to the same keys holding
+    tensors of the same dtype on ``device``: a tensor for taps, window,
+    polyphase_taps, the channelizer's prototype and its merged tap matrix
+    (``parallel.channelizer._merged_tap_rows``), a tuple of plane tensors
+    for each constant family."""
     out = {}
     for key, value in params.items():
         if key not in _KEYS:

@@ -6,8 +6,8 @@
 Phases (any failure raises and exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles and loads the three CUDA libraries (rowfft_mag,
-   overlap_save, resample), one nvcc each, started together;
+1. build: compiles and loads the four CUDA libraries (rowfft_mag,
+   overlap_save, resample, channelizer), one nvcc each, started together;
 2. kernels vs plain, on the card, <= 2e-6 relative to the maximum:
    ``rowfft_mag`` against ``rowfft_mag_plain`` at four geometries,
    ``blocked_linear_conv_cuda`` against ``blocked_linear_conv_plain`` at
@@ -16,7 +16,10 @@ Phases (any failure raises and exits non-zero):
    on two: ``resample_direct_cuda`` (K4) at six (P, Q, L, n), among them
    interpolate_lin's 2-tap geometry with zero offsets, and
    ``resample_rowblock_cuda`` (K5) at three, among them an n that 147
-   does not divide;
+   does not divide; ``channelize_demod_cuda`` (K6) against
+   ``channelize_demod_plain`` at four (C, S, taps per phase), among them
+   config #5's and a ragged S with a non-zero prefix, with ``demod`` True
+   (angles, by the |z|-weighted wrapped error) and False (z);
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    a. the spectrum chain: ``FirFftChainPlanar`` at n = 2^22 with 128
@@ -37,9 +40,17 @@ Phases (any failure raises and exits non-zero):
       160/147 (K5);
    c-e are checked against the defining sum in float64 on the card, with
    taps sampled in float64 (<= 5e-6 relative);
+   f. config #5: ``channelize_and_demod_planar`` of 2^22 samples into
+      1024 channels, prototype ``hamming(8192) / 1024`` (K6 once), against
+      a float64 oracle (the stencil in float64, ``C * ifft`` in
+      complex128, the demod; |z|-weighted angle error <= 5e-6); then
+      ``channelize_and_demod``, ``ChannelizeAndDemodPlanar`` and
+      ``polyphase_channelizer`` (no kernel, against the oracle's channels
+      at 5e-6) once each;
 4. times with CUDA events (median of 20 after warm-up): every path, and
    each kernel against its plain version in turns; ``torch.profiler``
-   device time of each resampling path (c-e), for its idle share.
+   device time of the resampling paths (c-e) and the channelizer (f), for
+   their idle share.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -73,6 +84,13 @@ K5_GEOMETRIES = [(160, 147, 10, 1 << 20), (160, 147, 10, (1 << 20) + 37),
 CFG3_N = 1 << 20
 CFG4_SYMBOLS = 1 << 17
 AUDIO_N = 1 << 20
+CHAN_N = 1 << 22
+CHAN_C = 1024
+CHAN_TAPS = 8
+# K6 geometries (C, S, taps per phase, with a random prefix)
+K6_GEOMETRIES = [(CHAN_C, CHAN_N // CHAN_C, CHAN_TAPS, False),
+                 (256, 1024, 4, False), (512, 4099, CHAN_TAPS, True),
+                 (2048, 64, 15, False)]
 
 
 def rel_err(got, ref):
@@ -152,6 +170,38 @@ def evened(n, P, Q):
     return m + m % 2
 
 
+def z_err(got, ref):
+    """max |z - z_ref| / max |z_ref| of (zr, zi) plane pairs, and the
+    maximum absolute error."""
+    d = float(torch.hypot(got[0] - ref[0], got[1] - ref[1]).max())
+    return d / float(torch.hypot(ref[0], ref[1]).max()), d
+
+
+def angle_err(ang, ang_ref, zr, zi):
+    """max(|z| * |wrap(ang - ang_ref)|) / max |z|, in float64: an angle
+    where |z| ~ 0 has no defined phase to disagree about."""
+    d = ang.double() - ang_ref.double()
+    d = torch.atan2(torch.sin(d), torch.cos(d)).abs()
+    amp = torch.hypot(zr.double(), zi.double())
+    return float((amp * d).max() / amp.max())
+
+
+def chan_oracle(xr, xi, taps_merged, C):
+    """The channelizer in float64 on the card: the merged-tap stencil over
+    zero-padded rows, C * ifft in complex128, and z = y * conj(prev) with
+    prev[0] = y[0].  Returns the channels y and z, both (C, S)."""
+    S = xr.shape[-1] // C
+    tp1 = taps_merged.shape[0]
+    X = torch.complex(xr.double(), xi.double()).reshape(S, C)
+    ext = torch.cat([torch.zeros((tp1 - 1, C), dtype=X.dtype,
+                                 device=X.device), X])
+    ts = taps_merged.double()
+    u = sum(ts[p] * ext[tp1 - 1 - p:tp1 - 1 - p + S] for p in range(tp1))
+    y = C * torch.fft.ifft(u, dim=-1)
+    z = y * torch.cat([y[:1], y[:-1]]).conj()
+    return y.T, z.T
+
+
 def device_ms_per_call(fn, calls=10):
     """Device ms per call from torch.profiler (the device-side events'
     time over ``calls`` calls), and the ms of each kernel."""
@@ -199,10 +249,12 @@ def main():
 
     import basic_dsp_tpu_torch as bt
     from basic_dsp_tpu_torch.kernels import _build
+    from basic_dsp_tpu_torch.kernels import channelizer_cuda as chc
     from basic_dsp_tpu_torch.kernels import overlap_save_cuda as osc
     from basic_dsp_tpu_torch.kernels import resample_cuda as rsc
     from basic_dsp_tpu_torch.kernels import spectrum_cuda as sc
     from basic_dsp_tpu_torch.ops import conv_ops, fourstep, interp_ops
+    from basic_dsp_tpu_torch.parallel import channelizer as chz
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -220,17 +272,24 @@ def main():
         osc.blocked_linear_conv_cuda.launches = 0
         rsc.resample_direct_cuda.launches = 0
         rsc.resample_rowblock_cuda.launches = 0
+        chc.channelize_demod_cuda.launches = 0
+
+    def other_launches():
+        return (sc.rowfft_mag.launches + osc.blocked_linear_conv_cuda.launches
+                + rsc.resample_direct_cuda.launches
+                + rsc.resample_rowblock_cuda.launches)
 
     # 1. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = (sc._lib, osc._lib, rsc._lib)
+    libs = (sc._lib, osc._lib, rsc._lib, chc._lib)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path('rowfft_mag').name}, "
           f"{_build.library_path('overlap_save').name}, "
-          f"{_build.library_path('resample').name})")
+          f"{_build.library_path('resample').name}, "
+          f"{_build.library_path('channelizer').name})")
 
     # 2. kernel against its plain version, on the card
     abs_err_4m = None
@@ -309,6 +368,34 @@ def main():
     assert rsc.resample_direct_cuda.launches == 12
     assert rsc.resample_rowblock_cuda.launches == 6
     del got, ref, rows
+
+    k6_abs_err = None
+    for C, S, taps_pp, with_prefix in K6_GEOMETRIES:
+        xr, xi = planes(S * C)
+        proto = torch.from_numpy((np.hamming(C * taps_pp) / C)
+                                 .astype(np.float32)).to(dev)
+        ts = chz._merged_tap_rows(proto, C)
+        pre = tuple(planes(chc.HALO_ROWS, C)) if with_prefix else None
+        got = chc.channelize_demod_cuda(xr, xi, ts, C, False, pre)
+        ref = chc.channelize_demod_plain(xr, xi, ts, C, False, pre)
+        ang = chc.channelize_demod_cuda(xr, xi, ts, C, True, pre)
+        ang_ref = chc.channelize_demod_plain(xr, xi, ts, C, True, pre)
+        torch.cuda.synchronize()
+        err, abs_err = z_err(got, ref)
+        a_err = angle_err(ang, ang_ref, *ref)
+        print(f"channelize_demod_cuda vs plain at (C={C}, S={S}, "
+              f"taps={taps_pp}, prefix {'random' if with_prefix else '0'}): "
+              f"z {err:.3e}, angles {a_err:.3e} relative to max |z| "
+              f"(tol {KERNEL_TOL})")
+        assert got[0].shape == got[1].shape == ang.shape == (S, C)
+        assert bool(torch.isfinite(ang).all())
+        assert err <= KERNEL_TOL and a_err <= KERNEL_TOL, (C, S, err, a_err)
+        if not with_prefix:
+            assert bool((ang[0] == 0).all())       # row -1 is 0
+        if C == CHAN_C:
+            k6_abs_err = abs_err
+    assert chc.channelize_demod_cuda.launches == 2 * len(K6_GEOMETRIES)
+    del got, ref, ang, ang_ref, xr, xi
 
     # 3a. main path: the spectrum chain at full size
     taps = rc_taps(TAPS, dev)
@@ -463,6 +550,45 @@ def main():
     assert err <= CHAIN_TOL, err
     del ya
 
+    # 3f. main path: config #5, 2^22 samples into 1024 channels
+    rng0 = np.random.default_rng(0)
+    xr5, xi5 = (torch.from_numpy(rng0.standard_normal(CHAN_N)
+                                 .astype(np.float32)).to(dev)
+                for _ in range(2))
+    proto5 = torch.from_numpy((np.hamming(CHAN_C * CHAN_TAPS) / CHAN_C)
+                              .astype(np.float32)).to(dev)
+    y5, z5 = chan_oracle(xr5, xi5, chz._merged_tap_rows(proto5, CHAN_C),
+                         CHAN_C)
+    S5 = CHAN_N // CHAN_C
+    reset_counts()
+    ang5 = bt.channelize_and_demod_planar(xr5, xi5, proto5, CHAN_C)
+    torch.cuda.synchronize()
+    chan_launches = chc.channelize_demod_cuda.launches
+    print(f"main path: channelize_and_demod_planar n={CHAN_N}, {CHAN_C} "
+          f"channels, {CHAN_TAPS} taps per phase, channelize_demod_cuda "
+          f"launches: {chan_launches}, other kernels: {other_launches()}")
+    assert chan_launches == 1, "config #5 did not launch K6 once"
+    assert other_launches() == 0
+    assert ang5.shape == (CHAN_C, S5) and ang5.dtype == torch.float32
+    assert bool(torch.isfinite(ang5).all())
+    err = angle_err(ang5, torch.angle(z5), z5.real, z5.imag)
+    print(f"channelize_and_demod_planar vs float64 oracle: {err:.3e} "
+          f"(|z|-weighted angle error relative to max |z|, tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    x5 = torch.complex(xr5, xi5)
+    chan5 = bt.ChannelizeAndDemodPlanar(proto5, CHAN_C)
+    assert torch.equal(bt.channelize_and_demod(x5, proto5, CHAN_C), ang5)
+    assert torch.equal(chan5(xr5, xi5), ang5)
+    y = bt.polyphase_channelizer(x5, proto5, CHAN_C)
+    torch.cuda.synchronize()
+    err = rel_err(y.to(torch.complex128), y5)
+    print(f"polyphase_channelizer (no kernel) vs oracle: {err:.3e} "
+          f"(tol {CHAIN_TOL})")
+    assert y.shape == (CHAN_C, S5) and err <= CHAIN_TOL, err
+    assert chc.channelize_demod_cuda.launches == 3
+    assert other_launches() == 0
+    del y5, z5, y, x5
+
     # 4. times (CUDA events, median of REPS after warm-up)
     chain_ms = median_ms(lambda: chain(xr, xi))
     print(f"chain: {chain_ms:.4f} ms/call, {N / chain_ms / 1e3:.1f} "
@@ -497,6 +623,11 @@ def main():
          2 * 10 * CFG4_SYMBOLS, lambda: mod(sym_r, sym_i)),
         ("audio: interpolatef 160/147, 2^20 real", audio_len,
          lambda: interp_ops.interpolatef(xa, sinc, 160 / 147, 0.0, 10, 1.0)),
+        ("config #5: channelize_and_demod_planar, 2^22 into 1024 channels",
+         CHAN_N, lambda: bt.channelize_and_demod_planar(xr5, xi5, proto5,
+                                                        CHAN_C)),
+        ("config #5: ChannelizeAndDemodPlanar (taps held)", CHAN_N,
+         lambda: chan5(xr5, xi5)),
     ]
     for name, outputs, fn in paths:
         ms = median_ms(fn)
@@ -531,6 +662,12 @@ def main():
                                             10, audio_len),
         lambda: rsc.resample_rowblock_cuda(rowsa, tapsa, 160, 147, offsa,
                                            10, audio_len), smi)
+    ts5 = chan5.taps_merged
+    k6_ms, k6_plain_ms = in_turns(
+        f"channelize_demod_cuda (C={CHAN_C}, S={S5}, {CHAN_TAPS + 1} tap "
+        f"rows)",
+        lambda: chc.channelize_demod_plain(xr5, xi5, ts5, CHAN_C),
+        lambda: chc.channelize_demod_cuda(xr5, xi5, ts5, CHAN_C), smi)
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -556,7 +693,12 @@ def main():
         "replaces": "basic_dsp_tpu/kernels/resample_pallas.py:260",
         "launches": audio_launches,
         "max_abs_err": rs_abs_err[("rowblock", 160, 147, 1 << 20, 1)],
-        "ms": k5_ms, "plain_ms": k5_plain_ms}]}))
+        "ms": k5_ms, "plain_ms": k5_plain_ms}, {
+        "name": "channelize_demod", "route": "cuda",
+        "source": "basic_dsp_tpu_torch/csrc/channelizer.cu",
+        "replaces": "basic_dsp_tpu/kernels/channelizer_pallas.py:221",
+        "launches": chan_launches, "max_abs_err": k6_abs_err,
+        "ms": k6_ms, "plain_ms": k6_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
