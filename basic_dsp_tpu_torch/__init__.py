@@ -9,7 +9,8 @@ version for a CPU tensor.
 
 Ported so far: the flagship FIR + FFT spectrum chain
 (:func:`pipelines.fir_fft_chain_planar`, :class:`FirFftChainPlanar`) and
-what it runs on, with kernel ``kernels.spectrum_cuda.rowfft_mag``; and the
+what it runs on, with kernel ``kernels.spectrum_cuda.rowfft_mag`` and, with
+``fused=True``, ``kernels.spectrum_cuda.fourstep_mag_fused``; and the
 convolution family of ``ops.conv_ops`` (the ``convolve_signal`` dispatch,
 its planar entry, overlap-save, analytic-function convolution, frequency
 multiplication, correlation) with the lookup tables of ``conv_types`` and
@@ -23,8 +24,11 @@ and kernels ``kernels.resample_cuda.resample_direct_cuda`` and
 (``parallel.channelizer``: ``polyphase_channelizer``, ``fm_demodulate``,
 ``channelize_and_demod`` and its planar entry,
 :class:`ChannelizeAndDemodPlanar`) with kernel
-``kernels.channelizer_cuda.channelize_demod_cuda``.  Four CUDA libraries
-in all, one per ``csrc/*.cu``.
+``kernels.channelizer_cuda.channelize_demod_cuda``.  Six kernels of the
+JAX package's six, in four CUDA libraries, one per ``csrc/*.cu``.
+Entry points that build tensors (``WindowFunction.sample``,
+``interp_ops.polyphase_taps``, :class:`ModulationChainPlanar`) put them on
+the card unless the caller names a device.
 """
 from .config import (DspConfig, default_config, matmul_precision,
                      set_default_config, set_matmul_precision)
@@ -44,7 +48,9 @@ from .kernels.resample_cuda import (resample_direct_cuda,
                                     resample_direct_plain,
                                     resample_rowblock_cuda,
                                     resample_rowblock_plain)
-from .kernels.spectrum_cuda import (dif_spectrum_mag_cuda, natural_flatten,
+from .kernels.spectrum_cuda import (dif_spectrum_mag_cuda,
+                                    fourstep_mag_fused,
+                                    fourstep_mag_fused_plain, natural_flatten,
                                     rowfft_mag, rowfft_mag_plain, supported)
 from .ops import conv_ops, fft_ops, fourstep, interp_ops, reorg_ops
 from . import parallel
@@ -72,7 +78,8 @@ __all__ = [
     "channelize_and_demod", "channelize_and_demod_planar",
     "channelize_demod_cuda", "channelize_demod_plain", "conv_ops",
     "default_config", "dif_spectrum_mag_cuda", "fft_ops", "fir_fft_chain",
-    "fir_fft_chain_planar", "fm_demodulate", "fourstep", "from_numpy",
+    "fir_fft_chain_planar", "fm_demodulate", "fourstep",
+    "fourstep_mag_fused", "fourstep_mag_fused_plain", "from_numpy",
     "interp_ops", "matmul_precision", "modulation_chain_planar",
     "natural_flatten", "overlap_save_cuda", "parallel",
     "polyphase_channelizer", "reorg_ops", "resample_direct_cuda",

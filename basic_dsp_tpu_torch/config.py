@@ -42,6 +42,18 @@ class DspConfig:
     fail_on_slow_path: bool = False
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point builds its tensors on: the card
+    (``torch.device("cuda")``) unless the caller names one.  Without CUDA
+    the default raises; it never falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: entry points run on the card by "
+                           "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 _default_config = DspConfig()
 
 

@@ -1,15 +1,18 @@
-"""The four-step spectrum's row stage as a hand-written CUDA kernel
-(counterpart of ``basic_dsp_tpu/kernels/spectrum_pallas.py``).
+"""The four-step spectrum as hand-written CUDA kernels (counterpart of
+``basic_dsp_tpu/kernels/spectrum_pallas.py``).
 
-:func:`rowfft_mag` takes the post-stage-1 planes of the DIF four-step,
-applies the factored big twiddle, runs each row's length-n2 FFT, folds the
-global fftshift into a 64-column rotation and returns magnitudes, in the
-layout (n1, L2, 128) of the JAX kernel's ``permuted=False`` output.
+:func:`rowfft_mag` (K1) takes the post-stage-1 planes of the DIF
+four-step, applies the factored big twiddle, runs each row's length-n2
+FFT, folds the global fftshift into a 64-column rotation and returns
+magnitudes, in the layout (n1, L2, 128) of the JAX kernel's
+``permuted=False`` output.  :func:`fourstep_mag_fused` (K2) takes the
+windowed planes before stage 1 and runs both stages, with the dense big
+twiddle, into the same layout.
 
-For a CUDA tensor it launches ``csrc/rowfft_mag.cu`` (two passes; the
-source says why) or raises; for a CPU tensor it runs the plain PyTorch
-version :func:`rowfft_mag_plain`.  The kernel is built at its first
-launch, never at import.
+For a CUDA tensor each launches ``csrc/rowfft_mag.cu`` (the source says
+how and why) or raises; for a CPU tensor it runs its plain PyTorch
+version (:func:`rowfft_mag_plain`, :func:`fourstep_mag_fused_plain`).
+The library is built at the first launch, never at import.
 """
 from __future__ import annotations
 
@@ -90,6 +93,8 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rowfft_mag_launch.argtypes = [vp] * 11 + [ci, ci, ci, vp]
     lib.rowfft_mag_launch.restype = ci
+    lib.fourstep_mag_fused_launch.argtypes = [vp] * 9 + [ci, ci, ci, vp]
+    lib.fourstep_mag_fused_launch.restype = ci
     lib.rowfft_mag_error_string.argtypes = [ci]
     lib.rowfft_mag_error_string.restype = ctypes.c_char_p
     return lib
@@ -147,6 +152,96 @@ def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
 
 
 rowfft_mag.launches = 0
+
+
+def fused_supported(n1: int, n2: int) -> bool:
+    """Geometries :func:`fourstep_mag_fused` takes: the row stage's n2
+    (L2 = n2 / 128 a power of two in [2, 1024]) and, as JAX's kernel,
+    n1 a multiple of 8; n1 <= 1024 keeps stage 1's (n1, 16) column panel
+    in shared memory (128 KiB at n1 = 1024)."""
+    return supported(n1, n2) and n1 % 8 == 0 and 8 <= n1 <= 1024
+
+
+@functools.lru_cache(maxsize=2)
+def _dense_consts(n1: int, n2: int, device: torch.device):
+    """The plain version's constants on ``device``: the Karatsuba DFT-n1
+    planes of ``fourstep._dft_planes`` and the dense big twiddle T of
+    ``fourstep._dif_planes`` as one complex64 tensor (32 MiB at 2^22, so
+    a card keeps at most two geometries)."""
+    from ..ops import fourstep
+
+    F = tuple(torch.from_numpy(p).to(device)
+              for p in fourstep._dft_planes(n1))
+    _, _, Tr, Ti = fourstep._dif_planes(n1, n2)
+    return F, torch.complex(torch.from_numpy(Tr), torch.from_numpy(Ti)).to(
+        device)
+
+
+def fourstep_mag_fused_plain(Ar: torch.Tensor, Ai: torch.Tensor,
+                             shift: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fourstep_mag_fused`: stage 1 as the
+    Karatsuba matmuls of ``fourstep.stage1_planar`` with the DFT-n1
+    planes, the dense big twiddle T of ``fourstep._dif_planes``, then
+    :func:`rowfft_mag_plain` of the twiddled rows."""
+    from ..ops import fourstep
+
+    F, T = _dense_consts(*Ar.shape, Ar.device)
+    Br, Bi = fourstep.stage1_planar(*F, Ar, Ai)
+    C = torch.complex(Br, Bi) * T
+    return rowfft_mag_plain(C.real.contiguous(), C.imag.contiguous(), shift)
+
+
+def fourstep_mag_fused(Ar: torch.Tensor, Ai: torch.Tensor,
+                       shift: bool = True, W=None) -> torch.Tensor:
+    """|fftshift(FFT)| of the (n1, n2)-reshaped planar signal, both
+    four-step stages in one launch.
+
+    Ar, Ai: the (n1, n2) float32 planes of the windowed signal, n1 * n2 =
+    N, ``fused_supported(n1, n2)``.  ``W``: optional (Wr, Wi) inner-twiddle
+    planes (:func:`inner_twiddle`); built when None.  Returns (n1, L2,
+    128) f32 in :func:`rowfft_mag`'s layout (flatten with
+    :func:`natural_flatten`).  A CPU tensor takes
+    :func:`fourstep_mag_fused_plain`; a CUDA tensor launches
+    ``fourstep_mag_fused_launch`` (stage 1, then K1's two passes) and adds
+    one to ``fourstep_mag_fused.launches``, not to
+    ``rowfft_mag.launches``.
+    """
+    if Ar.dim() != 2 or Ar.shape != Ai.shape:
+        raise ValueError(f"Ar, Ai must be equal 2-D shapes, got "
+                         f"{tuple(Ar.shape)} and {tuple(Ai.shape)}")
+    n1, n2 = Ar.shape
+    if not fused_supported(n1, n2):
+        raise ValueError(f"fourstep_mag_fused: unsupported geometry "
+                         f"({n1}, {n2})")
+    L2 = n2 // LANES
+    dev = Ar.device
+    _check_planes("Ar/Ai", (Ar, Ai), [(n1, n2)] * 2, dev)
+    if dev.type == "cpu":
+        return fourstep_mag_fused_plain(Ar, Ai, shift)
+    if dev.type != "cuda":
+        raise ValueError(f"fourstep_mag_fused: no kernel for device {dev}")
+    if W is None:
+        W = inner_twiddle(L2, n2, dev)
+    _check_planes("W", W, [(L2, LANES)] * 2, dev)
+    lib = _lib()
+    C = torch.empty((2, n1, n2), dtype=torch.float32, device=dev)
+    H = torch.empty((2, n1, L2, LANES), dtype=torch.float32, device=dev)
+    out = torch.empty((n1, L2, LANES), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.fourstep_mag_fused_launch(
+            Ar.data_ptr(), Ai.data_ptr(), W[0].data_ptr(), W[1].data_ptr(),
+            C[0].data_ptr(), C[1].data_ptr(), H[0].data_ptr(),
+            H[1].data_ptr(), out.data_ptr(), n1, L2,
+            LANES // 2 if shift else 0, stream)
+    if rc != 0:
+        raise RuntimeError("fourstep_mag_fused kernel launch failed: "
+                           + lib.rowfft_mag_error_string(rc).decode())
+    fourstep_mag_fused.launches += 1
+    return out
+
+
+fourstep_mag_fused.launches = 0
 
 
 def natural_flatten(M: torch.Tensor) -> torch.Tensor:

@@ -41,13 +41,15 @@ def _real_dtype(x: torch.Tensor) -> torch.dtype:
 def polyphase_taps(fun, P: int, Q: int, delay: float, L: int,
                    real_dtype: torch.dtype, device=None):
     """Per-phase tap vectors for the P/Q polyphase resampler, sampled in
-    ``real_dtype`` on ``device``.
+    ``real_dtype`` on ``device`` (the card when None:
+    ``config.resolve_device``).
 
     With output index ``i = k*P + p``: ``floor(i*Q/P) = k*Q + offs[p]``
     and ``frac = (p*Q mod P)/P``, so phase ``p`` correlates x against
     ``fun(s - frac[p] + delay)``, ``s = -L..L`` (interpolation.rs:92-131).
     Returns ``(taps (P, 2L+1), offs)``; complex-valued functions give
     complex taps."""
+    device = config.resolve_device(device)
     p = np.arange(P)
     fracs = ((p * Q) % P) / P
     offs = tuple(int(o) for o in (p * Q) // P)

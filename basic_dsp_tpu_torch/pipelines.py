@@ -11,8 +11,10 @@
 4. the row stage, ``kernels.spectrum_cuda.rowfft_mag`` (the CUDA kernel on
    the card), then one transpose into spectrum order.
 
-:class:`FirFftChainPlanar` holds the chain's constants as buffers, so a
-call computes and does not rebuild them.
+With ``fused=True`` steps 3 and 4 are one launch,
+``kernels.spectrum_cuda.fourstep_mag_fused`` (stage 1, the dense big
+twiddle and the row stage).  :class:`FirFftChainPlanar` holds the chain's
+constants as buffers, so a call computes and does not rebuild them.
 
 ``modulation_chain_planar`` (config #4) pulse-shapes two PRBS symbol
 planes with raised-cosine taps through the polyphase resampler
@@ -81,70 +83,87 @@ def _check_budget(budget):
 
 
 def _planar_chain(xr, xi, taps, bands, window, dft, Tfac, W, n1, n2):
+    """The chain after its constants; ``dft`` None takes the fused
+    spectrum (``Tfac`` unused)."""
     fr, fi = conv_ops.toeplitz_conv_planar(xr, xi, taps, bands)
     Ar = (fr * window).reshape(n1, n2)
     Ai = (fi * window).reshape(n1, n2)
-    Br, Bi = fourstep.stage1_planar(*dft, Ar, Ai)
-    M = spectrum_cuda.rowfft_mag(Br, Bi, shift=True, Tfac=Tfac, W=W)
+    if dft is None:
+        M = spectrum_cuda.fourstep_mag_fused(Ar, Ai, shift=True, W=W)
+    else:
+        Br, Bi = fourstep.stage1_planar(*dft, Ar, Ai)
+        M = spectrum_cuda.rowfft_mag(Br, Bi, shift=True, Tfac=Tfac, W=W)
     return spectrum_cuda.natural_flatten(M)
 
 
-def _geometry(n: int, n1: int):
+def _geometry(n: int, n1: int, fused: bool):
     n1, n2 = fourstep.factor(n, n1)
-    if not spectrum_cuda.supported(n1, n2):
-        raise ValueError(f"no row-kernel geometry for n={n} "
-                         f"(n1={n1}, n2={n2})")
+    ok = (spectrum_cuda.fused_supported if fused
+          else spectrum_cuda.supported)(n1, n2)
+    if not ok:
+        raise ValueError(f"no {'fused' if fused else 'row'}-kernel geometry "
+                         f"for n={n} (n1={n1}, n2={n2})")
     return n1, n2
 
 
-def _constants(n1: int, n2: int, device):
+def _constants(n1: int, n2: int, device, fused: bool):
+    """(dft, Tfac, W) planes on ``device``; the fused kernel computes its
+    own stage 1 and twiddle, so it takes W alone (dft, Tfac None)."""
+    W = spectrum_cuda.inner_twiddle(n2 // spectrum_cuda.LANES, n2, device)
+    if fused:
+        return None, None, W
     dft = tuple(torch.from_numpy(p).to(device)
                 for p in fourstep._dft_planes(n1))
     Tfac = tuple(torch.from_numpy(p).to(device)
                  for p in fourstep._dif_twiddle_factored(n1, n2))
-    W = spectrum_cuda.inner_twiddle(n2 // spectrum_cuda.LANES, n2, device)
     return dft, Tfac, W
 
 
 def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
                          taps: torch.Tensor, window: torch.Tensor,
-                         n1: int = 0, budget: str = None) -> torch.Tensor:
+                         n1: int = 0, budget: str = None,
+                         fused: bool = False) -> torch.Tensor:
     """All-planar flagship chain: centered real-tap FIR + window + shifted
     FFT magnitude, complex data as (re, im) planes from entry to exit.
 
     Same math as :func:`fir_fft_chain` with real ``taps``.  ``budget``
     keeps the JAX chain's grammar; only None (f32-exact) is ported.
-    Builds the constants on every call; :class:`FirFftChainPlanar` holds
-    them."""
-    n1, n2 = _geometry(xr.shape[-1], n1)
+    ``fused=True`` runs stage 1 and the row stage as one launch
+    (``spectrum_cuda.fourstep_mag_fused``, K2) instead of the stage-1
+    matmuls and ``rowfft_mag`` (K1).  Builds the constants on every call;
+    :class:`FirFftChainPlanar` holds them."""
+    n1, n2 = _geometry(xr.shape[-1], n1, fused)
     _check_budget(budget)
     tf = taps.to(xr.dtype)
-    dft, Tfac, W = _constants(n1, n2, xr.device)
+    dft, Tfac, W = _constants(n1, n2, xr.device, fused)
     return _planar_chain(xr, xi, tf, conv_ops.toeplitz_bands(tf, n1 * n2),
                          window.to(xr.dtype), dft, Tfac, W, n1, n2)
 
 
 class FirFftChainPlanar(torch.nn.Module):
     """:func:`fir_fft_chain_planar` with its constants as buffers: the
-    Toeplitz band matrices, the DFT-n1 Karatsuba planes, the factored big
-    twiddle, the inner twiddle and the window.  The signal length is the
+    Toeplitz band matrices, the window, the inner twiddle and, unless
+    ``fused``, the DFT-n1 Karatsuba planes and the factored big twiddle
+    (the fused kernel computes its own).  The signal length is the
     window's.  ``forward(xr, xi)`` returns the (n,) magnitude spectrum."""
 
     def __init__(self, taps: torch.Tensor, window: torch.Tensor,
-                 n1: int = 0):
+                 n1: int = 0, fused: bool = False):
         super().__init__()
         n = window.shape[-1]
-        self.n1, self.n2 = _geometry(n, n1)
+        self.fused = bool(fused)
+        self.n1, self.n2 = _geometry(n, n1, self.fused)
         dev = window.device
         taps = taps.to(device=dev, dtype=torch.float32)
-        dft, Tfac, W = _constants(self.n1, self.n2, dev)
+        dft, Tfac, W = _constants(self.n1, self.n2, dev, self.fused)
         self.register_buffer("taps", taps)
         self.register_buffer("bands", conv_ops.toeplitz_bands(taps, n))
         self.register_buffer("window", window.to(torch.float32))
-        for name, p in zip(("dft_r", "dft_p", "dft_m"), dft):
-            self.register_buffer(name, p)
-        for name, p in zip(("tw_ar", "tw_ai", "tw_br", "tw_bi"), Tfac):
-            self.register_buffer(name, p)
+        if not self.fused:
+            for name, p in zip(("dft_r", "dft_p", "dft_m"), dft):
+                self.register_buffer(name, p)
+            for name, p in zip(("tw_ar", "tw_ai", "tw_br", "tw_bi"), Tfac):
+                self.register_buffer(name, p)
         self.register_buffer("w_r", W[0])
         self.register_buffer("w_i", W[1])
 
@@ -153,11 +172,13 @@ class FirFftChainPlanar(torch.nn.Module):
         if xr.shape != (n,) or xi.shape != (n,):
             raise ValueError(f"expected two ({n},) planes, got "
                              f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-        return _planar_chain(
-            xr, xi, self.taps, self.bands, self.window,
-            (self.dft_r, self.dft_p, self.dft_m),
-            (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi),
-            (self.w_r, self.w_i), self.n1, self.n2)
+        if self.fused:
+            dft = Tfac = None
+        else:
+            dft = (self.dft_r, self.dft_p, self.dft_m)
+            Tfac = (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi)
+        return _planar_chain(xr, xi, self.taps, self.bands, self.window, dft,
+                             Tfac, (self.w_r, self.w_i), self.n1, self.n2)
 
 
 def modulation_chain_planar(sr: torch.Tensor, si: torch.Tensor,
@@ -181,7 +202,8 @@ class ModulationChainPlanar(torch.nn.Module):
     are a tuple of ints: they are part of the resampler's geometry).
     ``forward(sr, si)`` returns ``(baseband_re, baseband_im)`` for symbol
     planes long enough that the tap window is ``conv_len`` and the call
-    takes the polyphase resampler (for factor 10: n >= 2*conv_len + 1)."""
+    takes the polyphase resampler (for factor 10: n >= 2*conv_len + 1).
+    The taps live on ``device``, the card when None."""
 
     def __init__(self, beta: float = 0.35, factor: float = 10.0,
                  delay: float = 0.0, conv_len: int = 10, device=None):

@@ -2,13 +2,16 @@
 
 Same formulas and the same ``window(n, length)`` contract: ``n`` ranges
 over ``0..length``.  ``sample`` evaluates the whole window as one tensor
-expression in the requested dtype on the requested device.
+expression in the requested dtype on the requested device (the card by
+default).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from . import config
 
 
 class WindowFunction:
@@ -33,8 +36,10 @@ class WindowFunction:
 
     def sample(self, length: int, dtype=torch.float32,
                device=None) -> torch.Tensor:
-        """Returns the full window as a tensor of ``length`` points."""
-        n = torch.arange(length, dtype=dtype, device=device)
+        """Returns the full window as a tensor of ``length`` points, on the
+        card unless ``device`` names another (``config.resolve_device``)."""
+        n = torch.arange(length, dtype=dtype,
+                         device=config.resolve_device(device))
         return self.window(n, float(length)).to(dtype)
 
 

@@ -6,10 +6,14 @@
 Phases (any failure raises and exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles and loads the four CUDA libraries (rowfft_mag,
-   overlap_save, resample, channelizer), one nvcc each, started together;
+1. build: compiles and loads the four CUDA libraries (rowfft_mag, which
+   holds K1 and K2, overlap_save, resample, channelizer), one nvcc each,
+   started together;
 2. kernels vs plain, on the card, <= 2e-6 relative to the maximum:
-   ``rowfft_mag`` against ``rowfft_mag_plain`` at four geometries,
+   ``rowfft_mag`` (K1) against ``rowfft_mag_plain`` at four geometries,
+   ``fourstep_mag_fused`` (K2) against ``fourstep_mag_fused_plain`` at
+   four, among them a non-power-of-two n1 (the direct sum), the 4M
+   geometry and L2 = 1024,
    ``blocked_linear_conv_cuda`` against ``blocked_linear_conv_plain`` at
    five (n, taps, fft_len), with complex and with real taps, and the
    resampler's two wrappers against their plain versions on one row and
@@ -47,10 +51,16 @@ Phases (any failure raises and exits non-zero):
       ``channelize_and_demod``, ``ChannelizeAndDemodPlanar`` and
       ``polyphase_channelizer`` (no kernel, against the oracle's channels
       at 5e-6) once each;
-4. times with CUDA events (median of 20 after warm-up): every path, and
-   each kernel against its plain version in turns; ``torch.profiler``
-   device time of the resampling paths (c-e) and the channelizer (f), for
-   their idle share.
+   g. the fused spectrum chain: ``FirFftChainPlanar(..., fused=True)`` as
+      in a (one K2 launch, no K1 launch), against the float64 oracle (<=
+      5e-6); then ``fir_fft_chain_planar(..., fused=True)`` once;
+4. times with CUDA events (median of 20 after warm-up): every path, with
+   ``torch.profiler`` device time per kernel and the idle share; the fused
+   chain against the unfused one in turns; each kernel against its plain
+   version and its library call (one PyTorch call computing the same
+   function, where there is one) in turns; and each kernel's bound, the
+   larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
+   over 67 TFLOP/s, from this run's shapes.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -67,6 +77,8 @@ import torch
 N = 1 << 22
 TAPS = 128
 GEOMETRIES = [(8, 256), (8, 16384), (128, 32768), (64, 131072)]
+# K2: n1 = 24 takes the direct sum; (64, 131072) pass A's 128 KiB opt-in.
+FUSED_GEOMETRIES = [(8, 256), (24, 4096), (128, 32768), (64, 131072)]
 CONV_TAPS = 384
 CONV_FFT_LEN = 4096
 # (n, taps, fft_len); the last needs the kernel's large shared-memory opt-in.
@@ -75,6 +87,10 @@ OS_GEOMETRIES = [(4096, 33, 1024), (8192, 129, 2048), (5000, 63, 1024),
 KERNEL_TOL = 2e-6
 CHAIN_TOL = 5e-6
 REPS = 20
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32 outside the
+# tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
 # Resampler geometries (P, Q, L, n); K4 also at interpolate_lin's 2-tap
 # geometry (5/2, delay 0.3, zero offsets) below.
 K4_GEOMETRIES = [(3, 2, 10, 1 << 20), (10, 1, 10, 1 << 17), (2, 1, 5, 4096),
@@ -223,16 +239,31 @@ def device_ms_per_call(fn, calls=10):
     return sum(per_kernel.values()), per_kernel
 
 
-def in_turns(name, plain_fn, kernel_fn, smi):
-    """Median ms of the plain and the kernel version, in turns plain,
-    kernel, kernel, plain; each run a median of REPS."""
-    plain = [median_ms(plain_fn)]
-    kern = [median_ms(kernel_fn), median_ms(kernel_fn)]
-    plain.append(median_ms(plain_fn))
-    kernel_ms, plain_ms = float(np.median(kern)), float(np.median(plain))
-    print(f"{name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(each a median of {REPS}; runs {kern} / {plain}) on {smi}")
-    return kernel_ms, plain_ms
+def in_turns(name, fns, smi):
+    """Median ms of each function of ``fns`` (label -> fn), run in turns:
+    in order, then in reverse (plain, kernel, kernel, plain for two); each
+    run a median of REPS."""
+    runs = {label: [] for label in fns}
+    for label in list(fns) + list(reversed(fns)):
+        runs[label].append(median_ms(fns[label]))
+    med = {label: float(np.median(r)) for label, r in runs.items()}
+    print(f"{name}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+          + f" (each a median of {REPS}; runs "
+          + "; ".join(f"{k} {r}" for k, r in runs.items()) + f") on {smi}")
+    return med
+
+
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of the compulsory
+    bytes over PEAK_BYTES and the FP32 operations over PEAK_FP32, in ms,
+    and which of the two it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def main():
@@ -269,13 +300,15 @@ def main():
 
     def reset_counts():
         sc.rowfft_mag.launches = 0
+        sc.fourstep_mag_fused.launches = 0
         osc.blocked_linear_conv_cuda.launches = 0
         rsc.resample_direct_cuda.launches = 0
         rsc.resample_rowblock_cuda.launches = 0
         chc.channelize_demod_cuda.launches = 0
 
     def other_launches():
-        return (sc.rowfft_mag.launches + osc.blocked_linear_conv_cuda.launches
+        return (sc.rowfft_mag.launches + sc.fourstep_mag_fused.launches
+                + osc.blocked_linear_conv_cuda.launches
                 + rsc.resample_direct_cuda.launches
                 + rsc.resample_rowblock_cuda.launches)
 
@@ -306,6 +339,23 @@ def main():
         assert err <= KERNEL_TOL, (n1, n2, err)
         if (n1, n2) == (128, 32768):
             abs_err_4m = float((got - ref).abs().max())
+
+    k2_abs_err_4m = None
+    row_launches = sc.rowfft_mag.launches
+    for n1, n2 in FUSED_GEOMETRIES:
+        Ar, Ai = planes(n1, n2)
+        got = sc.fourstep_mag_fused(Ar, Ai, shift=True)
+        ref = sc.fourstep_mag_fused_plain(Ar, Ai, shift=True)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        print(f"fourstep_mag_fused vs plain at ({n1}, {n2}): {err:.3e} "
+              f"relative to max (tol {KERNEL_TOL})")
+        assert got.shape == ref.shape == (n1, n2 // 128, 128)
+        assert err <= KERNEL_TOL, (n1, n2, err)
+        if (n1, n2) == (128, 32768):
+            k2_abs_err_4m = float((got - ref).abs().max())
+    assert sc.fourstep_mag_fused.launches == len(FUSED_GEOMETRIES)
+    assert sc.rowfft_mag.launches == row_launches
 
     os_abs_err_4m = None
     for n, m, fl in OS_GEOMETRIES:
@@ -589,10 +639,34 @@ def main():
     assert other_launches() == 0
     del y5, z5, y, x5
 
+    # 3g. main path: the fused spectrum chain at full size
+    chain_f = bt.FirFftChainPlanar(taps, window, fused=True)
+    ref = oracle(xr, xi, taps, window)
+    reset_counts()
+    out = chain_f(xr, xi)
+    torch.cuda.synchronize()
+    fused_launches = sc.fourstep_mag_fused.launches
+    print(f"main path: FirFftChainPlanar(fused=True) n={N} (n1={chain_f.n1}, "
+          f"n2={chain_f.n2}), fourstep_mag_fused launches: {fused_launches}, "
+          f"rowfft_mag launches: {sc.rowfft_mag.launches}")
+    assert fused_launches == 1, "the fused chain did not launch K2 once"
+    assert other_launches() == 1 and sc.rowfft_mag.launches == 0
+    assert out.shape == (N,) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    err = rel_err(out.double(), ref)
+    print(f"FirFftChainPlanar(fused=True) vs float64 oracle: {err:.3e} "
+          f"relative to max (tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    got = bt.fir_fft_chain_planar(xr, xi, taps, window, fused=True)
+    torch.cuda.synchronize()
+    err = rel_err(got.double(), ref)
+    print(f"fir_fft_chain_planar(fused=True) vs oracle: {err:.3e}")
+    assert got.shape == (N,) and err <= CHAIN_TOL, err
+    assert sc.fourstep_mag_fused.launches == 2
+    assert sc.rowfft_mag.launches == 0
+    del ref, got, out
+
     # 4. times (CUDA events, median of REPS after warm-up)
-    chain_ms = median_ms(lambda: chain(xr, xi))
-    print(f"chain: {chain_ms:.4f} ms/call, {N / chain_ms / 1e3:.1f} "
-          f"Msamples/s (n={N}, {TAPS} taps) on {smi}")
     conv_ms = median_ms(lambda: conv_ops.convolve_signal_planar(xr, xi, h))
     print(f"convolve_signal_planar: {conv_ms:.4f} ms/call, "
           f"{N / conv_ms / 1e3:.1f} Msamples/s (n={N}, {CONV_TAPS} complex "
@@ -602,21 +676,11 @@ def main():
                                                      CONV_FFT_LEN))
     print(f"overlap_save on torch.fft (same convolution, complex in and "
           f"out): {fft_ms:.4f} ms/call on {smi}")
-    Br, Bi = planes(128, 32768)
-    T = tfac(128, 32768)
-    W = sc.inner_twiddle(256, 32768, dev)
-    kernel_ms, plain_ms = in_turns(
-        "rowfft_mag (128, 32768)",
-        lambda: sc.rowfft_mag_plain(Br, Bi, True, T),
-        lambda: sc.rowfft_mag(Br, Bi, True, T, W), smi)
-    hr, hi = h.real.contiguous(), h.imag.contiguous()
-    os_ms, os_plain_ms = in_turns(
-        f"blocked_linear_conv_cuda (n={N}, {CONV_TAPS} taps, fft_len "
-        f"{CONV_FFT_LEN})",
-        lambda: osc.blocked_linear_conv_plain(xr, xi, hr, hi, CONV_FFT_LEN),
-        lambda: osc.blocked_linear_conv_cuda(xr, xi, hr, hi, CONV_FFT_LEN),
-        smi)
     paths = [
+        ("config #1: FirFftChainPlanar, 2^22, 128 taps", N,
+         lambda: chain(xr, xi)),
+        ("config #1 fused: FirFftChainPlanar(fused=True), 2^22, 128 taps",
+         N, lambda: chain_f(xr, xi)),
         ("config #3: interpolatef x1.5, 2^20 complex", CFG3_N * 3 // 2,
          lambda: interp_ops.interpolatef(x3, sinc, 1.5, 0.0, 10, 1.0)),
         ("config #4: ModulationChainPlanar, 2^17 symbols x 2 planes",
@@ -644,61 +708,123 @@ def main():
         else:
             print(f"{name}: device time not measured (the profiler showed "
                   f"no device time)")
+    chains = in_turns("config #1 chain, 2^22, 128 taps",
+                      {"unfused": lambda: chain(xr, xi),
+                       "fused": lambda: chain_f(xr, xi)}, smi)
+    print(f"config #1 chain: unfused {N / chains['unfused'] / 1e3:.1f}, "
+          f"fused {N / chains['fused'] / 1e3:.1f} Msamples/s on {smi}")
+
+    # Each kernel at its main path's shape: kernel, plain version and
+    # library call in turns, and its bound from the same tensors.
+    rows = []
+
+    def measure(name, source, replaces, launches, max_abs_err, fns, inputs,
+                output, flops):
+        med = in_turns(name, fns, smi)
+        bound_ms, bound_by = bound(nbytes(*inputs, *output), flops)
+        print(f"{name}: bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+              f"kernel at {bound_ms / med['kernel']:.3f} of it on {smi}")
+        rows.append({
+            "name": name.split(" ")[0], "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": med["kernel"],
+            "plain_ms": med["plain"], "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+            "library_ms": med.get("library")})
+
+    n1, n2 = 128, 32768
+    L2 = n2 // 128
+    Br, Bi = planes(n1, n2)
+    T = tfac(n1, n2)
+    W = sc.inner_twiddle(L2, n2, dev)
+    C = torch.complex(Br, Bi)
+    measure("rowfft_mag (128, 32768)", "basic_dsp_tpu_torch/csrc/rowfft_mag.cu",
+            "basic_dsp_tpu/kernels/spectrum_pallas.py:471", launches,
+            abs_err_4m,
+            {"plain": lambda: sc.rowfft_mag_plain(Br, Bi, True, T),
+             "kernel": lambda: sc.rowfft_mag(Br, Bi, True, T, W),
+             "library": lambda: torch.fft.fft(C, dim=-1)},
+            (Br, Bi, *T, *W), (torch.empty(n1, L2, 128, device=dev),),
+            N * (6 + 5 * np.log2(n2) + 4))
+    Ar, Ai = planes(n1, n2)
+    A = torch.complex(Ar, Ai).reshape(-1)
+    measure("fourstep_mag_fused (128, 32768)",
+            "basic_dsp_tpu_torch/csrc/rowfft_mag.cu",
+            "basic_dsp_tpu/kernels/spectrum_pallas.py:616", fused_launches,
+            k2_abs_err_4m,
+            {"plain": lambda: sc.fourstep_mag_fused_plain(Ar, Ai, True),
+             "kernel": lambda: sc.fourstep_mag_fused(Ar, Ai, True, W),
+             "library": lambda: torch.abs(torch.fft.fftshift(
+                 torch.fft.fft(A)))},
+            (Ar, Ai, *W), (torch.empty(n1, L2, 128, device=dev),),
+            N * (5 * np.log2(N) + 6 + 4))
+    del Br, Bi, C, Ar, Ai, A
+    hr, hi = h.real.contiguous(), h.imag.contiguous()
+    _, os_L, os_nb = osc._geometry(N, CONV_TAPS, CONV_FFT_LEN)
+    blocks = torch.nn.functional.pad(
+        torch.nn.functional.pad(x, (0, os_nb * os_L - N)).reshape(os_nb,
+                                                                  os_L),
+        (0, CONV_FFT_LEN - os_L))
+    H = torch.fft.fft(h, n=CONV_FFT_LEN)
+    measure(f"overlap_save (n={N}, {CONV_TAPS} taps, fft_len "
+            f"{CONV_FFT_LEN})", "basic_dsp_tpu_torch/csrc/overlap_save.cu",
+            "basic_dsp_tpu/kernels/overlap_save_pallas.py:192", os_launches,
+            os_abs_err_4m,
+            {"plain": lambda: osc.blocked_linear_conv_plain(
+                xr, xi, hr, hi, CONV_FFT_LEN),
+             "kernel": lambda: osc.blocked_linear_conv_cuda(
+                 xr, xi, hr, hi, CONV_FFT_LEN),
+             "library": lambda: torch.fft.ifft(
+                 torch.fft.fft(blocks, dim=-1) * H, dim=-1)},
+            (xr, xi, hr, hi),
+            (torch.empty(2, os_nb, CONV_FFT_LEN, device=dev),),
+            os_nb * (2 * 5 * CONV_FFT_LEN * np.log2(CONV_FFT_LEN)
+                     + 6 * CONV_FFT_LEN))
+    del blocks
     rows3 = torch.stack((x3.real, x3.imag))
     taps3, offs3 = interp_ops.polyphase_taps(sinc, 3, 2, 0.0, 10,
                                              torch.float32, dev)
-    k4_ms, k4_plain_ms = in_turns(
-        f"resample_direct_cuda (P=3, Q=2, L=10, 2 x {CFG3_N})",
-        lambda: rsc.resample_direct_plain(rows3, taps3, 3, 2, offs3, 10,
-                                          CFG3_N * 3 // 2),
-        lambda: rsc.resample_direct_cuda(rows3, taps3, 3, 2, offs3, 10,
-                                         CFG3_N * 3 // 2), smi)
+    out3 = CFG3_N * 3 // 2
+    measure(f"resample_direct (P=3, Q=2, L=10, 2 x {CFG3_N})",
+            "basic_dsp_tpu_torch/csrc/resample.cu",
+            "basic_dsp_tpu/kernels/resample_pallas.py:119", cfg3_launches,
+            rs_abs_err[("direct", 3, 2, 1 << 20, 2)],
+            {"plain": lambda: rsc.resample_direct_plain(
+                rows3, taps3, 3, 2, offs3, 10, out3),
+             "kernel": lambda: rsc.resample_direct_cuda(
+                 rows3, taps3, 3, 2, offs3, 10, out3)},
+            (rows3, taps3), (torch.empty(2, out3, device=dev),),
+            2 * 21 * 2 * out3)
     rowsa = xa[None]
     tapsa, offsa = interp_ops.polyphase_taps(sinc, 160, 147, 0.0, 10,
                                              torch.float32, dev)
-    k5_ms, k5_plain_ms = in_turns(
-        f"resample_rowblock_cuda (P=160, Q=147, L=10, 1 x {AUDIO_N})",
-        lambda: rsc.resample_rowblock_plain(rowsa, tapsa, 160, 147, offsa,
-                                            10, audio_len),
-        lambda: rsc.resample_rowblock_cuda(rowsa, tapsa, 160, 147, offsa,
-                                           10, audio_len), smi)
+    measure(f"resample_rowblock (P=160, Q=147, L=10, 1 x {AUDIO_N})",
+            "basic_dsp_tpu_torch/csrc/resample.cu",
+            "basic_dsp_tpu/kernels/resample_pallas.py:260", audio_launches,
+            rs_abs_err[("rowblock", 160, 147, 1 << 20, 1)],
+            {"plain": lambda: rsc.resample_rowblock_plain(
+                rowsa, tapsa, 160, 147, offsa, 10, audio_len),
+             "kernel": lambda: rsc.resample_rowblock_cuda(
+                 rowsa, tapsa, 160, 147, offsa, 10, audio_len)},
+            (rowsa, tapsa), (torch.empty(1, audio_len, device=dev),),
+            2 * 21 * audio_len)
     ts5 = chan5.taps_merged
-    k6_ms, k6_plain_ms = in_turns(
-        f"channelize_demod_cuda (C={CHAN_C}, S={S5}, {CHAN_TAPS + 1} tap "
-        f"rows)",
-        lambda: chc.channelize_demod_plain(xr5, xi5, ts5, CHAN_C),
-        lambda: chc.channelize_demod_cuda(xr5, xi5, ts5, CHAN_C), smi)
+    Y5 = torch.complex(xr5, xi5).reshape(S5, CHAN_C)
+    measure(f"channelize_demod (C={CHAN_C}, S={S5}, {CHAN_TAPS + 1} tap "
+            f"rows)", "basic_dsp_tpu_torch/csrc/channelizer.cu",
+            "basic_dsp_tpu/kernels/channelizer_pallas.py:221", chan_launches,
+            k6_abs_err,
+            {"plain": lambda: chc.channelize_demod_plain(xr5, xi5, ts5,
+                                                         CHAN_C),
+             "kernel": lambda: chc.channelize_demod_cuda(xr5, xi5, ts5,
+                                                         CHAN_C),
+             "library": lambda: torch.fft.ifft(Y5, dim=-1)},
+            (xr5, xi5, ts5), (torch.empty(S5, CHAN_C, device=dev),),
+            CHAN_N * (4 * (CHAN_TAPS + 1) + 5 * np.log2(CHAN_C) + 6 + 1))
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
-    print(json.dumps({"kernels": [{
-        "name": "rowfft_mag", "route": "cuda",
-        "source": "basic_dsp_tpu_torch/csrc/rowfft_mag.cu",
-        "replaces": "basic_dsp_tpu/kernels/spectrum_pallas.py:471",
-        "launches": launches, "max_abs_err": abs_err_4m,
-        "ms": kernel_ms, "plain_ms": plain_ms}, {
-        "name": "overlap_save", "route": "cuda",
-        "source": "basic_dsp_tpu_torch/csrc/overlap_save.cu",
-        "replaces": "basic_dsp_tpu/kernels/overlap_save_pallas.py:192",
-        "launches": os_launches, "max_abs_err": os_abs_err_4m,
-        "ms": os_ms, "plain_ms": os_plain_ms}, {
-        "name": "resample_direct", "route": "cuda",
-        "source": "basic_dsp_tpu_torch/csrc/resample.cu",
-        "replaces": "basic_dsp_tpu/kernels/resample_pallas.py:119",
-        "launches": cfg3_launches,
-        "max_abs_err": rs_abs_err[("direct", 3, 2, 1 << 20, 2)],
-        "ms": k4_ms, "plain_ms": k4_plain_ms}, {
-        "name": "resample_rowblock", "route": "cuda",
-        "source": "basic_dsp_tpu_torch/csrc/resample.cu",
-        "replaces": "basic_dsp_tpu/kernels/resample_pallas.py:260",
-        "launches": audio_launches,
-        "max_abs_err": rs_abs_err[("rowblock", 160, 147, 1 << 20, 1)],
-        "ms": k5_ms, "plain_ms": k5_plain_ms}, {
-        "name": "channelize_demod", "route": "cuda",
-        "source": "basic_dsp_tpu_torch/csrc/channelizer.cu",
-        "replaces": "basic_dsp_tpu/kernels/channelizer_pallas.py:221",
-        "launches": chan_launches, "max_abs_err": k6_abs_err,
-        "ms": k6_ms, "plain_ms": k6_plain_ms}]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

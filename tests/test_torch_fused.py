@@ -1,0 +1,375 @@
+"""PyTorch port, the fused four-step spectrum (K2): the plain version of
+``kernels/spectrum_cuda.fourstep_mag_fused`` against the JAX Pallas kernel
+``fourstep_mag_fused`` run in interpret mode (``permuted=False``) to 2e-6
+relative to the maximum, the grade of tests/test_pallas_spectrum.py;
+against the port's unfused path to 1e-5 of the maximum (the dense and the
+factored twiddle differ by one rounding); ``fir_fft_chain_planar(...,
+fused=True)`` and ``FirFftChainPlanar(..., fused=True)`` against JAX's
+fused chain; the wrapper's refusals and launch counts; and a numpy model
+of the CUDA launch's index arithmetic (``csrc/rowfft_mag.cu``: the stage-1
+column panels, the bit-reversed stores, the direct sum, the twiddle, then
+passes A and B) against the plain version.  The CUDA kernel itself is held
+to the plain version on the card by chip_smoke.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from basic_dsp_tpu import pipelines as jpl
+from basic_dsp_tpu.kernels import spectrum_pallas as jsp
+from basic_dsp_tpu.ops import fourstep as jfs
+import basic_dsp_tpu_torch as bt
+from basic_dsp_tpu_torch.kernels import spectrum_cuda as tsc
+from basic_dsp_tpu_torch.ops import fourstep as tfs
+
+TOL = 2e-6
+GEOMETRIES = [(8, 256), (16, 1024), (24, 512), (128, 512)]
+# The kernel's constants (csrc/rowfft_mag.cu).
+COLS_S = 16
+COLS_A = 16
+LANES = 128
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _planes(n1, n2, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n1, n2)).astype(np.float32),
+            rng.normal(size=(n1, n2)).astype(np.float32))
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    return np.max(np.abs(got - ref)) / np.max(np.abs(ref))
+
+
+# ------------------------------------------------ plain version against JAX
+
+@pytest.mark.parametrize("shift", [True, False])
+@pytest.mark.parametrize("n1,n2", GEOMETRIES)
+def test_plain_matches_jax_kernel(n1, n2, shift):
+    Ar, Ai = _planes(n1, n2, n1 + n2)
+    ref = np.asarray(jsp.fourstep_mag_fused(
+        jnp.asarray(Ar), jnp.asarray(Ai), shift=shift, interpret=True,
+        permuted=False))
+    got = tsc.fourstep_mag_fused_plain(torch.from_numpy(Ar),
+                                       torch.from_numpy(Ai), shift).numpy()
+    assert got.shape == ref.shape == (n1, n2 // LANES, LANES)
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("n1,n2", GEOMETRIES)
+def test_plain_matches_unfused_path(n1, n2):
+    """Stage-1 matmuls + ``rowfft_mag_plain`` with the factored twiddle:
+    one more f32 rounding of T than the dense form."""
+    Ar, Ai = (torch.from_numpy(p) for p in _planes(n1, n2, 3))
+    F = (torch.from_numpy(p) for p in tfs._dft_planes(n1))
+    Br, Bi = tfs.stage1_planar(*F, Ar, Ai)
+    Tfac = tuple(torch.from_numpy(p)
+                 for p in tfs._dif_twiddle_factored(n1, n2))
+    ref = tsc.rowfft_mag_plain(Br, Bi, True, Tfac).numpy()
+    got = tsc.fourstep_mag_fused_plain(Ar, Ai).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * ref.max())
+
+
+def test_plain_computes_with_the_jax_constants():
+    """The JAX package's ``_dif_planes``, carried by ``from_numpy``, are
+    the planes the fused path computes with: its F planes give the
+    Karatsuba stage-1 planes bit for bit, its T is the dense twiddle, and
+    the plain version equals the four-step written out on them."""
+    n1, n2 = 16, 1024
+    p = bt.from_numpy({"_dif_planes": jfs._dif_planes(n1, n2)}, "cpu")
+    Fr, Fi, Tr, Ti = p["_dif_planes"]
+    for got, want in zip((Fr, Fi, Tr, Ti), tfs._dif_planes(n1, n2)):
+        assert torch.equal(got, torch.from_numpy(want))
+    for got, want in zip((Fr, Fi + Fr, Fi - Fr), tfs._dft_planes(n1)):
+        assert torch.equal(got, torch.from_numpy(want))
+    Ar, Ai = (torch.from_numpy(a) for a in _planes(n1, n2, 4))
+    Br, Bi = tfs.stage1_planar(Fr, Fi + Fr, Fi - Fr, Ar, Ai)
+    C = torch.complex(Br, Bi) * torch.complex(Tr, Ti)
+    want = tsc.rowfft_mag_plain(C.real.contiguous(), C.imag.contiguous())
+    assert torch.equal(tsc.fourstep_mag_fused_plain(Ar, Ai), want)
+
+
+# --------------------------------------------------------- the fused chain
+
+def _chain_params(n=1 << 16, m=64, seed=6):
+    """tests/test_pallas_spectrum.py's fused-chain case."""
+    rng = np.random.default_rng(seed)
+    xr = rng.normal(size=n).astype(np.float32)
+    xi = rng.normal(size=n).astype(np.float32)
+    taps = rng.normal(size=m).astype(np.float32)
+    taps /= np.abs(taps).sum()
+    window = np.hamming(n).astype(np.float32)
+    return xr, xi, taps, window
+
+
+def test_fused_chain_matches_jax_fused_chain():
+    xr, xi, taps, window = _chain_params()
+    ref = np.asarray(jpl.fir_fft_chain_planar(
+        *(jnp.asarray(a) for a in (xr, xi, taps, window)), interpret=True,
+        fused=True))
+    args = [torch.from_numpy(a) for a in (xr, xi, taps, window)]
+    got = bt.fir_fft_chain_planar(*args, fused=True)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert _rel(got.numpy(), ref) <= TOL
+    chain = bt.FirFftChainPlanar(args[2], args[3], fused=True)
+    assert torch.equal(chain(args[0], args[1]), got)
+    unfused = bt.fir_fft_chain_planar(*args)
+    np.testing.assert_allclose(got.numpy(), unfused.numpy(), rtol=0,
+                               atol=1e-5 * float(unfused.max()))
+
+
+def test_fused_module_holds_its_constants_and_builds_nothing(monkeypatch):
+    xr, xi, taps, window = (torch.from_numpy(a)
+                            for a in _chain_params(n=1 << 15, m=7))
+    chain = bt.FirFftChainPlanar(taps, window, fused=True)
+    assert (chain.n1, chain.n2) == (128, 256)
+    names = {k for k, _ in chain.named_buffers()}
+    assert names == {"taps", "bands", "window", "w_r", "w_i"}
+    want = chain(xr, xi)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the module built its inner twiddle again")
+
+    monkeypatch.setattr(tsc, "inner_twiddle", refuse)
+    assert torch.equal(chain(xr, xi), want)
+
+
+# ------------------------------------------------ refusals, launch counts
+
+@pytest.mark.parametrize("n1,n2", [(12, 256), (8, 384), (8, 128),
+                                   (8, 128 * 2048), (4, 256), (2048, 256)])
+def test_unsupported_geometries_raise(n1, n2):
+    assert not tsc.fused_supported(n1, n2)
+    Ar, Ai = (torch.from_numpy(p) for p in _planes(n1, n2, 5))
+    with pytest.raises(ValueError):
+        tsc.fourstep_mag_fused(Ar, Ai)
+
+
+@pytest.mark.parametrize("n1,n2", GEOMETRIES + [(128, 32768), (1024, 256),
+                                                (1016, 131072)])
+def test_supported_geometries(n1, n2):
+    assert tsc.fused_supported(n1, n2)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    Ar, Ai = (torch.from_numpy(p) for p in _planes(8, 256, 6))
+    with pytest.raises(TypeError):
+        tsc.fourstep_mag_fused(Ar.double(), Ai.double())
+    with pytest.raises(ValueError):
+        tsc.fourstep_mag_fused(Ar, Ai[:, :128])
+    with pytest.raises(ValueError):
+        tsc.fourstep_mag_fused(Ar.reshape(-1), Ai.reshape(-1))
+    wide_r, wide_i = (torch.from_numpy(p) for p in _planes(8, 512, 6))
+    with pytest.raises(ValueError):
+        tsc.fourstep_mag_fused(wide_r[:, ::2], wide_i[:, ::2])
+    with pytest.raises(ValueError):
+        tsc.fourstep_mag_fused(Ar.to("meta"), Ai.to("meta"))
+
+
+def test_fused_chain_refusals():
+    xr, xi, taps, window = (torch.from_numpy(a)
+                            for a in _chain_params(n=6 * 1024, m=7))
+    # n1 = 12: the row kernel takes it, the fused kernel does not
+    assert bt.fir_fft_chain_planar(xr, xi, taps, window, n1=12).shape == (
+        6 * 1024,)
+    with pytest.raises(ValueError):
+        bt.fir_fft_chain_planar(xr, xi, taps, window, n1=12, fused=True)
+    with pytest.raises(ValueError):
+        bt.FirFftChainPlanar(taps, window, n1=12, fused=True)
+    for budget in ("high", "high-xla", "high-kernel"):
+        with pytest.raises(NotImplementedError):
+            bt.fir_fft_chain_planar(xr, xi, taps, window, n1=24,
+                                    budget=budget, fused=True)
+
+
+def test_cpu_launches_no_kernel():
+    fused0, row0 = tsc.fourstep_mag_fused.launches, tsc.rowfft_mag.launches
+    Ar, Ai = (torch.from_numpy(p) for p in _planes(16, 1024, 7))
+    got = tsc.fourstep_mag_fused(Ar, Ai)
+    assert torch.equal(got, tsc.fourstep_mag_fused_plain(Ar, Ai))
+    xr, xi, taps, window = (torch.from_numpy(a)
+                            for a in _chain_params(n=1 << 15, m=7))
+    bt.fir_fft_chain_planar(xr, xi, taps, window, fused=True)
+    bt.FirFftChainPlanar(taps, window, fused=True)(xr, xi)
+    assert tsc.fourstep_mag_fused.launches == fused0 == 0
+    assert tsc.rowfft_mag.launches == row0 == 0
+
+
+# --------------------------- numpy model of the CUDA launch's index arithmetic
+
+def _unit_root(k, n):
+    """unit_root: exp(-2 pi i k / n) from double sincospi, rounded once to
+    float; as (re, im) float32."""
+    a = -2.0 * np.asarray(k, np.float64) / float(n)
+    return (np.cos(np.pi * a).astype(np.float32),
+            np.sin(np.pi * a).astype(np.float32))
+
+
+def _brev(j, bits):
+    """__brev(j) >> (32 - bits)."""
+    j = np.asarray(j)
+    r = np.zeros_like(j)
+    for b in range(bits):
+        r |= ((j >> b) & 1) << (bits - 1 - b)
+    return r
+
+
+def _dit_stage(sr, si, tw, s, log2n, cols, count):
+    """dit_stage over every block at once (axis 0): each butterfly b of
+    the stage touches its own two elements, so the thread loop is one
+    vector step."""
+    b = np.arange(count)
+    t, q = b % cols, b // cols
+    half = 1 << s
+    pos = q & (half - 1)
+    i0 = (((q >> s) << (s + 1)) + pos) * cols + t
+    i1 = i0 + half * cols
+    wr, wi = tw[0][pos << (log2n - 1 - s)], tw[1][pos << (log2n - 1 - s)]
+    ur, ui, xr, xi = sr[:, i0], si[:, i0], sr[:, i1], si[:, i1]
+    vr = xr * wr - xi * wi
+    vi = xr * wi + xi * wr
+    sr[:, i0], si[:, i0] = ur + vr, ui + vi
+    sr[:, i1], si[:, i1] = ur - vr, ui - vi
+
+
+def _log2_exact(n):
+    l = int(n).bit_length() - 1
+    return l if 1 << l == n else -1
+
+
+def _model_stage1(Ar, Ai):
+    """fourstep_stage1: one block per panel of 16 columns (grid n2 / 16),
+    returns the (n1, n2) planes of B*T the kernel stores."""
+    n1, n2 = Ar.shape
+    assert n2 % COLS_S == 0          # every supported n2: no ragged panel
+    blocks = n2 // COLS_S
+    log2_n1 = _log2_exact(n1)
+    radix2 = log2_n1 >= 0
+    tw = _unit_root(np.arange(n1 // 2 if radix2 else n1), n1)
+    idx = np.arange(n1 * COLS_S)
+    j1, t = idx // COLS_S, idx % COLS_S
+    r = _brev(j1, log2_n1) if radix2 else j1
+    c0 = np.arange(blocks)[:, None] * COLS_S
+    g_col = c0 + t[None, :]                      # (blocks, n1*16) columns
+    sr = np.zeros((blocks, n1 * COLS_S), np.float32)
+    si = np.zeros_like(sr)
+    sr[:, r * COLS_S + t] = Ar[j1[None, :], g_col]
+    si[:, r * COLS_S + t] = Ai[j1[None, :], g_col]
+    k1 = idx // COLS_S
+    if radix2:
+        for s in range(log2_n1):
+            _dit_stage(sr, si, tw, s, log2_n1, COLS_S, (n1 // 2) * COLS_S)
+        xr, xi = sr, si
+    else:
+        xr = np.zeros_like(sr)
+        xi = np.zeros_like(si)
+        m = np.zeros_like(k1)
+        for jj in range(n1):
+            wr, wi = tw[0][m], tw[1][m]
+            a_r, a_i = sr[:, jj * COLS_S + t], si[:, jj * COLS_S + t]
+            xr += a_r * wr - a_i * wi
+            xi += a_r * wi + a_i * wr
+            m = m + k1
+            m = np.where(m >= n1, m - n1, m)
+    j = c0 + t[None, :]
+    Tr, Ti = _unit_root((k1[None, :] * j) % (n1 * n2), n1 * n2)
+    cr = np.zeros((n1, n2), np.float32)
+    ci = np.zeros_like(cr)
+    cr[k1[None, :], j] = xr * Tr - xi * Ti
+    ci[k1[None, :], j] = xr * Ti + xi * Tr
+    return cr, ci
+
+
+def _model_rows(Cr, Ci, shift):
+    """rowfft_pass_a (no twiddle) then rowfft_pass_b: (n1, L2, 128)."""
+    n1, n2 = Cr.shape
+    L2 = n2 // LANES
+    log2_l2 = _log2_exact(L2)
+    W = tsc._inner_consts(L2, n2)
+    tw = _unit_root(np.arange(L2 // 2), L2)
+    idx = np.arange(L2 * COLS_A)
+    j1, t = idx // COLS_A, idx % COLS_A
+    r = _brev(j1, log2_l2)
+    blocks = [(k1, c0) for k1 in range(n1)
+              for c0 in range(0, LANES, COLS_A)]
+    k1s = np.array([b[0] for b in blocks])[:, None]
+    c0s = np.array([b[1] for b in blocks])[:, None]
+    g = k1s * n2 + j1[None, :] * LANES + c0s + t[None, :]
+    sr = np.zeros((len(blocks), L2 * COLS_A), np.float32)
+    si = np.zeros_like(sr)
+    sr[:, r * COLS_A + t] = Cr.reshape(-1)[g]
+    si[:, r * COLS_A + t] = Ci.reshape(-1)[g]
+    for s in range(log2_l2):
+        _dit_stage(sr, si, tw, s, log2_l2, COLS_A, (L2 // 2) * COLS_A)
+    k1p, j2 = idx // COLS_A, c0s + idx % COLS_A
+    wr, wi = W[0][k1p[None, :], j2], W[1][k1p[None, :], j2]
+    hg = k1s * n2 + k1p[None, :] * LANES + j2
+    Hr = np.zeros(n1 * n2, np.float32)
+    Hi = np.zeros_like(Hr)
+    Hr[hg] = sr * wr - si * wi
+    Hi[hg] = sr * wi + si * wr
+    # pass B: every 128-point row of H, bit-reversed, 7 DIT stages
+    rows = n1 * L2
+    p = _brev(np.arange(LANES), 7)
+    br = np.zeros((rows, LANES), np.float32)
+    bi = np.zeros_like(br)
+    br[:, p] = Hr.reshape(rows, LANES)
+    bi[:, p] = Hi.reshape(rows, LANES)
+    tw128 = _unit_root(np.arange(LANES // 2), LANES)
+    for s in range(7):
+        _dit_stage(br, bi, tw128, s, 7, 1, LANES // 2)
+    k2 = (np.arange(LANES) + (LANES // 2 if shift else 0)) & (LANES - 1)
+    return np.sqrt(br[:, k2] ** 2 + bi[:, k2] ** 2).reshape(n1, L2, LANES)
+
+
+@pytest.mark.parametrize("n1,n2", GEOMETRIES + [(40, 256), (64, 2048)])
+def test_stage1_model_matches_plain(n1, n2):
+    """Stage 1 as the kernel indexes it (panels, bit-reversed stores,
+    radix-2 or direct sum, T from double) against the plain stage 1 times
+    the dense T."""
+    Ar, Ai = _planes(n1, n2, 8)
+    cr, ci = _model_stage1(Ar, Ai)
+    F = (torch.from_numpy(p) for p in tfs._dft_planes(n1))
+    Br, Bi = tfs.stage1_planar(*F, torch.from_numpy(Ar), torch.from_numpy(Ai))
+    _, _, Tr, Ti = tfs._dif_planes(n1, n2)
+    C = (torch.complex(Br, Bi)
+         * torch.complex(torch.from_numpy(Tr), torch.from_numpy(Ti))).numpy()
+    assert max(_rel(cr, C.real), _rel(ci, C.imag)) <= TOL
+
+
+@pytest.mark.parametrize("shift", [True, False])
+@pytest.mark.parametrize("n1,n2", [(8, 256), (24, 512), (16, 1024)])
+def test_launch_model_matches_plain(n1, n2, shift):
+    """The whole launch (stage 1, pass A untwiddled, pass B) as the kernel
+    indexes it, against the plain version."""
+    Ar, Ai = _planes(n1, n2, 9)
+    got = _model_rows(*_model_stage1(Ar, Ai), shift)
+    ref = tsc.fourstep_mag_fused_plain(torch.from_numpy(Ar),
+                                       torch.from_numpy(Ai), shift).numpy()
+    assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("n1,n2", [(128, 32768), (24, 4096)])
+def test_kernel_twiddle_is_the_dense_twiddle(n1, n2):
+    """T from double sincospi rounded once equals numpy's complex128 exp
+    rounded to complex64 to within one float32 rounding."""
+    k1 = np.arange(n1)[:, None]
+    j = np.arange(n2)[None, :]
+    Tr, Ti = _unit_root((k1 * j) % (n1 * n2), n1 * n2)
+    _, _, Dr, Di = tfs._dif_planes(n1, n2)
+    assert max(np.max(np.abs(Tr - Dr)), np.max(np.abs(Ti - Di))) <= 6e-8
+
+
+@pytest.mark.parametrize("n1", [8, 24, 128, 1016, 1024])
+def test_stage1_shared_memory_fits(n1):
+    """Stage 1's dynamic shared memory: the (n1, 16) panel's two planes and
+    n1/2 (radix-2) or n1 (direct sum) float2 roots, within the 227 KB a
+    block may opt in to."""
+    roots = n1 // 2 if _log2_exact(n1) >= 0 else n1
+    assert 2 * n1 * COLS_S * 4 + roots * 8 <= 232448

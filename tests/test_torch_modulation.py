@@ -52,14 +52,15 @@ def test_modulation_chain_planar_matches_jax(beta, factor, delay, conv_len):
                                      delay, conv_len)
     for g, w in zip(got, want):
         assert _rel(g.numpy(), w) <= TOL
-    module = bt.ModulationChainPlanar(beta, factor, delay, conv_len)
+    module = bt.ModulationChainPlanar(beta, factor, delay, conv_len,
+                                      device="cpu")
     for g, w in zip(module(torch.from_numpy(sr), torch.from_numpy(si)),
                     want):
         assert _rel(g.numpy(), w) <= TOL
 
 
 def test_module_holds_the_taps_and_samples_nothing(monkeypatch):
-    module = bt.ModulationChainPlanar(0.35, 10.0, 0.0, 10)
+    module = bt.ModulationChainPlanar(0.35, 10.0, 0.0, 10, device="cpu")
     assert module.taps.shape == (10, 21) and module.offs == (0,) * 10
     assert dict(module.named_buffers())["taps"] is module.taps
 
@@ -82,7 +83,7 @@ def test_both_planes_go_through_one_resampler_call(monkeypatch):
 
     monkeypatch.setattr(rc, "resample_direct_cuda", spy)
     sr, si = map(torch.from_numpy, _symbols(3))
-    bt.ModulationChainPlanar()(sr, si)
+    bt.ModulationChainPlanar(device="cpu")(sr, si)
     bt.modulation_chain_planar(sr, si)
     assert calls == [(2, N), (2, N)]
 
@@ -97,28 +98,38 @@ def test_planar_chain_equals_complex_interpolatef():
                               bt.RaisedCosineFunction(0.35), 10.0, 0.0, 10,
                               1.0)
     assert torch.equal(re, shaped.real) and torch.equal(im, shaped.imag)
-    m_re, m_im = bt.ModulationChainPlanar()(sr, si)
+    m_re, m_im = bt.ModulationChainPlanar(device="cpu")(sr, si)
     assert torch.equal(m_re, re) and torch.equal(m_im, im)
 
 
 def test_raised_cosine_recovers_the_symbols():
     """Zero-ISI: every 10th output sample is the symbol itself."""
     sr, si = _symbols(4)
-    re, im = bt.ModulationChainPlanar()(torch.from_numpy(sr),
-                                        torch.from_numpy(si))
+    re, im = bt.ModulationChainPlanar(device="cpu")(torch.from_numpy(sr),
+                                                    torch.from_numpy(si))
     np.testing.assert_allclose(re[::10].numpy(), sr, atol=1e-5)
     np.testing.assert_allclose(im[::10].numpy(), si, atol=1e-5)
 
 
 def test_module_refuses_signals_of_another_path():
-    module = bt.ModulationChainPlanar(0.35, 10.0, 0.0, 10)
+    module = bt.ModulationChainPlanar(0.35, 10.0, 0.0, 10, device="cpu")
     short = torch.zeros(15)
     with pytest.raises(ValueError):
         module(short, short)            # L would be 7, not 10
     with pytest.raises(ValueError):
         module(torch.zeros(100), torch.zeros(99))
     with pytest.raises(ValueError):
-        bt.ModulationChainPlanar(0.35, np.pi)
+        bt.ModulationChainPlanar(0.35, np.pi, device="cpu")
+
+
+def test_module_defaults_to_the_card():
+    """Without ``device`` the taps go to the card; with no CUDA that
+    raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert bt.ModulationChainPlanar().taps.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bt.ModulationChainPlanar()
 
 
 def _imports(path):
@@ -131,12 +142,15 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    """Static scan of every module of the port (sys.modules cannot tell:
-    the test process imports JAX for the reference)."""
+    """Static scan of every module of the port and of chip_smoke.py, which
+    drives it on the card (sys.modules cannot tell: the test process
+    imports JAX for the reference)."""
     root = pathlib.Path(bt.__file__).resolve().parent
     files = sorted(p for p in root.rglob("*.py")
                    if "_build" not in p.relative_to(root).parts)
     assert len(files) >= 15
+    assert root / "kernels" / "spectrum_cuda.py" in files
+    files.append(root.parent / "chip_smoke.py")
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

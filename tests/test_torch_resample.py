@@ -68,7 +68,7 @@ def test_polyphase_taps_bit_equal_to_jax(P, Q, L, dtype):
     want, offs = _sinc_taps(P, Q, L, dtype)
     got, got_offs = tio.polyphase_taps(bt.SincFunction(), P, Q, 0.0, L,
                                        torch.float32 if dtype == np.float32
-                                       else torch.float64)
+                                       else torch.float64, "cpu")
     assert got_offs == offs
     assert got.dtype == (torch.float32 if dtype == np.float32
                          else torch.float64)
@@ -81,10 +81,23 @@ def test_raised_cosine_taps_match_jax(P, Q, delay):
     want, offs = jio.polyphase_taps(jct.RaisedCosineFunction(0.35), P, Q,
                                     delay, 10, np.float32)
     got, got_offs = tio.polyphase_taps(bt.RaisedCosineFunction(0.35), P, Q,
-                                       delay, 10, torch.float32)
+                                       delay, 10, torch.float32, "cpu")
     assert got_offs == offs
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1.2e-7)
+
+
+def test_polyphase_taps_default_to_the_card():
+    """Without ``device`` the taps are sampled on the card; with no CUDA
+    that raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        taps, _ = tio.polyphase_taps(bt.SincFunction(), 3, 2, 0.0, 4,
+                                     torch.float32)
+        assert taps.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tio.polyphase_taps(bt.SincFunction(), 3, 2, 0.0, 4,
+                               torch.float32)
 
 
 def test_complex_function_gives_complex_taps():
@@ -92,7 +105,7 @@ def test_complex_function_gives_complex_taps():
     jf = jct.ComplexTimeLinearTableLookup(table, 0.5, False)
     tf = bt.ComplexTimeLinearTableLookup(table, 0.5, False)
     want, _ = jio.polyphase_taps(jf, 3, 2, 0.0, 4, np.float32)
-    got, _ = tio.polyphase_taps(tf, 3, 2, 0.0, 4, torch.float32)
+    got, _ = tio.polyphase_taps(tf, 3, 2, 0.0, 4, torch.float32, "cpu")
     assert got.is_complex()
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert not tio._direct_eligible(got, 3, 2, 4)

@@ -22,7 +22,7 @@ def _one_thread():
 @pytest.mark.parametrize("name", NAMES)
 def test_window_matches_jax(name, length):
     ref = np.asarray(getattr(bd, name)().sample(length))
-    got = getattr(bt, name)().sample(length).numpy()
+    got = getattr(bt, name)().sample(length, device="cpu").numpy()
     assert got.dtype == np.float32 and got.shape == (length,)
     assert np.max(np.abs(got - ref)) / np.max(np.abs(ref)) <= TOL
 
@@ -34,8 +34,9 @@ def test_window_matches_jax(name, length):
     ("RectangularWindow", [1.0] * 5),
 ])
 def test_window_goldens(name, golden):
-    np.testing.assert_allclose(getattr(bt, name)().sample(5).numpy(),
-                               golden, atol=1e-4)
+    np.testing.assert_allclose(
+        getattr(bt, name)().sample(5, device="cpu").numpy(), golden,
+        atol=1e-4)
 
 
 def test_window_dtype_device_and_identity():
@@ -46,3 +47,13 @@ def test_window_dtype_device_and_identity():
     assert bt.HammingWindow() == bt.HammingWindow(0.54)
     assert bt.HammingWindow() != bt.HammingWindow(0.5)
     assert hash(bt.TriangularWindow()) == hash(bt.TriangularWindow())
+
+
+def test_sample_defaults_to_the_card():
+    """Without ``device`` the window is sampled on the card; with no CUDA
+    that raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert bt.HammingWindow().sample(16).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bt.HammingWindow().sample(16)
