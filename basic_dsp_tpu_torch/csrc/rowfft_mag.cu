@@ -15,25 +15,46 @@
 //                                    sum_j1 w_L2^(j1 k1') C[j1*128 + j2].
 //
 // What bounds it on the H100: bytes.  The arithmetic is ~5 n log2 n flops
-// (~0.5 GFLOP at 4M), far below the card's FP32 rate; the data are 32 MiB
-// of input planes, 16 MiB of magnitudes out and the (L2, 128) W table and
-// the small twiddle planes, plus the pass-A intermediate (32 MiB written,
-// 32 MiB read back).  A TPU row of 32768 complex values (256 KiB of f32
-// planes at the 4M geometry, up to 1 MiB at L2 = 1024) lived whole in
-// VMEM; it does not fit in a Hopper block's 227 KB of shared memory.  So
-// the kernel runs in two passes, each streaming device memory once:
-//   pass A: one block per (row k1, tile of 16 adjacent j2 columns):
-//           twiddle T on load, radix-2 FFT of length L2 along j1 in
-//           shared memory (L2 * 16 complex values: 32 KiB at L2 = 256),
-//           times W[k1', j2] = w_n2^(k1' j2), store H (n1, L2, 128);
-//   pass B: one block per 16 (k1, k1') rows of H: radix-2 FFT of length
-//           128 along j2, the fftshift as a rotation of the 128 output
-//           columns, and sqrt(re^2 + im^2), stored contiguously.
-// The TPU kernel's DFT matmuls (DFT-m0 finish, lane DFT-128) existed for
-// the MXU; here the butterflies run in FP32 on the CUDA cores, so the
-// result keeps the f32 grade (a tensor-core DFT would round to TF32).
-// Butterfly twiddles are computed once per block with double sincospi and
-// rounded to float; no fast-math intrinsics.
+// (~0.5 GFLOP at 4M), far below the card's FP32 rate; the compulsory data
+// are 32 MiB of input planes, 16 MiB of magnitudes out and the small
+// twiddle planes, ~15.2 us at 3.35 TB/s.  A row of 32768 complex values
+// (256 KiB of f32 planes at the 4M geometry, up to 1 MiB at L2 = 1024)
+// lived whole in VMEM on the TPU; it does not fit one Hopper block's 227 KB
+// of shared memory.  The kernel before ran two passes through device
+// memory (a 32 MiB intermediate written and read back: ~112 MiB of
+// traffic).  This one keeps the row on chip in a thread-block cluster:
+//
+// * One cluster of CS blocks per row k1 (CS = 128 / NC; NC = 128 columns
+//   for L2 <= 32, else 4096 / L2, at least 8: 8 blocks of 16 columns at
+//   L2 = 256, 16 of 8, a non-portable cluster size, at L2 = 512 and 1024).
+//   Block b owns the j2 columns b*NC .. b*NC + NC - 1: it reads them once,
+//   all its loads in flight together as cp.async copies (NC*4-byte
+//   segments of each j1 row, 64 bytes at L2 = 256), applies T in place,
+//   runs the length-L2 FFT down j1 for each column with the register-resident
+//   Stockham passes of csrc/fft_core.cuh (radix 16, then the rest), and
+//   keeps the result in its shared memory.
+// * cluster.sync().  Then block b takes the L2 / CS rows k1' = b*L2/CS ..:
+//   it gathers each row's 128 j2 values from the cluster's shared memories
+//   through distributed shared memory (map_shared_rank), times W[k1', j2].
+// * cluster.sync(): past it no block reads another's shared memory, so no
+//   block leaves while a peer still reads its own.  Then the 128-point FFTs
+//   (radix 16, 8), the fftshift as a rotation of the 128 columns and
+//   sqrtf(re^2 + im^2), stored as whole 128-float rows.
+// So each input byte is read once and each magnitude written once, with no
+// scratch in device memory: ~48.6 MiB of traffic at 4M.  The kernel is
+// compiled for each L2 (RowGeometry), so its plans, layouts and loop
+// bounds are constants and each shared-memory word one XOR away from the
+// item's own (csrc/fft_core.cuh).  Shared memory
+// holds two buffers of max(L2 * NC, L2/CS * 129) complex values (~4K, 66
+// KB, up to L2 = 512; 132 KB at 1024) and the pass tables.  One block's
+// phases do not overlap, so where three blocks fit an SM the kernel runs
+// 256 threads and three blocks an SM, else 512 threads and one.  Step 1's
+// columns are fastest across a warp, its rows of NC words permuted within
+// each bank line (ColLayout) so that every pass is conflict-free at NC =
+// 16 and 8 too; step 2's rows are padded to 129 words (conflict-free).
+// The butterflies run in FP32 on
+// the CUDA cores (a tensor-core DFT would round to TF32); every twiddle is
+// rounded once from double; no fast-math intrinsics.
 //
 // fourstep_mag_fused: the whole four-step spectrum of the (n1, n2)
 // windowed planes A.  Replaces the TPU kernel
@@ -44,33 +65,35 @@
 // A in and 16 MiB of magnitudes out at 2^22 (~15 us at 3.35 TB/s); the
 // arithmetic, ~5 N log2 N flops (0.46 GFLOP), is ~7 us of FP32.  The TPU
 // kernel kept the stage-1 result B, both (n1, n2) planes (32 MiB at 2^22),
-// in VMEM.  On Hopper it cannot stay on chip: a block has 227 KB of
-// shared memory, and even the (n1 x L2) slab of one j2 column that pass
-// A needs is 256 KiB at 2^22.  So this design adds B*T's round trip (32
-// MiB written by stage 1, read by pass A) to the row stage's own H round
-// trip: three kernels on one stream,
+// in VMEM.  On Hopper it cannot stay on chip, so stage 1 writes B*T once
+// (32 MiB) and the row kernel above, launched without its twiddle, reads
+// it: two kernels on one stream,
 //   stage 1: one block per panel of 16 adjacent columns, all n1 rows in
 //            shared memory (16 KiB at n1 = 128): a radix-2 FP32 FFT down
 //            the columns for a power-of-two n1, a direct DFT sum over a
 //            table of n1 roots otherwise, then T and one store of B*T;
-//   pass A, pass B: as for rowfft_mag, pass A without its twiddle.
+//   rows:    the cluster kernel, untwiddled.
 // T is computed per element with double sincospi and rounded once to
 // float (within one float rounding of numpy's complex128 exp rounded to
 // complex64, the plain version's T) instead of reading the dense (n1, n2)
 // planes: that saves 32 MiB of reads and the caller's 32 MiB of
-// constants at the cost of ~4M double sincospi at 2^22.  B*T and H use
-// two buffers: pass A's loads are const __restrict__, so it may not
-// overwrite its input in place.  Error grade: f32, as K1 (no tensor
-// cores: TF32 would round to ~1e-3).
+// constants at the cost of ~4M double sincospi at 2^22.  Error grade: f32,
+// as K1 (no tensor cores: TF32 would round to ~1e-3).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
+#include "fft_core.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kLanes = 128;    // j2 / k2 extent of a row
-constexpr int kColsA = 16;     // j2 columns per pass-A block
-constexpr int kThreadsA = 256;
-constexpr int kRowsB = 16;     // 128-point rows per pass-B block
-constexpr int kThreadsB = 256;
+constexpr int kRowWords = 129; // a 128-point row of step 2, padded
+constexpr int kBatch = 8;      // gather loads in flight per thread
+constexpr int kSmemPerSM = 233472;   // bytes of shared memory an SM holds
+constexpr int kSmemReserved = 1024;  // bytes the runtime keeps per block
 constexpr int kColsS = 16;     // columns per stage-1 block
 constexpr int kThreadsS = 256;
 
@@ -106,114 +129,189 @@ __device__ __forceinline__ void dit_stage(float* sr, float* si,
   }
 }
 
-__global__ void __launch_bounds__(kThreadsA)
-rowfft_pass_a(const float* __restrict__ br, const float* __restrict__ bi,
-              const float* __restrict__ tar, const float* __restrict__ tai,
-              const float* __restrict__ tbr, const float* __restrict__ tbi,
-              const float* __restrict__ wr, const float* __restrict__ wi,
-              float* __restrict__ hr, float* __restrict__ hi,
-              int L2, int log2_l2) {
-  extern __shared__ float smem[];
-  float* sr = smem;
-  float* si = sr + L2 * kColsA;
-  float2* tw = reinterpret_cast<float2*>(si + L2 * kColsA);
-  const int k1 = blockIdx.y;
-  const int c0 = blockIdx.x * kColsA;
-  const size_t row = static_cast<size_t>(k1) * L2 * kLanes;
-  const int total = L2 * kColsA;
+// The row kernel's geometry for L2 = 2^LOG2_L2 (cols_per_block and
+// cluster_blocks in kernels/spectrum_cuda.py mirror it): NC columns a
+// block, CS blocks a cluster, kRows rows k1' a block in step 2, and the
+// words of one plane of one buffer (a multiple of 4 floats, so that every
+// plane starts 16-byte aligned).  Up to L2 = 512 three blocks fit an SM
+// and a block has 256 threads; at 1024, one block of 512.
+template <int LOG2_L2>
+struct RowGeometry {
+  static constexpr int kL2 = 1 << LOG2_L2;
+  static constexpr int kNC =
+      kL2 <= 32 ? kLanes : (4096 / kL2 < 8 ? 8 : 4096 / kL2);
+  static constexpr int kLog2NC = fft_core::ilog2(kNC);
+  static constexpr int kCS = kLanes / kNC;
+  static constexpr int kRows = kL2 / kCS;
+  static constexpr int kLog2Rows = fft_core::ilog2(kRows);
+  // Rows of NC < 32 words: row e goes to e ^ ((e >> 4) & kMask) within
+  // its bank line, which spreads the rows that one pass's items touch
+  // together over the line.
+  static constexpr int kMask = kNC < 32 ? 32 / kNC - 1 : 0;
+  static constexpr int kWords =
+      ((kL2 * kNC > kRows * kRowWords ? kL2 * kNC : kRows * kRowWords) + 3)
+      & ~3;
+  static constexpr int kTables =
+      fft_core::table_entries(fft_core::plan_16(LOG2_L2))
+      + fft_core::table_entries(fft_core::plan_16(7));
+  static constexpr int kSmem = 16 * kWords + 8 * kTables;
+  static constexpr int kMinBlocks =
+      3 * (kSmem + kSmemReserved) <= kSmemPerSM ? 3 : 1;
+  static constexpr int kThreads = kMinBlocks == 3 ? 256 : 512;
+  static_assert(kSmem <= 232448, "a block's shared memory");
+  static_assert(kCS <= 16 && kCS <= kL2, "a cluster of at most 16 blocks");
+};
 
-  for (int k = threadIdx.x; k < L2 / 2; k += blockDim.x) {
-    tw[k] = unit_root(k, L2);
+// Step 1's layout: NC columns of L2 points, columns fastest across a warp,
+// element e of column t at word t + lin(e).
+template <int LOG2NC, int MASK>
+struct ColLayout {
+  __device__ __forceinline__ void item(int w, int, int& t, int& i) const {
+    t = w & ((1 << LOG2NC) - 1);
+    i = w >> LOG2NC;
   }
-  // Load the (L2, 16) column tile, apply T = A[k1, j1] * B[k1, j2], and
-  // store it at the bit-reversed j1 for the in-place DIT.
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int j1 = idx / kColsA;
-    const int t = idx % kColsA;
-    const int j2 = c0 + t;
-    const size_t g = row + static_cast<size_t>(j1) * kLanes + j2;
-    float xr = br[g], xi = bi[g];
-    if (tar != nullptr) {
+  __device__ __forceinline__ int row(int t) const { return t; }
+  __device__ __forceinline__ int lin(int e) const {
+    return (e ^ ((e >> 4) & MASK)) << LOG2NC;
+  }
+  __device__ __forceinline__ int word(int e, int t) const {
+    return row(t) + lin(e);
+  }
+};
+
+// Step 2's layout: rows of 128 points, kRowWords words apart, rows fastest
+// across a warp; element e of row t at word t * kRowWords + e.
+template <int LOG2ROWS>
+struct RowLayout {
+  __device__ __forceinline__ void item(int w, int, int& t, int& i) const {
+    t = w & ((1 << LOG2ROWS) - 1);
+    i = w >> LOG2ROWS;
+  }
+  __device__ __forceinline__ int row(int t) const { return t * kRowWords; }
+  __device__ __forceinline__ int lin(int e) const { return e; }
+};
+
+// One cluster of CS blocks per row k1 (grid: (CS, n1)); see the note at
+// the top.
+template <int LOG2_L2>
+__global__ void __launch_bounds__(RowGeometry<LOG2_L2>::kThreads,
+                                  RowGeometry<LOG2_L2>::kMinBlocks)
+rowfft_cluster(const float* __restrict__ br, const float* __restrict__ bi,
+               const float* __restrict__ tar, const float* __restrict__ tai,
+               const float* __restrict__ tbr, const float* __restrict__ tbi,
+               const float* __restrict__ wr, const float* __restrict__ wi,
+               float* __restrict__ out, int shift_cols) {
+  using G = RowGeometry<LOG2_L2>;
+  constexpr int L2 = G::kL2;
+  constexpr int nc = G::kNC;
+  constexpr int log2nc = G::kLog2NC;
+  constexpr int rows = G::kRows;
+  constexpr int words = G::kWords;
+  const ColLayout<log2nc, G::kMask> col{};
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  float* xr = smem;
+  float* xi = xr + words;
+  float* yr = xi + words;
+  float* yi = yr + words;
+  constexpr fft_core::Plan plan1 = fft_core::plan_16(LOG2_L2);
+  constexpr fft_core::Plan plan2 = fft_core::plan_16(7);
+  float2* tw1 = reinterpret_cast<float2*>(yi + words);
+  float2* tw2 = tw1 + fft_core::table_entries(plan1);
+  fft_core::fill_tables<-1>(tw1, plan1);
+  fft_core::fill_tables<-1>(tw2, plan2);
+
+  const int b = static_cast<int>(cluster.block_rank());
+  const int k1 = blockIdx.y;
+  const int c0 = b * nc;
+  const size_t row = static_cast<size_t>(k1) * L2 * kLanes;
+
+  // Step 1: the (L2, NC) column slab of both planes as 16-byte cp.async
+  // copies, all in flight at once (a row's NC columns are contiguous in
+  // both memories); then T in place.  blockDim.x is a multiple of NC, so
+  // a thread keeps one column t (and its factor B[k1, j2] of T) and steps
+  // down the rows j1.
+  constexpr int per_row = nc >> 2;             // 16-byte chunks of a row
+  constexpr int chunks = L2 * per_row;
+  for (int q = threadIdx.x; q < 2 * chunks; q += blockDim.x) {
+    const int plane = q >= chunks;
+    const int c = q - plane * chunks;
+    const int j1 = c / per_row;
+    const int m = (c - j1 * per_row) << 2;
+    const size_t g = row + static_cast<size_t>(j1) * kLanes + c0 + m;
+    cp_async::copy16((plane ? xi : xr) + col.word(j1, m),
+                     (plane ? bi : br) + g);
+  }
+  cp_async::commit();
+  cp_async::wait_all();
+  __syncthreads();
+  if (tar != nullptr) {
+    const int t = threadIdx.x & (nc - 1);
+    const float b_r = tbr[k1 * kLanes + c0 + t];
+    const float b_i = tbi[k1 * kLanes + c0 + t];
+    for (int j1 = threadIdx.x >> log2nc; j1 < L2;
+         j1 += blockDim.x >> log2nc) {
+      const int a = col.word(j1, t);
       const float ar = tar[k1 * L2 + j1], ai = tai[k1 * L2 + j1];
-      const float b_r = tbr[k1 * kLanes + j2], b_i = tbi[k1 * kLanes + j2];
       const float tr = ar * b_r - ai * b_i;
       const float ti = ar * b_i + ai * b_r;
-      const float yr = xr * tr - xi * ti;
-      const float yi = xr * ti + xi * tr;
-      xr = yr;
-      xi = yi;
-    }
-    const int r = __brev(j1) >> (32 - log2_l2);
-    sr[r * kColsA + t] = xr;
-    si[r * kColsA + t] = xi;
-  }
-  __syncthreads();
-  for (int s = 0; s < log2_l2; ++s) {
-    dit_stage(sr, si, tw, s, log2_l2, kColsA, (L2 / 2) * kColsA);
-    __syncthreads();
-  }
-  // Inner twiddle W[k1', j2] and store H[k1, k1', j2].
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int k1p = idx / kColsA;
-    const int j2 = c0 + idx % kColsA;
-    const float w_r = wr[k1p * kLanes + j2], w_i = wi[k1p * kLanes + j2];
-    const float xr = sr[idx], xi = si[idx];
-    const size_t g = row + static_cast<size_t>(k1p) * kLanes + j2;
-    hr[g] = xr * w_r - xi * w_i;
-    hi[g] = xr * w_i + xi * w_r;
-  }
-}
-
-__global__ void __launch_bounds__(kThreadsB)
-rowfft_pass_b(const float* __restrict__ hr, const float* __restrict__ hi,
-              float* __restrict__ out, int rows, int shift_cols) {
-  __shared__ float sr[kRowsB * kLanes];
-  __shared__ float si[kRowsB * kLanes];
-  __shared__ float2 tw[kLanes / 2];
-  const size_t base = static_cast<size_t>(blockIdx.x) * kRowsB * kLanes;
-  const int nrows = min(kRowsB, rows - static_cast<int>(blockIdx.x) * kRowsB);
-  const int total = nrows * kLanes;
-
-  for (int k = threadIdx.x; k < kLanes / 2; k += blockDim.x) {
-    tw[k] = unit_root(k, kLanes);
-  }
-  // Each 128-point row is contiguous in H and in shared memory; store it
-  // bit-reversed for the in-place DIT.
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int r = idx / kLanes;
-    const int j = idx % kLanes;
-    const int p = __brev(j) >> (32 - 7);
-    sr[r * kLanes + p] = hr[base + idx];
-    si[r * kLanes + p] = hi[base + idx];
-  }
-  __syncthreads();
-  // Radix-2 DIT stages; b = r * 64 + q keeps a warp inside one row.
-  for (int s = 0; s < 7; ++s) {
-    const int half = 1 << s;
-    for (int b = threadIdx.x; b < nrows * (kLanes / 2); b += blockDim.x) {
-      const int r = b / (kLanes / 2);
-      const int q = b % (kLanes / 2);
-      const int pos = q & (half - 1);
-      const int i0 = r * kLanes + ((q >> s) << (s + 1)) + pos;
-      const int i1 = i0 + half;
-      const float2 w = tw[pos << (6 - s)];
-      const float ur = sr[i0], ui = si[i0];
-      const float xr = sr[i1], xi = si[i1];
-      const float vr = xr * w.x - xi * w.y;
-      const float vi = xr * w.y + xi * w.x;
-      sr[i0] = ur + vr;
-      si[i0] = ui + vi;
-      sr[i1] = ur - vr;
-      si[i1] = ui - vi;
+      const float vr = xr[a], vi = xi[a];
+      xr[a] = vr * tr - vi * ti;
+      xi[a] = vr * ti + vi * tr;
     }
     __syncthreads();
   }
-  // fftshift as a column rotation, then the magnitude.
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int r = idx / kLanes;
-    const int k2 = (idx % kLanes + shift_cols) & (kLanes - 1);
-    const float xr = sr[r * kLanes + k2], xi = si[r * kLanes + k2];
-    out[base + idx] = sqrtf(xr * xr + xi * xi);
+  const int in_y = fft_core::run_16<-1, LOG2_L2>(col, xr, xi, yr, yi, tw1,
+                                                 nc);
+  const float* hr = in_y ? yr : xr;          // H'[k1', t] at col.word
+  const float* hi = in_y ? yi : xi;
+  float* gr = in_y ? xr : yr;                // the other buffer
+  float* gi = in_y ? xi : yi;
+  cluster.sync();
+
+  // Step 2: gather rows k1' = b * rows .. of H' from the cluster, times W.
+  const int k1p0 = b * rows;
+  for (int base = threadIdx.x; base < rows * kLanes;
+       base += kBatch * blockDim.x) {
+    float vr[kBatch], vi[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < rows * kLanes) {
+        const int j2 = idx & (kLanes - 1);
+        const int src = col.word(k1p0 + (idx >> 7), j2 & (nc - 1));
+        vr[u] = cluster.map_shared_rank(hr, j2 >> log2nc)[src];
+        vi[u] = cluster.map_shared_rank(hi, j2 >> log2nc)[src];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * blockDim.x;
+      if (idx < rows * kLanes) {
+        const int r = idx >> 7;
+        const int j2 = idx & (kLanes - 1);
+        const int w = (k1p0 + r) * kLanes + j2;
+        const float w_r = wr[w], w_i = wi[w];
+        gr[r * kRowWords + j2] = vr[u] * w_r - vi[u] * w_i;
+        gi[r * kRowWords + j2] = vr[u] * w_i + vi[u] * w_r;
+      }
+    }
+  }
+  // No block reads another's shared memory past this point.
+  cluster.sync();
+  float* fr = in_y ? yr : xr;                // free again
+  float* fi = in_y ? yi : xi;
+  const int in_f = fft_core::run_16<-1, 7>(RowLayout<G::kLog2Rows>{}, gr,
+                                           gi, fr, fi, tw2, rows);
+  const float* dr = in_f ? fr : gr;
+  const float* di = in_f ? fi : gi;
+  // fftshift as a column rotation, the magnitude, whole 128-float rows.
+  float* o = out + (static_cast<size_t>(k1) * L2 + k1p0) * kLanes;
+  for (int idx = threadIdx.x; idx < rows * kLanes; idx += blockDim.x) {
+    const int r = idx >> 7;
+    const int k2 = ((idx & (kLanes - 1)) + shift_cols) & (kLanes - 1);
+    const float vr = dr[r * kRowWords + k2], vi = di[r * kRowWords + k2];
+    o[idx] = sqrtf(vr * vr + vi * vi);
   }
 }
 
@@ -297,59 +395,87 @@ cudaError_t set_smem(Kernel* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// Passes A and B of the row stage on `s`.
-cudaError_t launch_row_passes(const float* br, const float* bi,
-                              const float* tar, const float* tai,
-                              const float* tbr, const float* tbi,
-                              const float* wr, const float* wi,
-                              float* hr, float* hi, float* out,
-                              int n1, int L2, int shift_cols,
-                              cudaStream_t s) {
-  const int log2_l2 = log2_exact(L2);
-  const int smem_a = static_cast<int>(2 * L2 * kColsA * sizeof(float)
-                                      + (L2 / 2) * sizeof(float2));
-  cudaError_t e = set_smem(rowfft_pass_a, smem_a);
+// The row stage for L2 = 2^LOG2_L2 as one cluster launch on `s`.
+template <int LOG2_L2>
+cudaError_t launch_geometry(const float* br, const float* bi,
+                            const float* tar, const float* tai,
+                            const float* tbr, const float* tbi,
+                            const float* wr, const float* wi, float* out,
+                            int n1, int shift_cols, cudaStream_t s) {
+  using G = RowGeometry<LOG2_L2>;
+  auto* kernel = rowfft_cluster<LOG2_L2>;
+  cudaError_t e = set_smem(kernel, G::kSmem);
   if (e != cudaSuccess) return e;
-  rowfft_pass_a<<<dim3(kLanes / kColsA, n1), kThreadsA, smem_a, s>>>(
-      br, bi, tar, tai, tbr, tbi, wr, wi, hr, hi, L2, log2_l2);
-  e = cudaGetLastError();
+  if (G::kCS > 8) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G::kCS, n1, 1);
+  cfg.blockDim = dim3(G::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = G::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G::kCS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, br, bi, tar, tai, tbr, tbi, wr, wi,
+                         out, shift_cols);
   if (e != cudaSuccess) return e;
-  const int rows = n1 * L2;
-  rowfft_pass_b<<<(rows + kRowsB - 1) / kRowsB, kThreadsB, 0, s>>>(
-      hr, hi, out, rows, shift_cols);
   return cudaGetLastError();
+}
+
+// The row stage on `s`, the kernel compiled for this L2.
+cudaError_t launch_rows(const float* br, const float* bi, const float* tar,
+                        const float* tai, const float* tbr, const float* tbi,
+                        const float* wr, const float* wi, float* out, int n1,
+                        int L2, int shift_cols, cudaStream_t s) {
+  if (n1 < 1 || n1 > 65535) return cudaErrorInvalidValue;
+#define ROWFFT_L2(LOG2)                                                     \
+  case LOG2:                                                                \
+    return launch_geometry<LOG2>(br, bi, tar, tai, tbr, tbi, wr, wi, out,   \
+                                 n1, shift_cols, s);
+  switch (log2_exact(L2)) {
+    ROWFFT_L2(1) ROWFFT_L2(2) ROWFFT_L2(3) ROWFFT_L2(4) ROWFFT_L2(5)
+    ROWFFT_L2(6) ROWFFT_L2(7) ROWFFT_L2(8) ROWFFT_L2(9) ROWFFT_L2(10)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef ROWFFT_L2
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches both passes on `stream`.  `tar` == nullptr means the rows are
-// already twiddled.  hr/hi are (n1, L2, 128) scratch planes and out the
-// (n1, L2, 128) magnitudes, all allocated by the caller.  Returns the
-// cudaError_t of the launches (0 on success); does not synchronise.
+// Launches the row stage on `stream`.  `tar` == nullptr means the rows are
+// already twiddled.  br, bi 16-byte aligned; out: the (n1, L2, 128)
+// magnitudes, allocated by the caller; no scratch.  Returns the
+// cudaError_t of the launch (0 on success); does not synchronise.
 int rowfft_mag_launch(const float* br, const float* bi,
                       const float* tar, const float* tai,
                       const float* tbr, const float* tbi,
-                      const float* wr, const float* wi,
-                      float* hr, float* hi, float* out,
+                      const float* wr, const float* wi, float* out,
                       int n1, int L2, int shift_cols, void* stream) {
-  return static_cast<int>(launch_row_passes(
-      br, bi, tar, tai, tbr, tbi, wr, wi, hr, hi, out, n1, L2, shift_cols,
+  return static_cast<int>(launch_rows(
+      br, bi, tar, tai, tbr, tbi, wr, wi, out, n1, L2, shift_cols,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Launches stage 1, pass A (untwiddled) and pass B on `stream`: the
+// Launches stage 1 and the row stage (untwiddled) on `stream`: the
 // (n1, L2, 128) magnitudes of the four-step spectrum of the (n1, n2 =
 // L2 * 128) planes ar, ai.  cr/ci are (n1, n2) scratch planes for B*T,
-// hr/hi (n1, L2, 128) scratch planes for H, wr/wi the (L2, 128) inner
-// twiddle; all allocated by the caller.  Returns the cudaError_t of the
-// launches (0 on success); does not synchronise.
+// wr/wi the (L2, 128) inner twiddle; all allocated by the caller, cr and
+// ci 16-byte aligned.  Returns the cudaError_t of the launches (0 on
+// success); does not synchronise.
 int fourstep_mag_fused_launch(const float* ar, const float* ai,
                               const float* wr, const float* wi,
-                              float* cr, float* ci, float* hr, float* hi,
-                              float* out, int n1, int L2, int shift_cols,
-                              void* stream) {
+                              float* cr, float* ci, float* out, int n1,
+                              int L2, int shift_cols, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n2 = L2 * kLanes;
   const int log2_n1 = log2_exact(n1);
@@ -362,9 +488,9 @@ int fourstep_mag_fused_launch(const float* ar, const float* ai,
                                                           n2, log2_n1);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_row_passes(
-      cr, ci, nullptr, nullptr, nullptr, nullptr, wr, wi, hr, hi, out, n1,
-      L2, shift_cols, s));
+  return static_cast<int>(launch_rows(
+      cr, ci, nullptr, nullptr, nullptr, nullptr, wr, wi, out, n1, L2,
+      shift_cols, s));
 }
 
 const char* rowfft_mag_error_string(int code) {

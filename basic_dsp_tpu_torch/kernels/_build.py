@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``basic_dsp_tpu_torch/_build/`` (git-ignored) and loaded with ``ctypes``.
-The library's file name carries a hash of the source, so an edited source
-is rebuilt and a stale library is never loaded.  Nothing is built when the
-package is imported.
+The library's file name carries a hash of the source and of every header
+``csrc/*.cuh`` (the shared FFT core lives in one), so an edited source or
+header is rebuilt and a stale library is never loaded.  Nothing is built
+when the package is imported.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -36,11 +39,14 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library built from ``<csrc>/<name>.cu`` lives: keyed by
+    the source, every ``*.cuh`` header beside it and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 @functools.cache
@@ -58,3 +64,26 @@ def load(name: str) -> ctypes.CDLL:
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
     return ctypes.CDLL(str(so))
+
+
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _raw_stream(index: int) -> int:
+    """The raw handle of the current stream of CUDA device ``index``."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(dev, fn, *args) -> int:
+    """Calls the C entry ``fn(*args, stream)``, ``stream`` the current
+    stream of ``dev``, and returns its code.  Enters ``dev``'s device
+    context only when ``dev`` is not the current device; builds no Stream
+    object."""
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    if index == current:
+        return fn(*args, _raw_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _raw_stream(index))

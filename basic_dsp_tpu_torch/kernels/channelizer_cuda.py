@@ -10,15 +10,17 @@ and, per row s and lane c::
     y[s, :] = C * ifft(u[s, :])                      (unscaled inverse DFT)
     z[s]    = y[s] * conj(y[s - 1]),   ang = atan2(Im z, Re z)
 
-both wrappers return the (S, C) angle plane, or the (zr, zi) planes when
-``demod`` is False.  Column ``c1*128 + c2`` holds channel ``c1 + n1*c2``
-(n1 = C / 128), the layout that
-``ang.reshape(S, n1, 128).permute(2, 1, 0).reshape(C, S)`` undoes.
+both wrappers return the (C, S) angle plane, channel-major in natural
+channel order (``ang[k, s]``), or the (zr, zi) planes, (C, S) each, when
+``demod`` is False.  (The JAX kernel returns (S, C) with column
+``c1*128 + c2`` holding channel ``c1 + n1*c2``, n1 = C / 128, and leaves
+its caller ``reshape(S, n1, 128).permute(2, 1, 0).reshape(C, S)``; the
+CUDA kernel stores (C, S) itself.)
 ``prefix`` is an optional pair of (HALO_ROWS, C) planes of look-back rows
 preceding the signal (None: zeros, a causal start); only its last tp1
 rows are read.  Row -1 of the demod is the FIR over the look-back rows:
 with a zero prefix it is 0, and the angle where z = 0 is 0 (the JAX
-kernel's ``atan2(0, 0) = 0``), so ``ang[0]`` is 0 exactly.
+kernel's ``atan2(0, 0) = 0``), so ``ang[:, 0]`` is 0 exactly.
 
 :func:`channelize_demod_cuda` launches ``csrc/channelizer.cu`` for float32
 CUDA tensors and adds one to ``channelize_demod_cuda.launches``; a failed
@@ -38,14 +40,15 @@ from . import _build
 LANES = 128
 HALO_ROWS = 16           # look-back rows a prefix holds; tp1 <= HALO_ROWS
 MAX_N1 = 16
-SMEM_TILE = 72 * 1024    # shared memory of a CUDA block: three fit an SM
+SMS = 132                # streaming multiprocessors of an H100 SXM
+MAX_THREADS = 512
 
 
 def supported(C: int, S: int, taps_per_phase: int) -> bool:
     """Geometries the kernel takes: C = n1 * 128 with n1 a power of two in
-    [2, 16] (the inverse DFT is radix-2 over the whole row), at most
-    HALO_ROWS merged tap rows, and S >= 1 rows of any count (the kernel
-    masks a ragged last tile).  Admits every geometry that the JAX
+    [2, 16] (the inverse DFT runs radix-8/16 passes over the whole row), at
+    most HALO_ROWS merged tap rows, and S >= 1 rows of any count (the kernel
+    masks a ragged last strip).  Admits every geometry that the JAX
     kernel's ``supported`` admits, without its grid-only rules on S."""
     n1 = C // LANES
     return (C == n1 * LANES and 2 <= n1 <= MAX_N1 and (n1 & (n1 - 1)) == 0
@@ -53,19 +56,68 @@ def supported(C: int, S: int, taps_per_phase: int) -> bool:
             and S >= 1)
 
 
-def row_stride(C: int) -> int:
-    """Floats of one row in the kernel's shared memory: one word of padding
-    after every 32, so that the bit-reversed writes, the butterflies' pairs
-    and the channel-order reads fall in different banks."""
-    return C + C // 32
+def lanes_per_thread(C: int) -> int:
+    """Lanes of the FIR each thread owns (``NL`` in csrc/channelizer.cu):
+    2, or 4 at C = 2048, so that a block has at most MAX_THREADS."""
+    return 4 if C == 2048 else 2
 
 
-@functools.lru_cache(maxsize=16)
-def tile_rows(C: int) -> int:
-    """Output rows R of a CUDA block: R + 1 padded complex rows (the head
-    row -1 and R outputs) and C/2 twiddles fit in SMEM_TILE."""
-    room = SMEM_TILE - (C // 2) * 8
-    return max(1, room // (row_stride(C) * 8) - 1)
+def group_rows(C: int) -> int:
+    """Rows G the kernel transforms together: 16 / NL (8, or 4 at
+    C = 2048), so that two buffers of G + 1 rows fit in shared memory."""
+    return 16 // lanes_per_thread(C)
+
+
+def row_words(C: int) -> int:
+    """Words of one buffer row: C + 32/G, so that the G rows the demod
+    reads together fall 32/G banks apart."""
+    return C + 32 // group_rows(C)
+
+
+def swizzle(e):
+    """The word of element e inside a buffer row (an int or an integer
+    array): e ^ ((e >> 3) & 31) ^ ((e >> 8) & 31), a permutation of each
+    aligned run of 32 words."""
+    return e ^ ((e >> 3) & 31) ^ ((e >> 8) & 31)
+
+
+def radix_plan(C: int) -> tuple:
+    """The radices of the inverse DFT, first pass first (``plan_88`` in
+    csrc/fft_core.cuh): two radix-8 passes, then the rest in one pass of at
+    most 16, or a radix-8 pass and the rest."""
+    left = C.bit_length() - 1 - 6
+    rest = ((3, left - 3) if left > 4 else (left,) if left > 0 else ())
+    return (8, 8) + tuple(1 << b for b in rest)
+
+
+def table_entries(C: int) -> int:
+    """float2 entries of the pass twiddle tables (every pass but the
+    first: p * R each)."""
+    n, p = 0, 1
+    for j, R in enumerate(radix_plan(C)):
+        if j:
+            n += p * R
+        p *= R
+    return n
+
+
+def smem_bytes(C: int) -> int:
+    """Dynamic shared memory of a block, as the launcher computes it: two
+    buffers of (re, im) planes of G + 1 rows, the twiddle tables and, for
+    C <= 1024, the staging planes of the next group's G input rows."""
+    G = group_rows(C)
+    stage = 2 * G * C * 4 if lanes_per_thread(C) == 2 else 0
+    return 4 * (G + 1) * row_words(C) * 4 + table_entries(C) * 8 + stage
+
+
+@functools.lru_cache(maxsize=64)
+def strip_rows(C: int, S: int) -> int:
+    """Output rows per block: a multiple of G that gives about one block
+    per SM for every MAX_THREADS threads the SM can hold (128 blocks of
+    32 rows at config #5's C = 1024, S = 4096)."""
+    G = group_rows(C)
+    blocks = SMS * (MAX_THREADS // (C // lanes_per_thread(C)))
+    return G * max(1, -(-S // (G * blocks)))
 
 
 def _check(xr, xi, taps_merged, C: int, prefix, dtypes):
@@ -92,7 +144,7 @@ def _check(xr, xi, taps_merged, C: int, prefix, dtypes):
         if len(prefix) != 2:
             raise ValueError("prefix: expected a (re, im) pair")
         for p in prefix:
-            if (p.dtype != xr.dtype or tuple(p.shape) != (HALO_ROWS, C)
+            if (p.dtype != xr.dtype or p.shape != (HALO_ROWS, C)
                     or p.device != xr.device):
                 raise ValueError(f"prefix: expected two ({HALO_ROWS}, {C}) "
                                  f"planes of {xr.dtype} on {xr.device}")
@@ -123,9 +175,9 @@ def _angle(zr: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
 def channelize_demod_plain(xr, xi, taps_merged, C: int, demod: bool = True,
                            prefix=None):
     """Plain PyTorch version of :func:`channelize_demod_cuda`: the FIR as
-    :func:`fir_stencil`, ``C * torch.fft.ifft`` over each row, the column
-    permutation, the demod and ``torch.atan2``.  xr, xi (n,) float32 or
-    float64; returns (S, C) angles, or (zr, zi) planes."""
+    :func:`fir_stencil`, ``C * torch.fft.ifft`` over each row, the demod,
+    ``torch.atan2`` and one transpose to (C, S).  xr, xi (n,) float32 or
+    float64; returns (C, S) angles, or (zr, zi) planes."""
     S, tp1 = _check(xr, xi, taps_merged, C, prefix,
                     (torch.float32, torch.float64))
     planes = []
@@ -135,16 +187,15 @@ def channelize_demod_plain(xr, xi, taps_merged, C: int, demod: bool = True,
         ext = torch.cat([look, x.reshape(S, C)])     # ext[i] = X[i - tp1]
         planes.append(fir_stencil(ext, taps_merged, S + 1))  # rows -1 .. S-1
     y = C * torch.fft.ifft(torch.complex(*planes), dim=-1)
-    n1 = C // LANES
-    # column c1*128 + c2 <- channel c1 + n1*c2
-    y = y.reshape(S + 1, LANES, n1).transpose(1, 2).reshape(S + 1, C)
-    z = y[1:] * torch.conj(y[:-1])
+    z = (y[1:] * torch.conj(y[:-1])).T                # (C, S)
     zr, zi = z.real.contiguous(), z.imag.contiguous()
     return _angle(zr, zi) if demod else (zr, zi)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
+    """Builds and loads ``csrc/channelizer.cu`` (at most once) and sets its
+    entries' argument types."""
     lib = _build.load("channelizer")
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.channelizer_launch.argtypes = [vp] * 7 + [ll, ci, ci, ci, vp]
@@ -156,37 +207,43 @@ def _lib() -> ctypes.CDLL:
 
 def _launch(xr, xi, taps, C, S, tp1, demod, prefix):
     """Runs ``csrc/channelizer.cu`` on float32 CUDA planes."""
-    dev = xr.device
-    xr, xi = xr.contiguous(), xi.contiguous()
-    taps = taps.to(torch.float32).contiguous()
-    pre = ([None, None] if prefix is None
-           else [p.contiguous().data_ptr() for p in prefix])
-    out = torch.empty((1 if demod else 2, S, C), dtype=torch.float32,
-                      device=dev)
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.channelizer_launch(
-            xr.data_ptr(), xi.data_ptr(), taps.data_ptr(), *pre,
-            out[0].data_ptr(), None if demod else out[1].data_ptr(),
-            S, C, tp1, tile_rows(C), stream)
+    xr, xi = xr.contiguous(), xi.contiguous()
+    if xr.data_ptr() % 16 or xi.data_ptr() % 16:
+        # the kernel copies rows in 16-byte pieces (cp.async)
+        xr, xi = xr.clone(), xi.clone()
+    taps = taps.to(torch.float32).contiguous()
+    # the contiguous planes stay referenced until the launch is queued
+    held = () if prefix is None else tuple(p.contiguous() for p in prefix)
+    pre = tuple(p.data_ptr() for p in held) if held else (None, None)
+    if demod:
+        out = torch.empty((C, S), dtype=torch.float32, device=xr.device)
+        o0, o1 = out.data_ptr(), None
+    else:
+        out = torch.empty((2, C, S), dtype=torch.float32, device=xr.device)
+        o0 = out.data_ptr()
+        o1 = o0 + 4 * C * S
+    rc = _build.launch(xr.device, lib.channelizer_launch, xr.data_ptr(),
+                       xi.data_ptr(), taps.data_ptr(), *pre, o0, o1, S, C,
+                       tp1, strip_rows(C, S))
     if rc != 0:
         raise RuntimeError("channelizer kernel launch failed: "
                            + lib.channelizer_error_string(rc).decode())
-    return out[0] if demod else (out[0], out[1])
+    return out if demod else (out[0], out[1])
 
 
 def channelize_demod_cuda(xr, xi, taps_merged, C: int, demod: bool = True,
                           prefix=None):
     """K6: fused channelize + conj-demod of (n,) float32 planes, as
-    :func:`channelize_demod_plain` (module docstring for the contract).  A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    and adds one to ``channelize_demod_cuda.launches``."""
+    :func:`channelize_demod_plain` (module docstring for the contract),
+    into (C, S) planes.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel and adds one to
+    ``channelize_demod_cuda.launches``."""
     S, tp1 = _check(xr, xi, taps_merged, C, prefix, (torch.float32,))
-    kind = xr.device.type
-    if kind == "cpu":
-        return channelize_demod_plain(xr, xi, taps_merged, C, demod, prefix)
-    if kind != "cuda":
+    if not xr.is_cuda:
+        if xr.device.type == "cpu":
+            return channelize_demod_plain(xr, xi, taps_merged, C, demod,
+                                          prefix)
         raise ValueError(f"channelize_demod_cuda: no kernel for {xr.device}")
     out = _launch(xr, xi, taps_merged, C, S, tp1, demod, prefix)
     channelize_demod_cuda.launches += 1

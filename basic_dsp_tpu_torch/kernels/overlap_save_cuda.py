@@ -169,11 +169,34 @@ def _blocked_linear_conv(xr, xi, hr, hi, fft_len: int):
     return overlap_add(y, L, n + m_eff - 1)
 
 
+_KERNEL_DTYPES = (torch.float32, torch.complex64)
+
+
+def takes_dtypes(x_dtype, h_dtype) -> bool:
+    """Whether the kernel, which computes in f32, may convolve a signal of
+    ``x_dtype`` with taps of ``h_dtype``: a float32 or complex64 signal
+    with taps that promote with it to no wider type.  ``conv_ops`` sends
+    anything wider to ``torch.fft`` in the promoted dtype, as the JAX
+    dispatch does on a backend with native f64: a choice by dtype, not a
+    fallback on failure."""
+    return (x_dtype in _KERNEL_DTYPES
+            and torch.promote_types(x_dtype, h_dtype) in _KERNEL_DTYPES)
+
+
+def _check_precision(x_dtype, h_dtype):
+    """Raises rather than round a wider signal or wider taps to f32."""
+    if not takes_dtypes(x_dtype, h_dtype):
+        raise TypeError(f"overlap_save: the kernel takes a float32 or "
+                        f"complex64 signal with taps of at most complex64 "
+                        f"precision, got {x_dtype} and {h_dtype}")
+
+
 def overlap_save_planar(xr, xi, h, fft_len: int):
-    """Centered circular convolution of the (n,) planes xr, xi (computed
-    in f32) with the real or complex taps ``h``, through
+    """Centered circular convolution of the (n,) float32 planes xr, xi
+    with the real or complex taps ``h`` (at most complex64), through
     :func:`blocked_linear_conv_cuda`; returns f32 (out_re, out_im)."""
-    xr, xi = xr.float(), xi.float()
+    _check_precision(xr.dtype, h.dtype)
+    _check_precision(xi.dtype, h.dtype)
     n = xr.shape[-1]
     start, m_eff, c = _clip_kernel(n, h.shape[-1])
     h_eff = h[start:start + m_eff]
@@ -190,14 +213,13 @@ def overlap_save_cuda(x: torch.Tensor, h: torch.Tensor, is_complex: bool,
     """Circular centered convolution of the 1-D ``x`` with ``h``, the
     semantics of ``ops.conv_ops.overlap_save``, through the kernel
     (JAX ``overlap_save_pallas``).  Real f32 output when not
-    ``is_complex``, complex64 (or wider, with ``x``) otherwise."""
+    ``is_complex``, complex64 otherwise.  ``x`` float32 or complex64,
+    ``h`` at most complex64."""
+    _check_precision(x.dtype, h.dtype)
     if x.is_complex():
-        xr, xi = x.real.float(), x.imag.float()
+        xr, xi = x.real, x.imag
     else:
-        xr = x.float()
+        xr = x
         xi = torch.zeros_like(xr)
     out_r, out_i = overlap_save_planar(xr, xi, h, fft_len)
-    if not is_complex:
-        return out_r.to(x.real.dtype)
-    return torch.complex(out_r, out_i).to(
-        torch.promote_types(x.dtype, torch.complex64))
+    return torch.complex(out_r, out_i) if is_complex else out_r

@@ -43,10 +43,18 @@ def inner_twiddle(L2: int, n2: int, device) -> tuple:
     return tuple(torch.from_numpy(p).to(device) for p in _inner_consts(L2, n2))
 
 
+@functools.lru_cache(maxsize=8)
+def _held_twiddle(L2: int, n2: int, device: torch.device) -> tuple:
+    """:func:`inner_twiddle` built once per geometry and device, for a
+    wrapper called without ``W`` (it only reads them)."""
+    return inner_twiddle(L2, n2, device)
+
+
 def supported(n1: int, n2: int) -> bool:
     """Geometries the kernel takes: n2 = L2 * 128 with L2 a power of two
-    in [2, 1024] (pass A holds L2 x 16 complex values in shared memory:
-    128 KiB at L2 = 1024), and 1 <= n1 <= 65535 (one grid row per k1)."""
+    in [2, 1024] (a row's cluster of :func:`cluster_blocks` blocks holds it
+    in shared memory: 16 blocks of 64 KiB of planes at L2 = 1024), and
+    1 <= n1 <= 65535 (one grid row per k1)."""
     L2 = n2 // LANES
     return (L2 * LANES == n2 and 2 <= L2 <= 1024 and (L2 & (L2 - 1)) == 0
             and 1 <= n1 <= 65535)
@@ -72,28 +80,60 @@ def rowfft_mag_plain(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
 
 
 def _check_planes(name, planes, shapes, device):
+    """Raises unless each plane is a contiguous float32 tensor of its shape
+    on ``device``.  Compares devices by index (``get_device``, no
+    ``torch.device`` built per plane): the wrappers' host time counts."""
     if len(planes) != len(shapes):
         raise ValueError(f"{name}: expected {len(shapes)} planes, "
                          f"got {len(planes)}")
+    index = -1 if device.type == "cpu" else device.index
     for p, shape in zip(planes, shapes):
-        if not isinstance(p, torch.Tensor) or p.dtype != torch.float32:
+        if not isinstance(p, torch.Tensor) or p.dtype is not torch.float32:
             raise TypeError(f"{name}: planes must be float32 tensors")
-        if tuple(p.shape) != shape:
+        if p.shape != shape:
             raise ValueError(f"{name}: plane shape {tuple(p.shape)}, "
                              f"expected {shape}")
-        if p.device != device:
+        if p.get_device() != index or (index < 0
+                                        and p.device.type != device.type):
             raise ValueError(f"{name}: plane on {p.device}, data on {device}")
         if not p.is_contiguous():
             raise ValueError(f"{name}: planes must be contiguous")
 
 
+def cols_per_block(L2: int) -> int:
+    """j2 columns NC a block of the row kernel owns (``RowGeometry`` in
+    csrc/rowfft_mag.cu, which compiles the kernel for each L2): all 128
+    for L2 <= 32, else 4096 / L2 and at least 8, so that up to L2 = 512 a
+    block's two buffers (~4K complex values) let three blocks share an
+    SM."""
+    return LANES if L2 <= 32 else max(8, 4096 // L2)
+
+
+def radix_plan(n: int) -> tuple:
+    """The radices of the row kernel's length-n FFTs, first pass first
+    (``plan_16`` in csrc/fft_core.cuh): radix 16, the remainder last."""
+    bits, plan = n.bit_length() - 1, []
+    while bits > 0:
+        plan.append(1 << min(4, bits))
+        bits -= min(4, bits)
+    return tuple(plan)
+
+
+def cluster_blocks(L2: int) -> int:
+    """Blocks CS of a row's cluster: 128 / NC (8 at L2 = 256, 16, a
+    non-portable cluster size, at L2 = 512 and 1024)."""
+    return LANES // cols_per_block(L2)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
+    """Builds and loads ``csrc/rowfft_mag.cu`` (at most once) and sets its
+    entries' argument types."""
     lib = _build.load("rowfft_mag")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.rowfft_mag_launch.argtypes = [vp] * 11 + [ci, ci, ci, vp]
+    lib.rowfft_mag_launch.argtypes = [vp] * 9 + [ci, ci, ci, vp]
     lib.rowfft_mag_launch.restype = ci
-    lib.fourstep_mag_fused_launch.argtypes = [vp] * 9 + [ci, ci, ci, vp]
+    lib.fourstep_mag_fused_launch.argtypes = [vp] * 7 + [ci, ci, ci, vp]
     lib.fourstep_mag_fused_launch.restype = ci
     lib.rowfft_mag_error_string.argtypes = [ci]
     lib.rowfft_mag_error_string.restype = ctypes.c_char_p
@@ -108,7 +148,8 @@ def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
     pre-twiddle when ``Tfac`` = (Ar, Ai, Br, Bi) factored twiddle planes
     (A: (n1, L2), B: (n1, 128)) is given, post-twiddle otherwise.
     n2 = L2 * 128 with ``supported(n1, n2)``.  ``W``: optional (Wr, Wi)
-    inner-twiddle planes (:func:`inner_twiddle`); built when None.
+    inner-twiddle planes (:func:`inner_twiddle`); built once and held
+    when None.
 
     Returns (n1, L2, 128) f32, M[k1, k1', k2s] = |X_row[k1' + L2 *
     ((k2s + 64) % 128)]| (no rotation when ``shift`` is False); flatten
@@ -127,23 +168,23 @@ def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
     _check_planes("Br/Bi", (Br, Bi), [(n1, n2)] * 2, dev)
     if Tfac is not None:
         _check_planes("Tfac", Tfac, [(n1, L2)] * 2 + [(n1, LANES)] * 2, dev)
-    if dev.type == "cpu":
-        return rowfft_mag_plain(Br, Bi, shift, Tfac)
-    if dev.type != "cuda":
+    if not Br.is_cuda:
+        if dev.type == "cpu":
+            return rowfft_mag_plain(Br, Bi, shift, Tfac)
         raise ValueError(f"rowfft_mag: no kernel for device {dev}")
     if W is None:
-        W = inner_twiddle(L2, n2, dev)
+        W = _held_twiddle(L2, n2, dev)
     _check_planes("W", W, [(L2, LANES)] * 2, dev)
     lib = _lib()
-    H = torch.empty((2, n1, L2, LANES), dtype=torch.float32, device=dev)
+    if Br.data_ptr() % 16 or Bi.data_ptr() % 16:
+        # the kernel copies its rows in 16-byte pieces (cp.async)
+        Br, Bi = Br.clone(), Bi.clone()
     out = torch.empty((n1, L2, LANES), dtype=torch.float32, device=dev)
     tf = [p.data_ptr() for p in Tfac] if Tfac is not None else [None] * 4
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.rowfft_mag_launch(
-            Br.data_ptr(), Bi.data_ptr(), *tf, W[0].data_ptr(),
-            W[1].data_ptr(), H[0].data_ptr(), H[1].data_ptr(),
-            out.data_ptr(), n1, L2, LANES // 2 if shift else 0, stream)
+    rc = _build.launch(
+        dev, lib.rowfft_mag_launch, Br.data_ptr(), Bi.data_ptr(), *tf,
+        W[0].data_ptr(), W[1].data_ptr(), out.data_ptr(), n1, L2,
+        LANES // 2 if shift else 0)
     if rc != 0:
         raise RuntimeError("rowfft_mag kernel launch failed: "
                            + lib.rowfft_mag_error_string(rc).decode())
@@ -198,11 +239,11 @@ def fourstep_mag_fused(Ar: torch.Tensor, Ai: torch.Tensor,
 
     Ar, Ai: the (n1, n2) float32 planes of the windowed signal, n1 * n2 =
     N, ``fused_supported(n1, n2)``.  ``W``: optional (Wr, Wi) inner-twiddle
-    planes (:func:`inner_twiddle`); built when None.  Returns (n1, L2,
-    128) f32 in :func:`rowfft_mag`'s layout (flatten with
+    planes (:func:`inner_twiddle`); built once and held when None.  Returns
+    (n1, L2, 128) f32 in :func:`rowfft_mag`'s layout (flatten with
     :func:`natural_flatten`).  A CPU tensor takes
     :func:`fourstep_mag_fused_plain`; a CUDA tensor launches
-    ``fourstep_mag_fused_launch`` (stage 1, then K1's two passes) and adds
+    ``fourstep_mag_fused_launch`` (stage 1, then K1's row kernel) and adds
     one to ``fourstep_mag_fused.launches``, not to
     ``rowfft_mag.launches``.
     """
@@ -216,24 +257,21 @@ def fourstep_mag_fused(Ar: torch.Tensor, Ai: torch.Tensor,
     L2 = n2 // LANES
     dev = Ar.device
     _check_planes("Ar/Ai", (Ar, Ai), [(n1, n2)] * 2, dev)
-    if dev.type == "cpu":
-        return fourstep_mag_fused_plain(Ar, Ai, shift)
-    if dev.type != "cuda":
+    if not Ar.is_cuda:
+        if dev.type == "cpu":
+            return fourstep_mag_fused_plain(Ar, Ai, shift)
         raise ValueError(f"fourstep_mag_fused: no kernel for device {dev}")
     if W is None:
-        W = inner_twiddle(L2, n2, dev)
+        W = _held_twiddle(L2, n2, dev)
     _check_planes("W", W, [(L2, LANES)] * 2, dev)
     lib = _lib()
     C = torch.empty((2, n1, n2), dtype=torch.float32, device=dev)
-    H = torch.empty((2, n1, L2, LANES), dtype=torch.float32, device=dev)
     out = torch.empty((n1, L2, LANES), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fourstep_mag_fused_launch(
-            Ar.data_ptr(), Ai.data_ptr(), W[0].data_ptr(), W[1].data_ptr(),
-            C[0].data_ptr(), C[1].data_ptr(), H[0].data_ptr(),
-            H[1].data_ptr(), out.data_ptr(), n1, L2,
-            LANES // 2 if shift else 0, stream)
+    cr = C.data_ptr()
+    rc = _build.launch(
+        dev, lib.fourstep_mag_fused_launch, Ar.data_ptr(), Ai.data_ptr(),
+        W[0].data_ptr(), W[1].data_ptr(), cr, cr + 4 * n1 * n2,
+        out.data_ptr(), n1, L2, LANES // 2 if shift else 0)
     if rc != 0:
         raise RuntimeError("fourstep_mag_fused kernel launch failed: "
                            + lib.rowfft_mag_error_string(rc).decode())

@@ -286,7 +286,8 @@ def convolve_signal(x: torch.Tensor, h: torch.Tensor, is_complex: bool,
     """Dispatch on the reference thresholds (convolution.rs:477-542): the
     SIMD gate (len > 1000, imp <= 202) takes the Toeplitz path, the
     overlap-discard gate the blocked overlap-save (the CUDA kernel's
-    wrapper for 1-D signals whose block geometry it takes), everything else
+    wrapper for 1-D float32/complex64 signals whose block geometry it
+    takes, ``torch.fft`` in the promoted dtype otherwise), everything else
     one whole-signal FFT."""
     cfg = cfg or default_config()
     n = x.shape[-1]
@@ -296,8 +297,9 @@ def convolve_signal(x: torch.Tensor, h: torch.Tensor, is_complex: bool,
     if _in_overlap_save_region(n, m, cfg):
         fl = pick_fft_len(min(m, n), cfg.fft_block_len)
         fl_k = _kernel_fft_len(n, m, fl)
-        if fl_k and x.dim() == 1:
-            from ..kernels import overlap_save_cuda
+        from ..kernels import overlap_save_cuda
+        if (fl_k and x.dim() == 1
+                and overlap_save_cuda.takes_dtypes(x.dtype, h.dtype)):
             return overlap_save_cuda.overlap_save_cuda(x, h, is_complex,
                                                        fl_k)
         return overlap_save(x, h, is_complex, fl)
@@ -307,19 +309,22 @@ def convolve_signal(x: torch.Tensor, h: torch.Tensor, is_complex: bool,
 def convolve_signal_planar(xr: torch.Tensor, xi: torch.Tensor,
                            h: torch.Tensor, cfg=None):
     """:func:`convolve_signal` for a complex signal held as (re, im)
-    planes.  The Toeplitz region and the overlap-save kernel take the
-    planes as they are; the other paths build the complex signal their
-    FFTs need.  Returns (out_re, out_im)."""
+    planes.  The Toeplitz region and the overlap-save kernel (float32
+    planes only) take the planes as they are; the other paths build the
+    complex signal their FFTs need, in the promoted dtype.  Returns
+    (out_re, out_im), float64 planes for float64 input."""
     cfg = cfg or default_config()
     n = xr.shape[-1]
     m = h.shape[-1]
     if n > cfg.direct_conv_min_len and m <= cfg.direct_conv_max_imp_len:
         return toeplitz_conv_planar(xr, xi, h)
-    if _in_overlap_save_region(n, m, cfg) and xr.dim() == 1:
+    from ..kernels import overlap_save_cuda
+    if (_in_overlap_save_region(n, m, cfg) and xr.dim() == 1
+            and xr.dtype == xi.dtype
+            and overlap_save_cuda.takes_dtypes(xr.dtype, h.dtype)):
         fl_k = _kernel_fft_len(n, m, pick_fft_len(min(m, n),
                                                   cfg.fft_block_len))
         if fl_k:
-            from ..kernels import overlap_save_cuda
             return overlap_save_cuda.overlap_save_planar(xr, xi, h, fl_k)
     out = convolve_signal(torch.complex(xr, xi), h, True, cfg)
     return out.real, out.imag

@@ -10,8 +10,8 @@ each row.
 
 :func:`channelize_and_demod_planar` sends float32 CUDA planes at a
 geometry that ``kernels.channelizer_cuda.supported`` admits to kernel K6
-(``channelize_demod_cuda``: FIR, inverse DFT, demod and atan2 in one pass),
-then transposes the angles to (C, S) once.  Every other case (CPU
+(``channelize_demod_cuda``: FIR, inverse DFT, demod and atan2 in one pass,
+stored as the (C, S) angles).  Every other case (CPU
 tensors, float64, other geometries) takes the generic path: the FIR,
 ``C * torch.fft.ifft`` and ``angle(y * conj(prev))``.
 :class:`ChannelizeAndDemodPlanar` holds the merged taps as a buffer.
@@ -148,12 +148,9 @@ def _demod_planar(xr: torch.Tensor, xi: torch.Tensor,
     # an n that C does not divide raises in the wrapper or _padded_rows
     S = xr.shape[-1] // C
     if _kernel_eligible(xr, xi, C, S, taps_merged.shape[0] - 1):
-        ang = channelizer_cuda.channelize_demod_cuda(
+        # the kernel stores the (C, S) angles itself: no transpose
+        return channelizer_cuda.channelize_demod_cuda(
             xr.contiguous(), xi.contiguous(), taps_merged, C, demod=True)
-        n1 = C // channelizer_cuda.LANES
-        # column c1*128 + c2 holds channel c1 + n1*c2: one f32 transpose
-        return ang.reshape(S, n1, channelizer_cuda.LANES).permute(
-            2, 1, 0).reshape(C, S)
     y = _padded_rows(torch.complex(xr, xi), taps_merged)   # (S, C)
     prev = torch.cat([y[:1], y[:-1]])
     return torch.angle(y * torch.conj(prev)).T

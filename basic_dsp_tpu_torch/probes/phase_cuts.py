@@ -1,0 +1,176 @@
+#!/usr/bin/env python3
+"""Where the time of K1 (``csrc/rowfft_mag.cu``) and K6
+(``csrc/channelizer.cu``) goes, on an NVIDIA GPU.
+
+    python3 basic_dsp_tpu_torch/probes/phase_cuts.py
+
+Builds each kernel as it is and in variants with one phase cut out by an
+edit of its source (the edits are listed below; each must match the
+source, or the probe stops), then times every build at its main path's
+shape: CUDA events around 50 back-to-back launches through the C entry,
+after 3 warm-up launches.  The cuts change what the kernels compute: they
+only say how much device time a phase holds.  The variant sources and
+libraries go to ``basic_dsp_tpu_torch/_build/cuts/`` (git-ignored).
+"""
+import concurrent.futures
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+
+from basic_dsp_tpu_torch.kernels import _build  # noqa: E402
+from basic_dsp_tpu_torch.kernels import spectrum_cuda as sc  # noqa: E402
+from basic_dsp_tpu_torch.ops import fourstep  # noqa: E402
+from basic_dsp_tpu_torch.parallel import channelizer as chz  # noqa: E402
+
+OUT = _build.BUILD_DIR / "cuts"
+REPS = 50
+
+K1_FFT1 = ("const int in_y = fft_core::run_16<-1, LOG2_L2>(col, xr, xi, yr, "
+           "yi, tw1,\n                                                 nc);",
+           "const int in_y = 0;")
+K1_FFT2 = ("const int in_f = fft_core::run_16<-1, 7>(RowLayout<G::kLog2Rows>{}, "
+           "gr,\n                                           gi, fr, fi, tw2, "
+           "rows);", "const int in_f = 0;")
+K1_LOADS = ("    cp_async::copy16((plane ? xi : xr) + col.word(j1, m),\n"
+            "                     (plane ? bi : br) + g);", "")
+K1_CUTS = {
+    "as built": [],
+    "no step-1 FFT": [K1_FFT1],
+    "no step-2 FFT": [K1_FFT2],
+    "no FFTs": [K1_FFT1, K1_FFT2],
+    "no device loads": [K1_LOADS],
+    "no device loads, no FFTs": [K1_LOADS, K1_FFT1, K1_FFT2],
+    "gather from its own shared memory": [
+        ("cluster.map_shared_rank(hr, j2 >> log2nc)[src]", "hr[src]"),
+        ("cluster.map_shared_rank(hi, j2 >> log2nc)[src]", "hi[src]")],
+    "no gather (no DSMEM or W reads)": [
+        ("        vr[u] = cluster.map_shared_rank(hr, j2 >> log2nc)[src];\n"
+         "        vi[u] = cluster.map_shared_rank(hi, j2 >> log2nc)[src];",
+         "        vr[u] = src;\n        vi[u] = src;"),
+        ("const float w_r = wr[w], w_i = wi[w];",
+         "const float w_r = w, w_i = w;")],
+    "no magnitude stores": [("    o[idx] = sqrtf(vr * vr + vi * vi);",
+                             "    if (vr == 1234.5f) o[idx] = vi;")],
+    "no twiddle tables": [("  fft_core::fill_tables<-1>(tw1, plan1);\n"
+                           "  fft_core::fill_tables<-1>(tw2, plan2);", "")],
+}
+K6_CUTS = {
+    "as built": [],
+    "no FFT": [("const int in_b = inverse_dft<NL>(RowLayout{r0, rs}, log2c, "
+                "ar, ai, br,\n                                     bi, tw, "
+                "nv + 1 - r0);", "const int in_b = 0;")],
+    "no atan2": [("atan2f(zi, zr)", "(zi + zr)")],
+    "no angle stores": [
+        ("out0[o] = (zr == 0.0f && zi == 0.0f) ? 0.0f : atan2f(zi, zr);",
+         "if (zr == 1234.5f) out0[o] = zi;")],
+    "no cp.async staging": [("constexpr bool kStage = NL == 2;",
+                             "constexpr bool kStage = false;")],
+    "no twiddle tables": [("  fft_core::fill_tables<1>(tw, plan);", "")],
+}
+
+
+def build(kernel, label, edits):
+    """The library of ``csrc/<kernel>.cu`` with ``edits`` applied."""
+    text = (_build.CSRC / f"{kernel}.cu").read_text()
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"phase_cuts: {kernel}.cu no longer holds the "
+                             f"text that '{label}' cuts:\n{old}")
+        text = text.replace(old, new)
+    name = f"{kernel}_{re.sub(r'[^0-9A-Za-z]+', '_', label)}"
+    src, lib = OUT / f"{name}.cu", OUT / f"lib{name}.so"
+    src.write_text(text)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                           f"-I{_build.CSRC}", "-o", str(lib), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise SystemExit(f"phase_cuts: nvcc failed on '{label}':\n"
+                         f"{proc.stderr[-3000:]}")
+    return ctypes.CDLL(str(lib))
+
+
+def events_us(fn):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / REPS * 1e3
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_cuts: torch.cuda.is_available() is False")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = [("rowfft_mag", k, v) for k, v in K1_CUTS.items()]
+    jobs += [("channelizer", k, v) for k, v in K6_CUTS.items()]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda j: build(*j), jobs))
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+    n1, n2 = 128, 32768
+    L2 = n2 // 128
+    Br, Bi = (torch.from_numpy(rng.standard_normal((n1, n2), np.float32))
+              .to(dev) for _ in range(2))
+    T = tuple(torch.from_numpy(p).to(dev)
+              for p in fourstep._dif_twiddle_factored(n1, n2))
+    W = sc.inner_twiddle(L2, n2, dev)
+    M = torch.empty(n1, L2, 128, device=dev)
+    k1_args = [Br.data_ptr(), Bi.data_ptr(), *[t.data_ptr() for t in T],
+               W[0].data_ptr(), W[1].data_ptr(), M.data_ptr(), n1, L2, 64,
+               stream]
+
+    C, S, taps = 1024, 4096, 8
+    xr, xi = (torch.from_numpy(rng.standard_normal(C * S)
+                               .astype(np.float32)).to(dev) for _ in range(2))
+    proto = torch.from_numpy((np.hamming(C * taps) / C)
+                             .astype(np.float32)).to(dev)
+    ts = chz._merged_tap_rows(proto, C)
+    ang = torch.empty(C, S, device=dev)
+    from basic_dsp_tpu_torch.kernels import channelizer_cuda as cc
+    k6_args = [xr.data_ptr(), xi.data_ptr(), ts.data_ptr(), None, None,
+               ang.data_ptr(), None, S, C, taps + 1, cc.strip_rows(C, S),
+               stream]
+
+    for (kernel, label, _), lib in zip(jobs, libs):
+        if kernel == "rowfft_mag":
+            fn = lib.rowfft_mag_launch
+            fn.argtypes = [vp] * 9 + [ci] * 3 + [vp]
+            args, shape = k1_args, f"K1 rowfft_mag ({n1}, {n2})"
+        else:
+            fn = lib.channelizer_launch
+            fn.argtypes = [vp] * 7 + [ll, ci, ci, ci, vp]
+            args, shape = k6_args, f"K6 channelize_demod (C={C}, S={S})"
+        fn.restype = ci
+        rc = fn(*args)
+        torch.cuda.synchronize()
+        if rc:
+            raise SystemExit(f"phase_cuts: {shape} {label}: launch error {rc}")
+        us = events_us(lambda: fn(*args))
+        print(f"{shape}, {label}: {us:.1f} us/launch (CUDA events, {REPS} "
+              f"back-to-back launches) on {smi}", flush=True)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,7 @@ Phases (any failure raises and exits non-zero):
    holds K1 and K2, overlap_save, resample, channelizer), one nvcc each,
    started together;
 2. kernels vs plain, on the card, <= 2e-6 relative to the maximum:
-   ``rowfft_mag`` (K1) against ``rowfft_mag_plain`` at four geometries,
+   ``rowfft_mag`` (K1) against ``rowfft_mag_plain`` at five geometries,
    ``fourstep_mag_fused`` (K2) against ``fourstep_mag_fused_plain`` at
    four, among them a non-power-of-two n1 (the direct sum), the 4M
    geometry and L2 = 1024,
@@ -23,7 +23,7 @@ Phases (any failure raises and exits non-zero):
    does not divide; ``channelize_demod_cuda`` (K6) against
    ``channelize_demod_plain`` at four (C, S, taps per phase), among them
    config #5's and a ragged S with a non-zero prefix, with ``demod`` True
-   (angles, by the |z|-weighted wrapped error) and False (z);
+   (angles, by the |z|-weighted wrapped error) and False (z), both (C, S);
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    a. the spectrum chain: ``FirFftChainPlanar`` at n = 2^22 with 128
@@ -50,7 +50,8 @@ Phases (any failure raises and exits non-zero):
       complex128, the demod; |z|-weighted angle error <= 5e-6); then
       ``channelize_and_demod``, ``ChannelizeAndDemodPlanar`` and
       ``polyphase_channelizer`` (no kernel, against the oracle's channels
-      at 5e-6) once each;
+      at 5e-6) once each; the module's profile must show K6 alone (no
+      transpose);
    g. the fused spectrum chain: ``FirFftChainPlanar(..., fused=True)`` as
       in a (one K2 launch, no K1 launch), against the float64 oracle (<=
       5e-6); then ``fir_fft_chain_planar(..., fused=True)`` once;
@@ -58,7 +59,8 @@ Phases (any failure raises and exits non-zero):
    ``torch.profiler`` device time per kernel and the idle share; the fused
    chain against the unfused one in turns; each kernel against its plain
    version and its library call (one PyTorch call computing the same
-   function, where there is one) in turns; and each kernel's bound, the
+   function, where there is one) in turns, and its device time from
+   ``torch.profiler``; and each kernel's bound, the
    larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
    over 67 TFLOP/s, from this run's shapes.
 
@@ -76,8 +78,10 @@ import torch
 
 N = 1 << 22
 TAPS = 128
-GEOMETRIES = [(8, 256), (8, 16384), (128, 32768), (64, 131072)]
-# K2: n1 = 24 takes the direct sum; (64, 131072) pass A's 128 KiB opt-in.
+GEOMETRIES = [(8, 256), (8, 16384), (128, 32768), (16, 65536), (64, 131072)]
+# K1, K2: (16, 65536) and (64, 131072) run the row kernel's 16-block
+# clusters, three blocks an SM and one; K2's n1 = 24 takes stage 1's
+# direct sum.
 FUSED_GEOMETRIES = [(8, 256), (24, 4096), (128, 32768), (64, 131072)]
 CONV_TAPS = 384
 CONV_FFT_LEN = 4096
@@ -437,11 +441,11 @@ def main():
               f"taps={taps_pp}, prefix {'random' if with_prefix else '0'}): "
               f"z {err:.3e}, angles {a_err:.3e} relative to max |z| "
               f"(tol {KERNEL_TOL})")
-        assert got[0].shape == got[1].shape == ang.shape == (S, C)
+        assert got[0].shape == got[1].shape == ang.shape == (C, S)
         assert bool(torch.isfinite(ang).all())
         assert err <= KERNEL_TOL and a_err <= KERNEL_TOL, (C, S, err, a_err)
         if not with_prefix:
-            assert bool((ang[0] == 0).all())       # row -1 is 0
+            assert bool((ang[:, 0] == 0).all())    # row -1 is 0
         if C == CHAN_C:
             k6_abs_err = abs_err
     assert chc.channelize_demod_cuda.launches == 2 * len(K6_GEOMETRIES)
@@ -698,6 +702,9 @@ def main():
         print(f"{name}: {ms:.4f} ms/call, "
               f"{outputs / ms / 1e3:.1f} Msamples/s out on {smi}")
         dev_ms, per_kernel = device_ms_per_call(fn)
+        if "taps held" in name and dev_ms > 0:
+            # K6 stores (C, S) itself: the module runs no other kernel
+            assert all("channelize" in k for k in per_kernel), per_kernel
         if dev_ms > 0:
             print(f"{name}: device {dev_ms:.4f} ms/call (torch.profiler, "
                   f"10 calls), idle share {1 - dev_ms / ms:.3f} of the "
@@ -724,13 +731,20 @@ def main():
         bound_ms, bound_by = bound(nbytes(*inputs, *output), flops)
         print(f"{name}: bound {bound_ms * 1e3:.2f} us ({bound_by}), "
               f"kernel at {bound_ms / med['kernel']:.3f} of it on {smi}")
+        dev_ms, per_kernel = device_ms_per_call(fns["kernel"])
+        if dev_ms > 0:
+            print(f"{name}: device {dev_ms * 1e3:.1f} us/call (torch.profiler"
+                  f", 10 calls), {bound_ms / dev_ms:.3f} of the bound; "
+                  + ", ".join(f"{k[:48]} {v * 1e3:.1f} us"
+                              for k, v in per_kernel.items()))
         rows.append({
             "name": name.split(" ")[0], "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": med["kernel"],
             "plain_ms": med["plain"], "bound_ms": bound_ms,
             "bound_us": bound_ms * 1e3, "bound_by": bound_by,
-            "library_ms": med.get("library")})
+            "library_ms": med.get("library"),
+            "device_ms": dev_ms if dev_ms > 0 else None})
 
     n1, n2 = 128, 32768
     L2 = n2 // 128
@@ -819,7 +833,7 @@ def main():
              "kernel": lambda: chc.channelize_demod_cuda(xr5, xi5, ts5,
                                                          CHAN_C),
              "library": lambda: torch.fft.ifft(Y5, dim=-1)},
-            (xr5, xi5, ts5), (torch.empty(S5, CHAN_C, device=dev),),
+            (xr5, xi5, ts5), (torch.empty(CHAN_C, S5, device=dev),),
             CHAN_N * (4 * (CHAN_TAPS + 1) + 5 * np.log2(CHAN_C) + 6 + 1))
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")

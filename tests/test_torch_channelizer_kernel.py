@@ -6,15 +6,21 @@ of parallel/channelizer.py, on the CPU.
   permutation and a zero fill).
 * ``channelize_demod_plain`` against the JAX kernel
   ``channelize_demod_pallas`` in interpret mode (tile 16, S = 32), with
-  ``demod`` True and False and with a zero and a random prefix: z within
-  2e-5 of max |z| (the JAX kernel's 3-pass bf16 dots put its z ~4-6e-6 from
-  float64), angles by the magnitude-weighted wrapped error at the same
-  bound.  And against a float64 numpy filterbank (2e-6: f32 rounding).
-* A numpy model of ``csrc/channelizer.cu``'s tiling and index math (ragged
-  last tile, look-back from the prefix on tile 0 and from the signal on
-  the others, the head row -1 of each tile, bit-reversed and padded
-  shared-memory rows, the butterflies' indices, the [s, c1, c2] store)
-  against the plain version (2e-6 of max |z|: f32 sums in another order).
+  ``demod`` True and False and with a zero and a random prefix, after the
+  JAX kernel's documented caller permutation ``reshape(S, n1, 128)`` to
+  (C, S): z within 2e-5 of max |z| (the JAX kernel's 3-pass bf16 dots put
+  its z ~4-6e-6 from float64), angles by the magnitude-weighted wrapped
+  error at the same bound.  And against a float64 numpy filterbank (2e-6:
+  f32 rounding).
+* A numpy model of ``csrc/channelizer.cu`` (strips of rows walked in
+  groups, each lane's look-back window carried across the strip, the head
+  row of each strip, the Stockham radix-8/16 passes with the kernel's
+  tables and in-register butterflies between two swizzled buffers that
+  start as NaN, the carried row, the channel-major (C, S) store) against
+  the plain version (2e-6 of max |z|: f32 sums in another order), every
+  output written exactly once; and the shared-memory plan: it fits, and
+  the FIR's writes, every pass's reads and writes and the demod's reads
+  are free of bank conflicts, the stores whole 32-byte sectors.
 * The port's ``supported`` against JAX's, the wrapper's routing, launch
   count and input checks, and ``state.from_numpy``'s channelizer keys.
 """
@@ -30,6 +36,7 @@ from basic_dsp_tpu.parallel import channelizer as jch
 import basic_dsp_tpu_torch as bt
 from basic_dsp_tpu_torch.kernels import channelizer_cuda as cc
 from basic_dsp_tpu_torch.parallel import channelizer as tch
+from test_torch_fft_core import stockham
 
 KERNEL_TOL = 2e-6
 JAX_TOL = 2e-5
@@ -80,6 +87,15 @@ def _angle_err(ang, ang_ref, z_ref):
     return (amp * d).max() / amp.max()
 
 
+def _natural(a, C):
+    """The JAX kernel's (S, C) plane, column c1*128 + c2 holding channel
+    c1 + n1*c2, in natural channel order (C, S): its caller's
+    ``reshape(S, n1, 128)`` permutation."""
+    S = a.shape[0]
+    return np.ascontiguousarray(
+        a.reshape(S, C // 128, 128).transpose(2, 1, 0).reshape(C, S))
+
+
 def _plain(xr, xi, taps, C, demod, prefix=None):
     pre = None if prefix is None else tuple(map(torch.from_numpy, prefix))
     out = cc.channelize_demod_plain(torch.from_numpy(xr),
@@ -124,7 +140,9 @@ def _jax_kernel(C, pre_seed, demod):
     out = jcp.channelize_demod_pallas(jnp.asarray(xr), jnp.asarray(xi), taps,
                                       C, tile_rows=16, demod=demod,
                                       prefix=prefix, interpret=True)
-    return np.asarray(out) if demod else tuple(map(np.asarray, out))
+    if demod:
+        return _natural(np.asarray(out), C)
+    return tuple(_natural(np.asarray(p), C) for p in out)
 
 
 def _port_plain(C, pre_seed, demod):
@@ -137,7 +155,7 @@ def _port_plain(C, pre_seed, demod):
 def test_plain_conj_product_matches_jax_kernel(C, pre_seed):
     want = _jax_kernel(C, pre_seed, False)
     got = _port_plain(C, pre_seed, False)
-    assert got[0].shape == (S_JAX, C) and got[0].dtype == np.float32
+    assert got[0].shape == (C, S_JAX) and got[0].dtype == np.float32
     assert _z_err(got, want) <= JAX_TOL
 
 
@@ -145,17 +163,17 @@ def test_plain_conj_product_matches_jax_kernel(C, pre_seed):
 def test_plain_angles_match_jax_kernel(C, pre_seed):
     want = _jax_kernel(C, pre_seed, True)
     got = _port_plain(C, pre_seed, True)
-    assert got.shape == (S_JAX, C) and got.dtype == np.float32
+    assert got.shape == (C, S_JAX) and got.dtype == np.float32
     z_ref = _port_plain(C, pre_seed, False)
     assert _angle_err(got, want, z_ref) <= JAX_TOL
     if pre_seed is None:         # row -1 is 0: both give angle 0 exactly
-        assert (got[0] == 0).all() and (want[0] == 0).all()
+        assert (got[:, 0] == 0).all() and (want[:, 0] == 0).all()
 
 
 def _filterbank_f64(xr, xi, TS, C, prefix=None):
     """The defining sums in float64 numpy: u over the look-back rows and the
     signal, y = the unscaled inverse DFT (a dense matrix product), z of
-    consecutive rows, in the kernel's column order."""
+    consecutive rows, as (C, S) planes."""
     S = xr.size // C
     tp1 = TS.shape[0]
     pre = (np.zeros((H, C)) if prefix is None
@@ -166,9 +184,7 @@ def _filterbank_f64(xr, xi, TS, C, prefix=None):
     u = sum(TS[p] * X[tp1 - 1 - p:tp1 - 1 - p + S + 1] for p in range(tp1))
     k = np.arange(C)
     y = u @ np.exp(2j * np.pi * np.outer(k, k) / C)
-    n1 = C // 128
-    y = y.reshape(S + 1, 128, n1).transpose(0, 2, 1).reshape(S + 1, C)
-    z = y[1:] * np.conj(y[:-1])
+    z = (y[1:] * np.conj(y[:-1])).T
     return z.real, z.imag
 
 
@@ -194,7 +210,7 @@ def test_prefix_is_the_signal_before():
     got = _plain(xr, xi, TS, C, False, (pr, pi))
     whole = _plain(np.concatenate([pr.ravel(), xr]),
                    np.concatenate([pi.ravel(), xi]), TS, C, False)
-    assert _z_err(got, (whole[0][H:], whole[1][H:])) <= 1e-6
+    assert _z_err(got, (whole[0][:, H:], whole[1][:, H:])) <= 1e-6
 
 
 def test_float64_plain_keeps_float64():
@@ -210,152 +226,188 @@ def test_float64_plain_keeps_float64():
 
 # ------------------------------------------------- the kernel's index math
 
-def _padded(k):
-    return k + (k >> 5)
-
-
-def _bitrev(c, bits):
-    out = np.zeros_like(c)
-    for b in range(bits):
-        out |= ((c >> b) & 1) << (bits - 1 - b)
-    return out
-
-
-def _kernel_in_numpy(xr, xi, TS, C, prefix=None):
-    """csrc/channelizer.cu in numpy, block for block, in float32: tile t
-    owns output rows t*R .. t*R + nout - 1 and computes nout + 1 rows from
-    global row t*R - 1 (the head row).  Each lane's FIR walks input rows
-    g0 - (tp1 - 1) .. g0 + nout through a shift register (rows < 0 from the
-    prefix, or zeros), writes u to the padded bit-reversed slot, the DIT
-    stages run with the kernel's butterfly indices and twiddles, and the
-    demod reads channel (col >> 7) + n1 * (col & 127).  Shared memory
-    starts as NaN, so a read of a slot never written poisons the result.
-    Returns (zr, zi, angles) and how often each output was written."""
+def _kernel_in_numpy(xr, xi, TS, C, prefix=None, strip=None, log=None):
+    """csrc/channelizer.cu in numpy, in float32: block b walks output rows
+    b*strip .. min(S, (b+1)*strip) - 1 in groups of G.  Each lane's window
+    holds its last kMaxTaps input rows across the strip (rows < 0 from the
+    prefix, or zeros); the strip's first group also computes its head row
+    s0 - 1 into buffer row 0, every later group finds the previous group's
+    last row there.  Both buffers start as NaN, so a read of a word never
+    written poisons the result.  Returns the (3, C, S) planes (zr, zi,
+    angles) and how often each output was written."""
     S = xr.size // C
-    R = cc.tile_rows(C)
+    G, rs = cc.group_rows(C), cc.row_words(C)
+    strip = cc.strip_rows(C, S) if strip is None else strip
+    assert strip % G == 0
     tp1 = TS.shape[0]
-    maxt = 8 if tp1 <= 8 else 16
+    maxt = next(m for m in (8, 9, 12, 16) if tp1 <= m)   # launch_taps
     log2c = C.bit_length() - 1
-    stride = cc.row_stride(C)
-    half, n1 = C // 2, C // 128
-    k = np.arange(half)
-    twr = np.cos(2 * np.pi * k / C).astype(np.float32)
-    twi = np.sin(2 * np.pi * k / C).astype(np.float32)
+    plan = cc.radix_plan(C)
     X = np.stack([xr.reshape(S, C), xi.reshape(S, C)])
     ts = np.asarray(TS, np.float32)
-    out = np.full((3, S, C), np.nan, np.float32)
-    writes = np.zeros((S, C), np.int64)
     lanes = np.arange(C)
-    dst = _padded(_bitrev(lanes, log2c))
-    assert (dst < stride).all() and len(set(dst)) == C
-    for tile in range(-(-S // R)):
-        first = tile * R
-        g0 = first - 1
-        nout = min(R, S - first)
-        nrows = nout + 1
-        sm = np.full((2, (R + 1) * stride), np.nan, np.float32)
+    out = np.full((3, C, S), np.nan, np.float32)
+    writes = np.zeros((C, S), np.int64)
+
+    def row(g):
+        if g >= 0:
+            assert g < S                    # never past the signal
+            return X[:, g]
+        if prefix is not None:
+            assert H + g >= 0
+            return np.stack([prefix[0][H + g], prefix[1][H + g]])
+        return np.zeros((2, C), np.float32)
+
+    def fir(win):
+        acc = np.zeros((2, C), np.float32)
+        for p in range(tp1):
+            acc = acc + ts[p] * win[p]
+        return acc
+
+    for b in range(-(-S // strip)):
+        s_begin, s_end = b * strip, min(S, (b + 1) * strip)
+        A = np.full((2, (G + 1) * rs), np.nan, np.float32)
+        B = np.full_like(A, np.nan)
         win = np.zeros((maxt, 2, C), np.float32)
-        for i in range(nrows + tp1 - 1):
-            g = g0 - (tp1 - 1) + i
-            assert g <= S - 1                     # never past the signal
-            if g >= 0:
-                v = X[:, g]
-            elif prefix is not None:
-                assert H + g >= 0
-                v = np.stack([prefix[0][H + g], prefix[1][H + g]])
-            else:
-                v = np.zeros((2, C), np.float32)
+
+        def shift(v):
             win[1:] = win[:-1].copy()
             win[0] = v
-            if i >= tp1 - 1:
-                acc = np.zeros((2, C), np.float32)
-                for p in range(tp1):
-                    acc = acc + ts[p] * win[p]
-                j = i - (tp1 - 1)
-                sm[:, j * stride + dst] = acc
-        b = np.arange(nrows * half)
-        for s in range(log2c):
-            h = 1 << s
-            r = b >> (log2c - 1)
-            q = b & (half - 1)
-            pos = q & (h - 1)
-            k0 = ((q >> s) << (s + 1)) + pos
-            i0 = r * stride + _padded(k0)
-            i1 = r * stride + _padded(k0 + h)
-            both = np.concatenate([i0, i1])       # no two threads collide
-            assert len(np.unique(both)) == both.size
-            wi = pos << (log2c - 1 - s)
-            ar, ai = sm[0, i0], sm[1, i0]
-            xr_, xi_ = sm[0, i1], sm[1, i1]
-            vr = xr_ * twr[wi] - xi_ * twi[wi]
-            vi = xr_ * twi[wi] + xi_ * twr[wi]
-            sm[0, i0], sm[1, i0] = ar + vr, ai + vi
-            sm[0, i1], sm[1, i1] = ar - vr, ai - vi
-        idx = np.arange(nout * C)
-        j = (idx >> log2c) + 1
-        col = idx & (C - 1)
-        kk = _padded((col >> 7) + n1 * (col & 127))
-        cr, ci = sm[0, j * stride + kk], sm[1, j * stride + kk]
-        pr, pi = sm[0, (j - 1) * stride + kk], sm[1, (j - 1) * stride + kk]
-        zr = cr * pr + ci * pi
-        zi = ci * pr - cr * pi
-        row = g0 + j
-        zero = (zr == 0) & (zi == 0)
-        out[0, row, col], out[1, row, col] = zr, zi
-        out[2, row, col] = np.where(zero, np.float32(0),
-                                    np.arctan2(zi, zr))
-        np.add.at(writes, (row, col), 1)
+
+        for p in range(tp1 - 1):                 # the warm-up, newest first
+            win[p] = row(s_begin - 2 - p)
+        for s0 in range(s_begin, s_end, G):
+            nv = min(G, s_end - s0)
+            r0 = 0 if s0 == s_begin else 1
+            if r0 == 0:
+                shift(row(s0 - 1))
+                A[:, cc.swizzle(lanes)] = fir(win)
+            for j in range(nv):
+                shift(row(s0 + j))
+                A[:, (j + 1) * rs + cc.swizzle(lanes)] = fir(win)
+
+            def item(w, log2n):
+                return w >> log2n, w & ((1 << log2n) - 1)
+
+            def addr(t, e, r0=r0):
+                return (r0 + t) * rs + cc.swizzle(e)
+
+            in_b = stockham(A, B, plan, 1, log2c, nv + 1 - r0, item, addr,
+                             log)
+            Y = B if in_b else A
+            w = np.arange(C * G)
+            k, j = w // G, w % G
+            k, j = k[j < nv], j[j < nv]
+            e = cc.swizzle(k)
+            cr, ci = Y[0, (j + 1) * rs + e], Y[1, (j + 1) * rs + e]
+            pr, pi = Y[0, j * rs + e], Y[1, j * rs + e]
+            zr = cr * pr + ci * pi
+            zi = ci * pr - cr * pi
+            out[0, k, s0 + j], out[1, k, s0 + j] = zr, zi
+            out[2, k, s0 + j] = np.where((zr == 0) & (zi == 0),
+                                         np.float32(0), np.arctan2(zi, zr))
+            np.add.at(writes, (k, s0 + j), 1)
+            if s0 + G < s_end:
+                Y[:, :rs] = Y[:, G * rs:(G + 1) * rs]
     return out, writes
 
 
-@pytest.mark.parametrize("C,S,taps,pre_seed", [
-    (256, 70, 8, None),       # R = 33: a ragged third tile of 4 rows
-    (256, 33, 4, 2),          # one whole tile, tp1 = 5 (8-tap window)
-    (512, 37, 15, 4),         # tp1 = 16 reads the whole prefix
-    (1024, 17, 8, None),      # config #5's lanes, R = 7, last tile 3 rows
-    (1024, 15, 8, 8),
-    (2048, 5, 8, 1),          # R = 2, a last tile of one row
+@pytest.mark.parametrize("C,S,taps,pre_seed,strip", [
+    (256, 70, 8, None, 16),     # two groups a strip, a ragged last strip of 6
+    (256, 33, 4, 2, None),      # tp1 = 5 in the 8-row window, strips of 8
+    (512, 37, 15, 4, 24),       # tp1 = 16 reads the whole prefix
+    (1024, 17, 8, None, 32),    # config #5's lanes, tp1 = 9 (12-row window)
+    (1024, 20, 11, 8, 16),      # a prefix, a ragged second strip
+    (2048, 11, 8, None, 8),     # G = 4, two groups, a ragged last group
+    (2048, 6, 15, 1, None),     # tp1 = 16 at the widest row
 ])
-def test_kernel_model_matches_plain(C, S, taps, pre_seed):
+def test_kernel_model_matches_plain(C, S, taps, pre_seed, strip):
     xr, xi = _planes(C + S, S * C)
     TS = _taps(C, taps)
     prefix = None if pre_seed is None else _prefix(pre_seed, C)
-    out, writes = _kernel_in_numpy(xr, xi, TS.numpy(), C, prefix)
+    out, writes = _kernel_in_numpy(xr, xi, TS.numpy(), C, prefix, strip)
     assert (writes == 1).all()
     want = _plain(xr, xi, TS, C, False, prefix)
     assert _z_err((out[0], out[1]), want) <= KERNEL_TOL
     ang = _plain(xr, xi, TS, C, True, prefix)
     assert _angle_err(out[2], ang, want) <= KERNEL_TOL
     if prefix is None:
-        assert out[2][0].tolist() == [0.0] * C
+        assert out[2][:, 0].tolist() == [0.0] * C
 
 
 @pytest.mark.parametrize("C", [256, 512, 1024, 2048])
-def test_tile_geometry_fits_shared_memory(C):
-    R = cc.tile_rows(C)
-    assert R >= 1 and cc.row_stride(C) == C + C // 32
-    smem = (R + 1) * cc.row_stride(C) * 8 + C // 2 * 8   # as the launcher
-    assert smem <= cc.SMEM_TILE
-    assert smem + cc.row_stride(C) * 8 > cc.SMEM_TILE    # R is the largest
-    # padded slots of a row are distinct and inside it
-    k = np.arange(C)
-    assert len(set(_padded(k))) == C and _padded(k).max() < cc.row_stride(C)
+def test_shared_memory_plan_fits(C):
+    """Two buffers of G + 1 rows and the pass tables fit a block's 227 KB,
+    the block has at most 512 threads, and the plan's radices are 8, 8,
+    then at most 16, with every pass after the second at a stride >= 64."""
+    G, nl = cc.group_rows(C), cc.lanes_per_thread(C)
+    assert G * nl == 16 and C // nl <= cc.MAX_THREADS
+    assert cc.row_words(C) == C + 32 // G
+    assert cc.smem_bytes(C) <= 232448
+    plan = cc.radix_plan(C)
+    assert int(np.prod(plan)) == C and plan[:2] == (8, 8)
+    assert all(R in (2, 4, 8, 16) for R in plan)
+    e = np.arange(C)
+    assert sorted(cc.swizzle(e)) == list(e)            # a permutation
+    assert (cc.swizzle(e) // 32 == e // 32).all()      # inside its 32 words
 
 
-def test_tile_rows_main_path():
-    assert [cc.tile_rows(C) for C in (256, 512, 1024, 2048)] == [33, 15, 7, 2]
+def test_strip_rows_main_path():
+    """Config #5: 128 blocks of 32 rows, four groups of 8, each input row
+    read (32 + 9) / 32 = 1.28 times; C = 2048 takes groups of 4."""
+    assert cc.strip_rows(1024, 4096) == 32
+    assert -(-4096 // cc.strip_rows(1024, 4096)) == 128
+    assert cc.group_rows(1024) == 8 and cc.group_rows(2048) == 4
+    assert cc.smem_bytes(1024) == (4 * 9 * 1028 * 4 + (64 + 1024) * 8
+                                   + 2 * 8 * 1024 * 4)
+    assert cc.smem_bytes(2048) == 4 * 5 * 2056 * 4 + (64 + 512 + 2048) * 8
+    for C, S in ((256, 5), (512, 4099), (2048, 64), (1024, 1)):
+        strip = cc.strip_rows(C, S)
+        assert strip % cc.group_rows(C) == 0 and strip >= 1
 
 
-def test_demod_reads_are_bank_conflict_free():
-    """Across a warp (32 consecutive output columns) the demod's padded
-    reads fall in 32 distinct banks, for every n1 the kernel takes."""
-    for C in (256, 512, 1024, 2048):
-        n1 = C // 128
-        for c1 in (0, 1, n1 - 1):
-            for c2_0 in (0, 32, 96):
-                col = c1 * 128 + c2_0 + np.arange(32)
-                k = _padded((col >> 7) + n1 * (col & 127))
-                assert len(set(k % 32)) == 32, (C, c1, c2_0)
+def _ways(addresses):
+    """The most words of one access that share a bank, over warps of 32
+    consecutive threads (items)."""
+    worst = 1
+    for s0 in range(0, addresses.size, 32):
+        banks = {}
+        for a in set(addresses[s0:s0 + 32].tolist()):
+            banks.setdefault(a % 32, set()).add(a)
+        worst = max(worst, max(len(v) for v in banks.values()))
+    return worst
+
+
+@pytest.mark.parametrize("C", [256, 512, 1024, 2048])
+def test_exchange_and_store_are_bank_conflict_free(C):
+    """Every shared-memory access of a group, warp by warp: the FIR's
+    writes (consecutive lanes of a row), each pass's reads and writes
+    (logged by the model at config #5's strip), the demod's reads (32/G
+    channels x G rows) and the row copy hit 32 distinct banks; the demod's
+    stores of a warp fill whole 32-byte sectors of the (C, S) plane at
+    C <= 1024 (16-byte runs at C = 2048)."""
+    G, rs = cc.group_rows(C), cc.row_words(C)
+    S = 2 * G
+    xr, xi = _planes(3, S * C)
+    log = []
+    _kernel_in_numpy(xr, xi, _taps(C).numpy(), C, None, 2 * G, log)
+    assert log
+    for _, a in log:
+        assert _ways(a) == 1
+    lanes = np.arange(C)
+    for j in range(G + 1):
+        assert _ways(j * rs + cc.swizzle(lanes)) == 1      # FIR, row copy
+    w = np.arange(C * G)
+    k, j = w // G, w % G
+    for d in (0, 1):                                        # rows j, j + 1
+        assert _ways((j + d) * rs + cc.swizzle(k)) == 1
+    S = 4096
+    byte = (k * S + j) * 4                                  # (C, S) store
+    for s0 in range(0, byte.size, 32):
+        run = np.sort(byte[s0:s0 + 32])
+        sectors = set((run // 32).tolist())
+        assert len(sectors) * 32 == run.size * 4 or C == 2048
+        assert len(sectors) * 16 <= run.size * 4
 
 
 # ------------------------------------------------------------ the gate

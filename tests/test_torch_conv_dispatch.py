@@ -469,3 +469,80 @@ def test_toeplitz_computes_in_the_promoted_type_as_jax():
     assert gr.dtype == torch.float64
     assert _rel(gr.numpy() + 1j * gi.numpy(),
                 np.asarray(rr) + 1j * np.asarray(ri)) <= FN_TOL
+
+
+# --------------------------------------- float64 in the overlap-save region
+
+def _circular_f64(x, h):
+    """Centered circular convolution in float64 numpy: ifft(fft(x) fft(g)),
+    g the taps laid out on the circle around their center."""
+    n, m = x.size, h.size
+    c = m - m // 2
+    g = np.roll(np.pad(h.astype(np.complex128), (0, n - m)), -(c - 1))
+    return np.fft.ifft(np.fft.fft(x) * np.fft.fft(g))
+
+
+# (signal kind, taps kind, is_complex): n = 20000 and 384 taps sit in the
+# overlap-save region at a geometry the kernel takes (fft_len 4096).
+F64_CASES = [("complex128", "complex128", True),
+             ("float64", "float64", False),
+             ("complex128", "float32", True),
+             ("complex64", "complex128", True)]
+
+
+@pytest.mark.parametrize("xk,hk,is_complex", F64_CASES)
+def test_float64_overlap_save_region_keeps_float64(xk, hk, is_complex,
+                                                   monkeypatch):
+    """A signal or taps wider than complex64 compute on ``torch.fft`` in
+    the promoted dtype, never in the f32 kernel: within ~1e-12 of a
+    float64 oracle, as JAX with x64 is."""
+    n, m = 20000, 384
+    assert tco._in_overlap_save_region(n, m, tcfg.default_config())
+    calls = _spy(monkeypatch, "overlap_save_cuda")
+    x = _complex(21, n).astype(np.complex128) * (1 + 1e-9j)
+    h = _complex(22, m).astype(np.complex128)
+    if xk == "float64":
+        x = x.real.copy()
+    if hk.startswith("float"):
+        h = h.real.copy()
+    x, h = x.astype(xk), h.astype(hk)
+    got = tco.convolve_signal(torch.from_numpy(x), torch.from_numpy(h),
+                              is_complex)
+    want = _circular_f64(x.astype(np.complex128), h)
+    assert calls == []
+    if is_complex:
+        assert got.dtype == torch.complex128
+    else:
+        assert got.dtype == torch.float64
+        want = want.real
+    assert _rel(got.numpy(), want) <= 1e-12
+
+
+@pytest.mark.parametrize("hk", ["complex128", "float64", "complex64"])
+def test_float64_planes_take_torch_fft_and_return_float64(hk, monkeypatch):
+    n, m = 20000, 384
+    calls = _spy(monkeypatch, "overlap_save_planar")
+    x = _complex(23, n).astype(np.complex128) * (1 + 1e-9j)
+    h = _complex(24, m)
+    h = (h.real.copy() if hk == "float64" else h).astype(hk)
+    xr, xi = (torch.from_numpy(np.ascontiguousarray(p))
+              for p in (x.real, x.imag))
+    gr, gi = tco.convolve_signal_planar(xr, xi, torch.from_numpy(h))
+    assert calls == []
+    assert gr.dtype == gi.dtype == torch.float64
+    want = _circular_f64(x, h)
+    assert _rel(gr.numpy() + 1j * gi.numpy(), want) <= 1e-12
+
+
+def test_overlap_save_kernel_refuses_wide_dtypes():
+    """The kernel's wrappers raise on what they would have to round."""
+    x = torch.from_numpy(_complex(25, 8192))
+    h = torch.from_numpy(_complex(26, 129))
+    with pytest.raises(TypeError):
+        osc.overlap_save_cuda(x.to(torch.complex128), h, True, 1024)
+    with pytest.raises(TypeError):
+        osc.overlap_save_cuda(x, h.to(torch.complex128), True, 1024)
+    with pytest.raises(TypeError):
+        osc.overlap_save_planar(x.real.double(), x.imag.double(), h, 1024)
+    got = osc.overlap_save_cuda(x, h, True, 1024)       # f32 still runs
+    assert got.dtype == torch.complex64

@@ -8,8 +8,10 @@ fused=True)`` and ``FirFftChainPlanar(..., fused=True)`` against JAX's
 fused chain; the wrapper's refusals and launch counts; and a numpy model
 of the CUDA launch's index arithmetic (``csrc/rowfft_mag.cu``: the stage-1
 column panels, the bit-reversed stores, the direct sum, the twiddle, then
-passes A and B) against the plain version.  The CUDA kernel itself is held
-to the plain version on the card by chip_smoke.py."""
+the cluster row kernel that K1 is, with and without its twiddle) against
+the plain version, with the row kernel's geometry and bank checks.  The
+CUDA kernels themselves are held to the plain version on the card by
+chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,12 +23,13 @@ from basic_dsp_tpu.ops import fourstep as jfs
 import basic_dsp_tpu_torch as bt
 from basic_dsp_tpu_torch.kernels import spectrum_cuda as tsc
 from basic_dsp_tpu_torch.ops import fourstep as tfs
+from test_torch_fft_core import stockham
 
 TOL = 2e-6
 GEOMETRIES = [(8, 256), (16, 1024), (24, 512), (128, 512)]
 # The kernel's constants (csrc/rowfft_mag.cu).
 COLS_S = 16
-COLS_A = 16
+ROW_WORDS = 129
 LANES = 128
 
 
@@ -238,6 +241,14 @@ def _dit_stage(sr, si, tw, s, log2n, cols, count):
     sr[:, i1], si[:, i1] = ur - vr, ui - vi
 
 
+def _tables(plan):
+    """Pass-table entries of a plan: p * R for every pass but the first."""
+    n, p = 0, 1
+    for j, R in enumerate(plan):
+        n, p = n + (p * R if j else 0), p * R
+    return n
+
+
 def _log2_exact(n):
     l = int(n).bit_length() - 1
     return l if 1 << l == n else -1
@@ -286,46 +297,87 @@ def _model_stage1(Ar, Ai):
     return cr, ci
 
 
-def _model_rows(Cr, Ci, shift):
-    """rowfft_pass_a (no twiddle) then rowfft_pass_b: (n1, L2, 128)."""
+def _col_word(e, t, lnc, mask):
+    """col_word: element e of column t in step 1's buffers, rows of NC
+    words permuted within each 32-word bank line."""
+    return ((e ^ ((e >> 4) & mask)) << lnc) + t
+
+
+def _model_rows(Cr, Ci, shift, Tfac=None, log=None):
+    """rowfft_cluster, untwiddled unless ``Tfac``: for each row k1, a
+    cluster of CS blocks.  Block b copies columns b*NC .. b*NC + NC - 1 of
+    the row in 16-byte chunks (cp.async; every word once), applies T in
+    place, runs the length-L2 passes down j1 between its two
+    buffers; then (cluster.sync) gathers rows k1' = b*L2/CS .. of H' from
+    the blocks that hold their columns, times W; then (cluster.sync, after
+    which the step-1 results are poisoned with NaN: nothing may read them)
+    the 128-point passes, the rotation and the magnitude.  Buffers start
+    as NaN.  Returns (n1, L2, 128) and how often each output was written."""
     n1, n2 = Cr.shape
     L2 = n2 // LANES
-    log2_l2 = _log2_exact(L2)
-    W = tsc._inner_consts(L2, n2)
-    tw = _unit_root(np.arange(L2 // 2), L2)
-    idx = np.arange(L2 * COLS_A)
-    j1, t = idx // COLS_A, idx % COLS_A
-    r = _brev(j1, log2_l2)
-    blocks = [(k1, c0) for k1 in range(n1)
-              for c0 in range(0, LANES, COLS_A)]
-    k1s = np.array([b[0] for b in blocks])[:, None]
-    c0s = np.array([b[1] for b in blocks])[:, None]
-    g = k1s * n2 + j1[None, :] * LANES + c0s + t[None, :]
-    sr = np.zeros((len(blocks), L2 * COLS_A), np.float32)
-    si = np.zeros_like(sr)
-    sr[:, r * COLS_A + t] = Cr.reshape(-1)[g]
-    si[:, r * COLS_A + t] = Ci.reshape(-1)[g]
-    for s in range(log2_l2):
-        _dit_stage(sr, si, tw, s, log2_l2, COLS_A, (L2 // 2) * COLS_A)
-    k1p, j2 = idx // COLS_A, c0s + idx % COLS_A
-    wr, wi = W[0][k1p[None, :], j2], W[1][k1p[None, :], j2]
-    hg = k1s * n2 + k1p[None, :] * LANES + j2
-    Hr = np.zeros(n1 * n2, np.float32)
-    Hi = np.zeros_like(Hr)
-    Hr[hg] = sr * wr - si * wi
-    Hi[hg] = sr * wi + si * wr
-    # pass B: every 128-point row of H, bit-reversed, 7 DIT stages
-    rows = n1 * L2
-    p = _brev(np.arange(LANES), 7)
-    br = np.zeros((rows, LANES), np.float32)
-    bi = np.zeros_like(br)
-    br[:, p] = Hr.reshape(rows, LANES)
-    bi[:, p] = Hi.reshape(rows, LANES)
-    tw128 = _unit_root(np.arange(LANES // 2), LANES)
-    for s in range(7):
-        _dit_stage(br, bi, tw128, s, 7, 1, LANES // 2)
-    k2 = (np.arange(LANES) + (LANES // 2 if shift else 0)) & (LANES - 1)
-    return np.sqrt(br[:, k2] ** 2 + bi[:, k2] ** 2).reshape(n1, L2, LANES)
+    NC, CS = tsc.cols_per_block(L2), tsc.cluster_blocks(L2)
+    rows = L2 // CS
+    lnc, lrows, l2 = (NC.bit_length() - 1, rows.bit_length() - 1,
+                      L2.bit_length() - 1)
+    words = (max(L2 * NC, rows * ROW_WORDS) + 3) & ~3
+    Wr, Wi = tsc._inner_consts(L2, n2)
+    out = np.full((n1, L2, LANES), np.nan, np.float32)
+    writes = np.zeros((n1, L2, LANES), np.int64)
+    mask = 32 // NC - 1 if NC < 32 else 0
+    idx = np.arange(L2 * NC)
+    j1, t = idx >> lnc, idx & (NC - 1)
+    for k1 in range(n1):
+        held = []
+        for b in range(CS):
+            X = np.full((2, words), np.nan, np.float32)
+            Y = np.full_like(X, np.nan)
+            copied = np.zeros(words, np.int64)
+            for c in range(L2 * NC // 4):        # the chunks, both planes
+                cj1, m = c // (NC // 4), (c % (NC // 4)) * 4
+                g0 = cj1 * LANES + b * NC + m
+                d = _col_word(cj1, m, lnc, mask)
+                X[0, d:d + 4] = Cr[k1, g0:g0 + 4]
+                X[1, d:d + 4] = Ci[k1, g0:g0 + 4]
+                copied[d:d + 4] += 1
+            a = _col_word(j1, t, lnc, mask)
+            assert (copied[a] == 1).all() and copied.sum() == a.size
+            if Tfac is not None:                 # T in place
+                j2 = b * NC + t
+                Ar, Ai, Btr, Bti = Tfac
+                tr = Ar[k1, j1] * Btr[k1, j2] - Ai[k1, j1] * Bti[k1, j2]
+                ti = Ar[k1, j1] * Bti[k1, j2] + Ai[k1, j1] * Btr[k1, j2]
+                vr, vi = X[0, a], X[1, a]
+                X[0, a], X[1, a] = vr * tr - vi * ti, vr * ti + vi * tr
+            in_y = stockham(X, Y, tsc.radix_plan(L2), -1, l2, NC,
+                            lambda w, _: (w & (NC - 1), w >> lnc),
+                            lambda tt, e: _col_word(e, tt, lnc, mask), log)
+            held.append((Y, X) if in_y else (X, Y))
+        g = np.arange(rows * LANES)
+        r, j2 = g >> 7, g & (LANES - 1)
+        for b in range(CS):                      # the gathers, all blocks
+            k1p = b * rows + r
+            src = _col_word(k1p, j2 & (NC - 1), lnc, mask)
+            owner = j2 >> lnc
+            hr = np.stack([held[q][0][0] for q in range(CS)])[owner, src]
+            hi = np.stack([held[q][0][1] for q in range(CS)])[owner, src]
+            G = held[b][1]
+            G[0, r * ROW_WORDS + j2] = hr * Wr[k1p, j2] - hi * Wi[k1p, j2]
+            G[1, r * ROW_WORDS + j2] = hr * Wi[k1p, j2] + hi * Wr[k1p, j2]
+        for H, _ in held:                        # past the second sync
+            H[:] = np.nan
+        for b in range(CS):
+            H, G = held[b]
+            in_f = stockham(G, H, tsc.radix_plan(LANES), -1, 7, rows,
+                            lambda w, _: (w & (rows - 1), w >> lrows),
+                            lambda tt, e: tt * ROW_WORDS + e, log)
+            D = H if in_f else G
+            k2 = ((g & (LANES - 1)) + (LANES // 2 if shift else 0)) & (
+                LANES - 1)
+            a = r * ROW_WORDS + k2
+            out[k1, b * rows + r, g & (LANES - 1)] = np.sqrt(
+                D[0, a] ** 2 + D[1, a] ** 2)
+            np.add.at(writes, (k1, b * rows + r, g & (LANES - 1)), 1)
+    return out, writes
 
 
 @pytest.mark.parametrize("n1,n2", GEOMETRIES + [(40, 256), (64, 2048)])
@@ -344,15 +396,58 @@ def test_stage1_model_matches_plain(n1, n2):
 
 
 @pytest.mark.parametrize("shift", [True, False])
-@pytest.mark.parametrize("n1,n2", [(8, 256), (24, 512), (16, 1024)])
+@pytest.mark.parametrize("n1,n2", [(8, 256), (24, 512), (16, 1024),
+                                   (8, 32768), (8, 131072)])
 def test_launch_model_matches_plain(n1, n2, shift):
-    """The whole launch (stage 1, pass A untwiddled, pass B) as the kernel
-    indexes it, against the plain version."""
+    """The whole launch (stage 1, then the cluster row kernel untwiddled)
+    as the kernel indexes it, against the plain version: L2 = 2, 4, 8 (one
+    block a row), 256 (four) and 1024 (16, the largest cluster)."""
     Ar, Ai = _planes(n1, n2, 9)
-    got = _model_rows(*_model_stage1(Ar, Ai), shift)
+    got, writes = _model_rows(*_model_stage1(Ar, Ai), shift)
+    assert (writes == 1).all()
     ref = tsc.fourstep_mag_fused_plain(torch.from_numpy(Ar),
                                        torch.from_numpy(Ai), shift).numpy()
     assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("n1,n2", [(3, 256), (2, 8192), (2, 32768),
+                                   (1, 65536)])
+def test_row_kernel_model_with_twiddle_matches_rowfft_plain(n1, n2):
+    """K1 itself: the cluster kernel with the factored twiddle on load
+    against ``rowfft_mag_plain``, at one, two, four and eight blocks a
+    row."""
+    from basic_dsp_tpu_torch.ops import fourstep as ofs
+    Br, Bi = _planes(n1, n2, 10)
+    Tfac = ofs._dif_twiddle_factored(n1 * 4, n2)
+    Tfac = tuple(np.ascontiguousarray(p[:n1]) for p in Tfac)
+    got, writes = _model_rows(Br, Bi, True, Tfac)
+    assert (writes == 1).all()
+    ref = tsc.rowfft_mag_plain(torch.from_numpy(Br), torch.from_numpy(Bi),
+                               True, tuple(map(torch.from_numpy, Tfac)))
+    assert _rel(got, ref.numpy()) <= TOL
+
+
+@pytest.mark.parametrize("L2", [2, 64, 128, 256, 512, 1024])
+def test_row_kernel_geometry(L2):
+    """Clusters of at most 16 blocks whose two buffers fit a block's 227
+    KB, three blocks an SM up to L2 = 512; steps 1 and 2 read and write
+    shared memory free of bank conflicts at L2 = 256 (NC = 16, the main
+    path), 512 and 1024 (NC = 8)."""
+    NC, CS = tsc.cols_per_block(L2), tsc.cluster_blocks(L2)
+    assert NC * CS == LANES and CS <= 16 and (CS <= 8 or L2 >= 512)
+    words = (max(L2 * NC, L2 // CS * ROW_WORDS) + 3) & ~3   # 16-byte planes
+    tables = sum(_tables(tsc.radix_plan(n)) for n in (L2, LANES))
+    smem = 16 * words + 8 * tables
+    assert smem <= 232448
+    assert (3 * (smem + 1024) <= 233472) == (L2 <= 512)
+    if L2 >= 256:
+        log = []
+        Br, Bi = _planes(1, L2 * LANES, 12)
+        _model_rows(Br, Bi, True, None, log)
+        for _, a in log:
+            for s0 in range(0, a.size, 32):
+                assert len(set((a[s0:s0 + 32] % 32).tolist())) == len(
+                    set(a[s0:s0 + 32].tolist()))
 
 
 @pytest.mark.parametrize("n1,n2", [(128, 32768), (24, 4096)])
