@@ -14,7 +14,8 @@ what it runs on, with kernel ``kernels.spectrum_cuda.rowfft_mag`` and, with
 convolution family of ``ops.conv_ops`` (the ``convolve_signal`` dispatch,
 its planar entry, overlap-save, analytic-function convolution, frequency
 multiplication, correlation) with the lookup tables of ``conv_types`` and
-kernel ``kernels.overlap_save_cuda.blocked_linear_conv_cuda``; and the
+kernel ``kernels.overlap_save_cuda.conv_blocks_cuda`` (circular and
+linear modes: ``circular_conv_cuda``, ``blocked_linear_conv_cuda``); and the
 resampling family of ``ops.interp_ops`` (``interpolatef`` and its
 polyphase resampler, ``interpolatei``, ``interpolate``/``interpft``,
 ``decimatei``, ``interpolate_lin``/``_hermite``) with the modulation chain
@@ -43,6 +44,8 @@ from .kernels.channelizer_cuda import (channelize_demod_cuda,
                                        channelize_demod_plain)
 from .kernels.overlap_save_cuda import (blocked_linear_conv_cuda,
                                         blocked_linear_conv_plain,
+                                        circular_conv_cuda,
+                                        circular_conv_plain,
                                         overlap_save_cuda)
 from .kernels.resample_cuda import (resample_direct_cuda,
                                     resample_direct_plain,
@@ -76,7 +79,8 @@ __all__ = [
     "SincFunction", "TriangularWindow", "WindowFunction",
     "blocked_linear_conv_cuda", "blocked_linear_conv_plain",
     "channelize_and_demod", "channelize_and_demod_planar",
-    "channelize_demod_cuda", "channelize_demod_plain", "conv_ops",
+    "channelize_demod_cuda", "channelize_demod_plain",
+    "circular_conv_cuda", "circular_conv_plain", "conv_ops",
     "default_config", "dif_spectrum_mag_cuda", "fft_ops", "fir_fft_chain",
     "fir_fft_chain_planar", "fm_demodulate", "fourstep",
     "fourstep_mag_fused", "fourstep_mag_fused_plain", "from_numpy",

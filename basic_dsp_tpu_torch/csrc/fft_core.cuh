@@ -1,6 +1,7 @@
 // fft_core: the register-resident FFT passes shared by the channelizer
-// (csrc/channelizer.cu, K6) and the row stage of the four-step spectrum
-// (csrc/rowfft_mag.cu, K1 and K2).
+// (csrc/channelizer.cu, K6), the row stage of the four-step spectrum
+// (csrc/rowfft_mag.cu, K1 and K2) and, in place, the overlap-save
+// convolution (csrc/overlap_save.cu, K3).
 //
 // A length-N transform (N a power of two) runs as a Stockham autosort
 // sequence of radix-R passes, R in {2, 4, 8, 16}, through shared memory.
@@ -276,15 +277,18 @@ template <int SIGN, int LOG2N, class Layout>
 __device__ __forceinline__ int run_16(const Layout& lay, float* ar,
                                       float* ai, float* br, float* bi,
                                       const float2* tw, int ntrans) {
-  static_assert(LOG2N >= 1 && LOG2N <= 12, "plan_16 of 2 to 4096 points");
+  static_assert(LOG2N >= 1 && LOG2N <= 14, "plan_16 of 2 to 16384 points");
   if constexpr (LOG2N <= 4) {
     return run<SIGN, LOG2N, 1, (1 << LOG2N)>(lay, ar, ai, br, bi, tw,
                                              ntrans);
   } else if constexpr (LOG2N <= 8) {
     return run<SIGN, LOG2N, 1, 16, (1 << (LOG2N - 4))>(lay, ar, ai, br, bi,
                                                        tw, ntrans);
-  } else {
+  } else if constexpr (LOG2N <= 12) {
     return run<SIGN, LOG2N, 1, 16, 16, (1 << (LOG2N - 8))>(
+        lay, ar, ai, br, bi, tw, ntrans);
+  } else {                                   // 8192 = 16.16.16.2, 16384 = .4
+    return run<SIGN, LOG2N, 1, 16, 16, 16, (1 << (LOG2N - 12))>(
         lay, ar, ai, br, bi, tw, ntrans);
   }
 }
@@ -302,6 +306,209 @@ __device__ __forceinline__ int run_88(const Layout& lay, float* ar,
   } else {
     return run<SIGN, LOG2N, 1, 8, 8, 8, (1 << (LOG2N - 9))>(
         lay, ar, ai, br, bi, tw, ntrans);
+  }
+}
+
+// ---------------------------------------------------------------------
+// In-place passes over one transform of N = 2^LOG2N points (the
+// overlap-save kernel, csrc/overlap_save.cu).
+//
+// A pass reads every item's R points into registers, the block
+// synchronises, then every item writes its R outputs over the same plane:
+// one plane of N points instead of two.  T threads run a pass of N / R
+// items, ITEMS = N / (R T) each, item i = threadIdx.x + u T.  `Lin` maps
+// an element to its word, XOR-linear as above (lin(e) = e for a natural
+// plane).  The twiddles come from a two-level table (TwoLevel), and the
+// R - 1 twiddles of an item from the four powers w^1, w^2, w^4, w^8 by
+// products (twiddle_item).
+
+// The radices of plan_16(log2N) in reverse: the inverse transform runs the
+// forward plan backwards, so that its first pass reads the points that the
+// forward's last pass wrote in the same item (csrc/overlap_save.cu merges
+// the two with the product by H between them).
+__host__ __device__ constexpr Plan plan_16_reversed(int log2N) {
+  const Plan f = plan_16(log2N);
+  Plan pl{0, 0};
+  for (int j = f.count - 1; j >= 0; --j) pl.push(f.log2r(j));
+  return pl;
+}
+
+// The stride of pass j of a plan: the product of the radices before it.
+__host__ __device__ constexpr int stride(const Plan& pl, int j) {
+  int p = 1;
+  for (int a = 0; a < j; ++a) p <<= pl.log2r(a);
+  return p;
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// w_N^m = exp(-2 pi i m / N) for m < N = 2^LOG2N as the product
+// hi[m >> S] * lo[m & (2^S - 1)]: lo[e] = w_N^e (2^S entries), hi[e] =
+// w_N^(e 2^S) (N / 2^S entries), S = ceil(LOG2N / 2), each entry rounded
+// once from double sincospi: 128 entries at 4096 points, 256 at 16384,
+// instead of a table per pass.  A product of two rounded entries: within
+// 1.2e-7 of the exact root (tests/test_torch_fft_core.py).
+template <int LOG2N>
+struct TwoLevel {
+  static constexpr int kS = (LOG2N + 1) / 2;
+  static constexpr int kLo = 1 << kS;
+  static constexpr int kEntries = kLo + (1 << (LOG2N - kS));
+  const float2* t;     // lo at t[0 .. kLo), hi after it
+
+  // All threads of the block fill the kEntries float2 at t; the caller
+  // synchronises.
+  __device__ static void fill(float2* t) {
+    for (int e = threadIdx.x; e < kEntries; e += blockDim.x) {
+      const int m = e < kLo ? e : (e - kLo) << kS;
+      double s, c;
+      sincospi(-2.0 * static_cast<double>(m) /
+                   static_cast<double>(1 << LOG2N), &s, &c);
+      t[e] = make_float2(static_cast<float>(c), static_cast<float>(s));
+    }
+  }
+
+  // exp(SIGN 2 pi i m / N), m < N.
+  template <int SIGN>
+  __device__ __forceinline__ float2 w(int m) const {
+    const float2 v = cmul(t[m & (kLo - 1)], t[kLo + (m >> kS)]);
+    return make_float2(v.x, SIGN > 0 ? -v.y : v.y);
+  }
+};
+
+// Multiplies x[r] by w_{P R}^(SIGN r k), r = 1 .. R - 1: w^1, w^2, w^4,
+// w^8 from the table, the rest as products of those (w^3 = w^2 w^1, w^5 =
+// w^4 w^1, w^6 = w^4 w^2, w^7 = w^4 w^3, w^(8 + j) = w^8 w^j), so at most
+// four looked-up powers meet in one twiddle.
+template <int R, int SIGN, int P, int LOG2N>
+__device__ __forceinline__ void twiddle_item(const TwoLevel<LOG2N>& tl,
+                                             int k, float (&xr)[R],
+                                             float (&xi)[R]) {
+  if constexpr (P > 1) {
+    constexpr int kStep = (1 << LOG2N) / (P * R);   // w_{PR} = w_N^kStep
+    const int m = k * kStep;
+    // Written out, so that every index is a constant (an index the
+    // compiler cannot fold moves w to local memory).
+    float2 w[R];
+    w[1] = tl.template w<SIGN>(m);
+    if constexpr (R >= 4) {
+      w[2] = tl.template w<SIGN>(2 * m);
+      w[3] = cmul(w[2], w[1]);
+    }
+    if constexpr (R >= 8) {
+      w[4] = tl.template w<SIGN>(4 * m);
+      w[5] = cmul(w[4], w[1]);
+      w[6] = cmul(w[4], w[2]);
+      w[7] = cmul(w[4], w[3]);
+    }
+    if constexpr (R >= 16) {
+      w[8] = tl.template w<SIGN>(8 * m);
+#pragma unroll
+      for (int j = 1; j < 8; ++j) w[8 + j] = cmul(w[8], w[j]);
+    }
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      const float yr = xr[r] * w[r].x - xi[r] * w[r].y;
+      const float yi = xr[r] * w[r].y + xi[r] * w[r].x;
+      xr[r] = yr;
+      xi[r] = yi;
+    }
+  }
+}
+
+// Reads the R points in[i + r N / R] of item i from the planes (sr, si).
+template <int R, int LOG2N, class Lin>
+__device__ __forceinline__ void load_item(const Lin& lin, const float* sr,
+                                          const float* si, int i,
+                                          float (&xr)[R], float (&xi)[R]) {
+  constexpr int n = (1 << LOG2N) / R;
+  const int li = lin(i);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int a = li ^ lin(r * n);
+    xr[r] = sr[a];
+    xi[r] = si[a];
+  }
+}
+
+// Writes the R outputs of item i of the pass with stride P to
+// out[(i - k) R + k + q P], k = i mod P.
+template <int R, int P, class Lin>
+__device__ __forceinline__ void store_item(const Lin& lin, float* dr,
+                                           float* di, int i,
+                                           const float (&xr)[R],
+                                           const float (&xi)[R]) {
+  const int k = i & (P - 1);
+  const int lb = lin((i - k) * R + k);
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int a = lb ^ lin(q * P);
+    dr[a] = xr[q];
+    di[a] = xi[q];
+  }
+}
+
+// Where an in-place pass of stride P and radix R leaves element e:
+//   word(e) = e ^ (((e >> S) & (32 / P - 1)) << log2 P),  S = max(log2 PR, 5)
+// (no swizzle for P >= 32).  A warp's 32 consecutive items write
+// e = P R a + k + q P, k < P, for 32 / P values of a: the swizzle moves a's
+// bits into bits log2 P .. 4, so the 32 words fall in 32 banks.  The next
+// pass reads e = i + r n for consecutive i: the XOR takes bits >= 5 only,
+// so those stay 32 distinct banks too.  XOR-linear.
+template <int P, int R>
+struct PassSwizzle {
+  static constexpr int kShift = ilog2(P * R) > 5 ? ilog2(P * R) : 5;
+  static constexpr int kMask = P >= 32 ? 0 : 32 / P - 1;
+  static constexpr int kUp = ilog2(P);
+  __device__ __forceinline__ int operator()(int e) const {
+    return e ^ (((e >> kShift) & kMask) << kUp);
+  }
+};
+
+// The layout pass j of `pl` writes (and pass j + 1 reads).
+template <int COUNT, int BITS, int J>
+using PlanSwizzle = PassSwizzle<stride(Plan{COUNT, BITS}, J),
+                                (1 << Plan{COUNT, BITS}.log2r(J))>;
+
+// One in-place pass of radix R and stride P over the planes (ar, ai), T
+// threads: all reads (layout In), a barrier, all writes (layout Out), a
+// barrier.
+template <int R, int SIGN, int P, int LOG2N, int T, class In, class Out>
+__device__ __forceinline__ void pass_inplace(const In& lin_in,
+                                             const Out& lin_out, float* ar,
+                                             float* ai,
+                                             const TwoLevel<LOG2N>& tl) {
+  constexpr int kItems = (1 << LOG2N) / (R * T);
+  static_assert(kItems * R * T == (1 << LOG2N), "T must divide N / R");
+  float xr[kItems][R], xi[kItems][R];
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int i = threadIdx.x + u * T;
+    load_item<R, LOG2N>(lin_in, ar, ai, i, xr[u], xi[u]);
+    twiddle_item<R, SIGN, P, LOG2N>(tl, i & (P - 1), xr[u], xi[u]);
+    dft_regs<R, SIGN>(xr[u], xi[u]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    store_item<R, P>(lin_out, ar, ai, threadIdx.x + u * T, xr[u], xi[u]);
+  }
+  __syncthreads();
+}
+
+// In-place passes J .. END - 1 (J >= 1) of the plan {COUNT, BITS} (a
+// plan_16 or plan_16_reversed of LOG2N, as its two words so that it can be
+// a template argument), each reading the layout its predecessor wrote.
+template <int SIGN, int LOG2N, int T, int COUNT, int BITS, int J, int END>
+__device__ __forceinline__ void passes_inplace(float* ar, float* ai,
+                                               const TwoLevel<LOG2N>& tl) {
+  if constexpr (J < END) {
+    constexpr Plan pl{COUNT, BITS};
+    pass_inplace<(1 << pl.log2r(J)), SIGN, stride(pl, J), LOG2N, T>(
+        PlanSwizzle<COUNT, BITS, J - 1>{}, PlanSwizzle<COUNT, BITS, J>{}, ar,
+        ai, tl);
+    passes_inplace<SIGN, LOG2N, T, COUNT, BITS, J + 1, END>(ar, ai, tl);
   }
 }
 

@@ -1,165 +1,344 @@
-// overlap_save: the blocked linear convolution of overlap-save on Hopper
-// (sm_90a).
+// overlap_save: convolution of a long signal with up to fft_len / 2 taps by
+// overlap-save, on Hopper (sm_90a), from the signal planes to the
+// convolution planes in one kernel.
 //
 // Replaces the TPU kernel basic_dsp_tpu/kernels/overlap_save_pallas.py
-// _blocked_linear_conv_pallas (Pallas: _os_kernel).
+// _blocked_linear_conv_pallas (Pallas: _os_kernel) together with the fold
+// that follows it there and the circular wrap of overlap_save_pallas.
 //
-// Input: the signal as f32 planes xr, xi (n,) (a real signal passes a zero
-// imaginary plane), and the taps' spectrum h (fft_len,) as interleaved
-// complex64, scaled by 1/fft_len and stored in bit-reversed order:
-//     h[p] = H[bitrev(p)] / fft_len,  H = FFT(taps zero-padded to fft_len).
-// fft_len = 2^log2n in [1024, 16384].  Block b covers x[b*L, b*L + L).
-// Output: yr, yi (nb, fft_len) f32, row b the linear-convolution piece
-//     y[b] = IFFT(FFT(x[b*L : b*L + L] zero-padded to fft_len) * H).
-// The overlap-add fold of the rows and the circular wrap run in torch.
+// Input: the signal as f32 planes xr, xi (n,) (a null xi is a real
+// signal), and H (fft_len,) interleaved complex64 in natural order,
+// H = FFT(h_eff zero-padded to fft_len), unscaled: the inverse's 1/fft_len,
+// a power of two and so exact, is applied at the store.  fft_len = N = 2^LOG2N
+// in [1024, 16384]; pad = m_eff - 1 rounded up to 128, L = N - pad.
+// Block b loads N points
+//     z[t] = x[b L - pad + t]        t < N,
+// taken mod n (circular mode) or as zero outside [0, n) (linear mode),
+// forms y = IFFT(FFT(z) H), whose points t >= pad are exact linear
+// convolution points (pad >= m_eff - 1), and stores y[pad + s], s < L, to
+//     out[(b L + s - shift) mod n]   for b L + s < lim.
+// Circular mode: lim = n, shift = c - 1, so out is the centered circular
+// convolution out[k] = sum_j h_eff[j] x[(k + c - 1 - j) mod n] of
+// overlap_save_pallas.  Linear mode: lim = n + m_eff - 1, shift = 0, out
+// the linear convolution of _blocked_linear_conv_pallas.  The loads start
+// at b L - pad, a multiple of 128, so that they are 16-byte aligned in x,
+// and the centering shift goes to the stores, which need no alignment.
+// Nothing else runs in torch: no (nb, N) pieces, no fold, no wrap.
 //
-// One CUDA block per signal block.  A whole fft_len block fits in shared
-// memory (8 * fft_len bytes of planar f32, 32 KiB at 4096 and 128 KiB at
-// 16384, plus a 4 * fft_len byte twiddle table), so every intermediate of
-// the fft -> x H -> ifft chain stays there: device memory is touched once on
-// the way in (L samples per block) and once on the way out (fft_len per
-// block).  Above 48 KB the launch opts in to the larger dynamic limit.
+// What bounds it on the H100: bytes.  At 4M samples and N = 4096 (384
+// taps: L = 3712, 1130 blocks) it must read 32 MiB and write 32 MiB,
+// 20.0 us at 3.35 TB/s; its FP32 work (two 4096-point FFTs and a product
+// per block, 0.58 GFLOP) takes 8.7 us at 67 TFLOP/s.  The design:
 //
-// What bounds it on the H100: shared-memory traffic, then bytes.  At 4M
-// samples and fft_len 4096 (384 taps: L = 3712, 1130 blocks over 132 SMs)
-// the kernel reads 32 MiB and writes ~37 MB, ~20 us at 3.35 TB/s; a
-// radix-2 FFT of 4096 points makes 12 passes over the block's 32 KiB each
-// way.  The design cuts that where it is free: the forward transform runs
-// as decimation in frequency, leaving the spectrum in bit-reversed order,
-// and the inverse as decimation in time, which takes bit-reversed input to
-// natural order, so no permutation pass runs at all; H arrives in the same
-// bit-reversed order with the inverse's 1/fft_len folded in; and the last
-// forward stage, the product with H and the first inverse stage all act on
-// the pair (2q, 2q + 1), so one thread does the three without a barrier.
-// The twiddle table is stored under an XOR swizzle that keeps every
-// stage's strided reads free of bank conflicts.
+// * Register-resident passes (csrc/fft_core.cuh): the forward FFT runs
+//   plan_16 (4096 = 16.16.16, 16384 = 16.16.16.4), the inverse the same
+//   radices in reverse, each pass R points a thread in registers, in place
+//   on one shared plane: all reads, a barrier, all writes.  The forward's
+//   last pass and the inverse's first read and write the same points of
+//   the same item, so one merged pass does both with the product by H
+//   between them in registers: at 4096 a block's
+//   points are written to shared memory 5 times and read 5 times, the
+//   staging included, against 24 radix-2 stages before.
+// * Twiddles from a two-level table of 2^ceil(LOG2N/2) + 2^floor(LOG2N/2)
+//   entries (fft_core::TwoLevel, 1 KiB at 4096), filled once per block
+//   from double sincospi.
+// * Persistent blocks, each holding H in shared memory for all its signal
+//   blocks (up to 8192; at 16384 H is read from L2), and staging the next
+//   signal block by cp.async (16-byte copies into a natural-order plane,
+//   which the first forward pass reads) while this one transforms: at N =
+//   4096, 32 KiB of plane, 32 of staging, 32 of H and 1 of table, 256
+//   threads of up to 128 registers, two blocks an SM.  At 8192 and 16384
+//   (512 threads) there is no room for a staging plane: the block copies
+//   its own points and waits.
+// * The last inverse pass stores straight to device memory, natural order,
+//   consecutive threads on consecutive samples.  Only chunks that cross the
+//   signal's end (the first and last blocks), or follow a wrap when n is
+//   not a multiple of 4, are loaded one float at a time.
+// * Each pass writes the shared plane under a swizzle of its own stride
+//   and radix (fft_core::PassSwizzle), which the next pass reads: every
+//   pass's reads and writes, radix 2 to 16 at every stride of both plans,
+//   hit 32 distinct banks a warp (tests/test_torch_overlap_save.py checks
+//   each access).
 //
 // The TPU kernel wrote each FFT as 3-dot Karatsuba matmuls against DFT
 // planes, for the MXU.  A tensor-core DFT on Hopper would round to TF32;
 // here the butterflies run in FP32 on the CUDA cores, so the result keeps
-// the f32 grade.  Twiddles are computed with double sincospi and rounded
-// once to float; no fast-math intrinsics.
+// the f32 grade.  Twiddles are rounded once from double; no fast-math
+// intrinsics.
 #include <cuda_runtime.h>
+
+#include "cp_async.cuh"
+#include "fft_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
 constexpr int kMinLog2 = 10;   // fft_len 1024
 constexpr int kMaxLog2 = 14;   // fft_len 16384
+constexpr int kMaxDevices = 64;
 
-// exp(-2 pi i k / n), rounded once from double.
-__device__ __forceinline__ float2 unit_root(int k, int n) {
-  double s, c;
-  sincospi(-2.0 * static_cast<double>(k) / static_cast<double>(n), &s, &c);
-  return make_float2(static_cast<float>(c), static_cast<float>(s));
+// Element e of the staging plane.
+struct Natural {
+  __device__ __forceinline__ int operator()(int e) const { return e; }
+};
+
+template <int LOG2N>
+struct Geo {
+  static constexpr int N = 1 << LOG2N;
+  static constexpr int kThreads = LOG2N <= 12 ? N / 16 : 512;
+  static constexpr bool kStage = LOG2N <= 12;
+  static constexpr bool kHShared = LOG2N <= 13;
+  static constexpr int kMinBlocks = LOG2N <= 12 ? 2 : 1;
+  static constexpr int kPlanes = kStage ? 4 : 2;
+  static constexpr size_t kSmem =
+      kPlanes * N * sizeof(float) + (kHShared ? N * sizeof(float2) : 0)
+      + fft_core::TwoLevel<LOG2N>::kEntries * sizeof(float2);
+};
+
+// The signal index of block b's point t = 0: b L - pad, mod n in circular
+// mode.
+template <bool LINEAR>
+__device__ __forceinline__ long long block_start(long long b, int L, int pad,
+                                                 long long n) {
+  long long s = b * L - pad;
+  if (!LINEAR) {
+    s %= n;
+    if (s < 0) s += n;
+  }
+  return s;
 }
 
-// Slot of twiddle k in the table: the low four bits are XORed with every
-// higher nibble of k (k < 2^13).  A stage reads k = pos << shift for
-// consecutive pos; those four bits of pos land in four different bit
-// positions mod 4, so the slots of 16 consecutive pos fall in 16 different
-// 8-byte bank pairs whatever the shift.  A permutation within each aligned
-// group of 16.
-__device__ __forceinline__ int tw_slot(int k) {
-  return k ^ (((k >> 4) ^ (k >> 8) ^ (k >> 12)) & 15);
+// Starts loading block point z[t] = x[start + t], t < N (mod n, or zero
+// outside [0, n) when LINEAR), into the natural planes (zr, zi): one
+// 16-byte cp.async a plane where the four points of a chunk are contiguous
+// and aligned in x, single loads where a chunk crosses the signal's end or
+// is not aligned.  A null xi gives zeros.
+template <int LOG2N, bool LINEAR>
+__device__ __forceinline__ void stage(const float* __restrict__ xr,
+                                      const float* __restrict__ xi,
+                                      float* zr, float* zi, long long n,
+                                      long long start) {
+  constexpr int N = 1 << LOG2N;
+  for (int j = threadIdx.x; j < N / 4; j += blockDim.x) {
+    long long g = start + 4 * j;
+    if (!LINEAR && g >= n) g %= n;
+    float* dr = zr + 4 * j;
+    float* di = zi + 4 * j;
+    if ((g & 3) == 0 && g + 4 <= n && (!LINEAR || g >= 0)) {
+      cp_async::copy16(dr, xr + g);
+      if (xi != nullptr) cp_async::copy16(di, xi + g);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        long long ge = g + e;
+        bool in = true;
+        if (LINEAR) {
+          in = ge >= 0 && ge < n;
+        } else if (ge >= n) {
+          ge %= n;
+        }
+        dr[e] = in ? xr[ge] : 0.0f;
+        if (xi != nullptr) di[e] = in ? xi[ge] : 0.0f;
+      }
+    }
+    if (xi == nullptr) {
+      *reinterpret_cast<float4*>(di) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  cp_async::commit();
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int LOG2N, bool LINEAR>
+__global__ void __launch_bounds__(Geo<LOG2N>::kThreads,
+                                  Geo<LOG2N>::kMinBlocks)
 overlap_save_blocks(const float* __restrict__ xr,
                     const float* __restrict__ xi,
-                    const float4* __restrict__ h,
-                    float* __restrict__ yr, float* __restrict__ yi,
-                    long long n, int L, int log2n) {
-  extern __shared__ float smem[];
-  const int N = 1 << log2n;
-  const int half_n = N >> 1;
-  float* sr = smem;
-  float* si = sr + N;
-  float2* tw = reinterpret_cast<float2*>(si + N);
-  const long long start = static_cast<long long>(blockIdx.x) * L;
+                    const float2* __restrict__ h, float* __restrict__ yr,
+                    float* __restrict__ yi, long long n, int L, int pad,
+                    long long lim, long long shift) {
+  using G = Geo<LOG2N>;
+  constexpr int N = G::N;
+  constexpr int T = G::kThreads;
+  constexpr fft_core::Plan F = fft_core::plan_16(LOG2N);
+  constexpr fft_core::Plan I = fft_core::plan_16_reversed(LOG2N);
+  constexpr int R0 = 1 << F.log2r(0);            // first forward, last inverse
+  constexpr int RM = 1 << F.log2r(F.count - 1);  // the merged pass
+  constexpr int PM = N / RM;                     // its forward stride
+  constexpr int PL = N / R0;                     // the last inverse stride
+  constexpr int K0 = N / (R0 * T);               // items a thread, radix R0
+  constexpr int KM = N / (RM * T);
+  constexpr float kInvN = 1.0f / N;              // exact: a power of two
 
-  for (int k = threadIdx.x; k < half_n; k += blockDim.x) {
-    tw[tw_slot(k)] = unit_root(k, N);
+  extern __shared__ float4 smem4[];
+  float* dr = reinterpret_cast<float*>(smem4);   // the in-place plane
+  float* di = dr + N;
+  float* sr = G::kStage ? di + N : dr;           // the staging plane
+  float* si = G::kStage ? sr + N : di;
+  float2* hs = reinterpret_cast<float2*>(dr + G::kPlanes * N);   // H
+  float2* tab = hs + (G::kHShared ? N : 0);
+  if (G::kHShared) {     // committed with the first block's points
+    for (int j = threadIdx.x; j < N / 2; j += T) {
+      cp_async::copy16(reinterpret_cast<float*>(hs + 2 * j),
+                       reinterpret_cast<const float*>(h + 2 * j));
+    }
   }
-  // Load the block's L samples and zero-fill to N (and past the signal).
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    const long long g = start + j;
-    const bool in = j < L && g < n;
-    sr[j] = in ? xr[g] : 0.0f;
-    si[j] = in ? xi[g] : 0.0f;
-  }
-  __syncthreads();
+  fft_core::TwoLevel<LOG2N>::fill(tab);
+  const fft_core::TwoLevel<LOG2N> tl{tab};
+  // The layouts: pass 0 reads the natural staging plane; every later pass
+  // reads what the pass before it wrote.
+  using F0 = fft_core::PlanSwizzle<F.count, F.bits, 0>;
+  using FLast = fft_core::PlanSwizzle<F.count, F.bits, F.count - 2>;
+  using I0 = fft_core::PlanSwizzle<I.count, I.bits, 0>;
+  using ILast = fft_core::PlanSwizzle<I.count, I.bits, I.count - 2>;
 
-  // Forward FFT, radix-2 decimation in frequency, natural order in.
-  // Stage s pairs elements span = N >> (s + 1) apart and twiddles their
-  // difference by w_N^(pos * 2^s).
-  for (int s = 0; s < log2n - 1; ++s) {
-    const int span = half_n >> s;
-    for (int q = threadIdx.x; q < half_n; q += blockDim.x) {
-      const int pos = q & (span - 1);
-      const int i0 = ((q - pos) << 1) + pos;
-      const int i1 = i0 + span;
-      const float2 w = tw[tw_slot(pos << s)];
-      const float ar = sr[i0], ai = si[i0];
-      const float br = sr[i1], bi = si[i1];
-      const float dr = ar - br, di = ai - bi;
-      sr[i0] = ar + br;
-      si[i0] = ai + bi;
-      sr[i1] = dr * w.x - di * w.y;
-      si[i1] = dr * w.y + di * w.x;
+  const long long nb = (lim + L - 1) / L;
+  long long b = blockIdx.x;
+  if (G::kStage) {
+    stage<LOG2N, LINEAR>(xr, xi, sr, si, n, block_start<LINEAR>(b, L, pad, n));
+  } else if (G::kHShared) {
+    cp_async::commit();
+  }
+  for (; b < nb; b += gridDim.x) {
+    if (!G::kStage) {
+      __syncthreads();             // the last pass has read the plane
+      stage<LOG2N, LINEAR>(xr, xi, sr, si, n,
+                           block_start<LINEAR>(b, L, pad, n));
     }
+    cp_async::wait_all();
     __syncthreads();
-  }
-  // The last forward stage (span 1, w = 1) leaves bins bitrev(2q) and
-  // bitrev(2q + 1) at 2q and 2q + 1; multiply them by H in the same order
-  // (one 16-byte load holds both); the first inverse stage (half 1, w = 1)
-  // combines the same pair.
-  for (int q = threadIdx.x; q < half_n; q += blockDim.x) {
-    const int i0 = q << 1;
-    const int i1 = i0 + 1;
-    const float ar = sr[i0], ai = si[i0];
-    const float br = sr[i1], bi = si[i1];
-    const float x0r = ar + br, x0i = ai + bi;
-    const float x1r = ar - br, x1i = ai - bi;
-    const float4 hq = h[q];
-    const float h0r = hq.x, h0i = hq.y;
-    const float h1r = hq.z, h1i = hq.w;
-    const float y0r = x0r * h0r - x0i * h0i;
-    const float y0i = x0r * h0i + x0i * h0r;
-    const float y1r = x1r * h1r - x1i * h1i;
-    const float y1i = x1r * h1i + x1i * h1r;
-    sr[i0] = y0r + y1r;
-    si[i0] = y0i + y1i;
-    sr[i1] = y0r - y1r;
-    si[i1] = y0i - y1i;
-  }
-  __syncthreads();
-  // Inverse FFT, radix-2 decimation in time, bit-reversed order in and
-  // natural order out.  Stage s pairs elements half = 2^s apart and
-  // twiddles the second by conj(w_N^(pos * N / (2 half))).
-  for (int s = 1; s < log2n; ++s) {
-    const int half = 1 << s;
-    for (int q = threadIdx.x; q < half_n; q += blockDim.x) {
-      const int pos = q & (half - 1);
-      const int i0 = ((q - pos) << 1) + pos;
-      const int i1 = i0 + half;
-      const float2 w = tw[tw_slot(pos << (log2n - 1 - s))];
-      const float br = sr[i1], bi = si[i1];
-      const float vr = br * w.x + bi * w.y;
-      const float vi = bi * w.x - br * w.y;
-      const float ar = sr[i0], ai = si[i0];
-      sr[i0] = ar + vr;
-      si[i0] = ai + vi;
-      sr[i1] = ar - vr;
-      si[i1] = ai - vi;
+
+    // Forward pass 0 (stride 1): the staged points -> the in-place plane.
+    {
+      float xr0[K0][R0], xi0[K0][R0];
+#pragma unroll
+      for (int u = 0; u < K0; ++u) {
+        fft_core::load_item<R0, LOG2N>(Natural{}, sr, si,
+                                       threadIdx.x + u * T, xr0[u], xi0[u]);
+        fft_core::dft_regs<R0, -1>(xr0[u], xi0[u]);
+      }
+      if (!G::kStage) __syncthreads();
+#pragma unroll
+      for (int u = 0; u < K0; ++u) {
+        fft_core::store_item<R0, 1>(F0{}, dr, di, threadIdx.x + u * T,
+                                    xr0[u], xi0[u]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
+    if (G::kStage && b + gridDim.x < nb) {   // the staging plane is free
+      stage<LOG2N, LINEAR>(xr, xi, sr, si, n,
+                           block_start<LINEAR>(b + gridDim.x, L, pad, n));
+    }
+
+    fft_core::passes_inplace<-1, LOG2N, T, F.count, F.bits, 1, F.count - 1>(
+        dr, di, tl);
+
+    // The forward's last pass, x H, the inverse's first pass (stride 1).
+    {
+      float ar[KM][RM], ai[KM][RM];
+#pragma unroll
+      for (int u = 0; u < KM; ++u) {
+        const int i = threadIdx.x + u * T;
+        fft_core::load_item<RM, LOG2N>(FLast{}, dr, di, i, ar[u], ai[u]);
+        fft_core::twiddle_item<RM, -1, PM, LOG2N>(tl, i, ar[u], ai[u]);
+        fft_core::dft_regs<RM, -1>(ar[u], ai[u]);
+#pragma unroll
+        for (int q = 0; q < RM; ++q) {           // bin i + q PM
+          const float2 hq =
+              G::kHShared ? hs[i + q * PM] : __ldg(h + i + q * PM);
+          const float vr = ar[u][q] * hq.x - ai[u][q] * hq.y;
+          const float vi = ar[u][q] * hq.y + ai[u][q] * hq.x;
+          ar[u][q] = vr;
+          ai[u][q] = vi;
+        }
+        fft_core::dft_regs<RM, 1>(ar[u], ai[u]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < KM; ++u) {
+        fft_core::store_item<RM, 1>(I0{}, dr, di, threadIdx.x + u * T,
+                                    ar[u], ai[u]);
+      }
+      __syncthreads();
+    }
+
+    fft_core::passes_inplace<1, LOG2N, T, I.count, I.bits, 1, I.count - 1>(
+        dr, di, tl);
+
+    // The inverse's last pass: point t = i + q PL of y, natural order, to
+    // the output.
+#pragma unroll
+    for (int u = 0; u < K0; ++u) {
+      const int i = threadIdx.x + u * T;
+      float vr[R0], vi[R0];
+      fft_core::load_item<R0, LOG2N>(ILast{}, dr, di, i, vr, vi);
+      fft_core::twiddle_item<R0, 1, PL, LOG2N>(tl, i, vr, vi);
+      fft_core::dft_regs<R0, 1>(vr, vi);
+#pragma unroll
+      for (int q = 0; q < R0; ++q) {
+        const int t = i + q * PL;
+        const long long g = b * L + t - pad;
+        if (t >= pad && g < lim) {
+          long long o = g - shift;
+          if (o < 0) o += n;
+          yr[o] = vr[q] * kInvN;
+          if (yi != nullptr) yi[o] = vi[q] * kInvN;
+        }
+      }
+    }
   }
-  float* outr = yr + static_cast<size_t>(blockIdx.x) * N;
-  float* outi = yi + static_cast<size_t>(blockIdx.x) * N;
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    outr[j] = sr[j];
-    outi[j] = si[j];
+}
+
+template <int LOG2N, bool LINEAR>
+int launch(const float* xr, const float* xi, const float* h, float* yr,
+           float* yi, long long n, int L, int pad, long long lim,
+           long long shift, cudaStream_t stream) {
+  using G = Geo<LOG2N>;
+  // Resident blocks an SM, found at the first launch on each device.
+  static int per_sm[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (per_sm[dev] == 0) {
+    if (G::kSmem > 48 * 1024) {
+      e = cudaFuncSetAttribute(overlap_save_blocks<LOG2N, LINEAR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(G::kSmem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, overlap_save_blocks<LOG2N, LINEAR>, G::kThreads, G::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    int sms = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    per_sm[dev] = blocks * sms;
+  }
+  const long long nb = (lim + L - 1) / L;
+  const long long grid = nb < per_sm[dev] ? nb : per_sm[dev];
+  overlap_save_blocks<LOG2N, LINEAR>
+      <<<static_cast<unsigned>(grid), G::kThreads, G::kSmem, stream>>>(
+          xr, xi, reinterpret_cast<const float2*>(h), yr, yi, n, L, pad,
+          lim, shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool LINEAR>
+int launch_len(int log2n, const float* xr, const float* xi, const float* h,
+               float* yr, float* yi, long long n, int L, int pad,
+               long long lim, long long shift, cudaStream_t s) {
+  switch (log2n) {
+    case 10:
+      return launch<10, LINEAR>(xr, xi, h, yr, yi, n, L, pad, lim, shift, s);
+    case 11:
+      return launch<11, LINEAR>(xr, xi, h, yr, yi, n, L, pad, lim, shift, s);
+    case 12:
+      return launch<12, LINEAR>(xr, xi, h, yr, yi, n, L, pad, lim, shift, s);
+    case 13:
+      return launch<13, LINEAR>(xr, xi, h, yr, yi, n, L, pad, lim, shift, s);
+    default:
+      return launch<14, LINEAR>(xr, xi, h, yr, yi, n, L, pad, lim, shift, s);
   }
 }
 
@@ -167,31 +346,29 @@ overlap_save_blocks(const float* __restrict__ xr,
 
 extern "C" {
 
-// Launches one block per signal block on `stream`.  xr, xi: (n,) f32;
-// h: (fft_len,) complex64 (16-byte aligned) in bit-reversed order, scaled
-// by 1/fft_len; yr, yi: (nb, fft_len) f32 outputs, allocated by the
-// caller.  Returns the cudaError_t of the launch (0 on success); does not
-// synchronise.
+// Launches the convolution on `stream`.  xr: (n,) f32, 16-byte aligned;
+// xi: the same, or null for a real signal; h: (2^log2n,) complex64,
+// 16-byte aligned, natural order, unscaled; yr: (lim,) f32
+// output; yi: the same, or null when the imaginary part is not wanted.
+// L + pad = 2^log2n, pad a multiple of 128; linear != 0: lim = n +
+// m_eff - 1 and shift = 0; else lim = n, shift = c - 1 < n (see the top of
+// this file).  Returns the cudaError_t of the launch (0 on success); does
+// not synchronise.
 int overlap_save_launch(const float* xr, const float* xi, const float* h,
-                        float* yr, float* yi, long long n, int L, int nb,
-                        int log2n, void* stream) {
-  if (log2n < kMinLog2 || log2n > kMaxLog2 || L <= 0 || L > (1 << log2n)
-      || nb <= 0) {
+                        float* yr, float* yi, long long n, int L, int pad,
+                        long long lim, long long shift, int log2n, int linear,
+                        void* stream) {
+  if (log2n < kMinLog2 || log2n > kMaxLog2 || L <= 0 || pad < 0
+      || pad % 128 != 0 || L + pad != (1 << log2n) || n < 1 || lim < 1
+      || shift < 0 || shift >= n || (linear && shift != 0)
+      || xr == nullptr || h == nullptr || yr == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int N = 1 << log2n;
-  const int smem = static_cast<int>(2 * N * sizeof(float)
-                                    + (N / 2) * sizeof(float2));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        overlap_save_blocks, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  overlap_save_blocks<<<nb, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, reinterpret_cast<const float4*>(h), yr, yi, n, L, log2n);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return linear
+      ? launch_len<true>(log2n, xr, xi, h, yr, yi, n, L, pad, lim, shift, s)
+      : launch_len<false>(log2n, xr, xi, h, yr, yi, n, L, pad, lim, shift,
+                          s);
 }
 
 const char* overlap_save_error_string(int code) {

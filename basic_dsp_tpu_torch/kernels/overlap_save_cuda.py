@@ -1,19 +1,31 @@
-"""The blocked overlap-save convolution as a hand-written CUDA kernel
-(counterpart of ``basic_dsp_tpu/kernels/overlap_save_pallas.py``).
+"""The overlap-save convolution as a hand-written CUDA kernel (counterpart
+of ``basic_dsp_tpu/kernels/overlap_save_pallas.py``:
+``_blocked_linear_conv_pallas`` with its overlap-add fold, and the
+circular wrap of ``overlap_save_pallas``).
 
-:func:`blocked_linear_conv_cuda` cuts the signal into blocks of
-L = fft_len - pad samples (pad = m_eff - 1 rounded up to 128, as in the
-JAX kernel), and returns each block's linear convolution with the taps as
-one row of (nb, fft_len) planes.  :func:`_blocked_linear_conv` folds the
-rows (overlap-add) into the linear convolution, and
-:func:`overlap_save_cuda` wraps that onto the circle: the centered circular
-convolution of ``ops.conv_ops.overlap_save``.
+The signal is cut into the JAX kernel's blocks: pad = m_eff - 1 rounded up
+to 128, L = fft_len - pad.  Block b takes the fft_len points
+``z[t] = x[b*L - pad + t]`` and forms ``IFFT(FFT(z) * H)``, whose points
+``t >= pad`` are exact convolution points.  One kernel has two modes:
 
-For a CUDA tensor the pieces come from ``csrc/overlap_save.cu`` (one block
-per signal block, FFT, x H and inverse FFT in shared memory) or the call
-raises; for a CPU tensor from the plain PyTorch version
-:func:`blocked_linear_conv_plain`.  The kernel is built at its first
-launch, never at import.
+- circular: the loads are taken mod n and there are ceil(n / L) blocks;
+  the (n,) result is the centered circular convolution of
+  ``ops.conv_ops.overlap_save``,
+  ``out[k] = sum_j h_eff[j] x[(k + c - 1 - j) mod n]``, c = m_eff - m_eff//2;
+- linear: the loads are zero outside [0, n) and there are
+  ceil((n + m_eff - 1) / L) blocks; the result is the
+  (n + m_eff - 1,) linear convolution, the JAX kernel's output.
+
+:func:`conv_blocks_cuda` launches ``csrc/overlap_save.cu`` for CUDA
+tensors (one kernel from the signal planes to the convolution planes; no
+pieces, fold or wrap in torch) and adds one to
+``conv_blocks_cuda.launches``, or raises; for CPU tensors it runs the
+plain PyTorch version :func:`conv_blocks_plain` (the same blocks on
+``torch.fft``).  Both take H, the taps' spectrum of :func:`spectrum`.
+:func:`circular_conv_cuda` and :func:`blocked_linear_conv_cuda` (plain:
+``*_plain``) take tap planes; :func:`overlap_save_planar` and
+:func:`overlap_save_cuda` are the convolution dispatch's entries.  The
+kernel is built at its first launch, never at import.
 """
 from __future__ import annotations
 
@@ -23,35 +35,83 @@ import functools
 import torch
 
 from . import _build
-from ..ops.conv_ops import LANES, _clip_kernel, circular_wrap, overlap_add
+from ..ops.conv_ops import LANES, _clip_kernel
 
 
 def supported(fft_len: int) -> bool:
-    """Block lengths the kernel takes: powers of two in [1024, 16384]
-    (a block and its twiddles fit in shared memory: 192 KiB at 16384)."""
+    """Block lengths the kernel takes: powers of two in [1024, 16384]."""
     return (fft_len & (fft_len - 1)) == 0 and 1024 <= fft_len <= 16384
 
 
 def _pad(m_eff: int) -> int:
-    """A block's tail: m_eff - 1 rounded up to 128, as in the JAX kernel."""
+    """A block's history: m_eff - 1 rounded up to 128, as in the JAX
+    kernel."""
     return -(-(m_eff - 1) // LANES) * LANES
 
 
 def fits(m_eff: int, fft_len: int) -> bool:
     """Whether the kernel takes m_eff taps at this block length: a
-    supported fft_len whose blocks hold L = fft_len - pad >= pad samples,
-    so that a block's tail spills into the next block only."""
+    supported fft_len whose blocks hold L = fft_len - pad >= pad samples
+    (the JAX kernel's rule, so both dispatches cut the same blocks)."""
     return supported(fft_len) and fft_len >= 2 * _pad(m_eff)
 
 
 def _geometry(n: int, m_eff: int, fft_len: int):
-    """(pad, L, nb) of the JAX kernel: L = fft_len - pad samples per
+    """(pad, L, nb) of the circular mode: L = fft_len - pad samples per
     block, nb = ceil(n / L) blocks."""
     if not fits(m_eff, fft_len):
         raise ValueError(f"overlap_save: no block geometry for {m_eff} taps "
                          f"at fft_len {fft_len}")
     pad = _pad(m_eff)
     return pad, fft_len - pad, -(-n // (fft_len - pad))
+
+
+# The kernel's compile-time choices, for the tests' numpy model of it.
+
+def radix_plan(fft_len: int) -> tuple:
+    """The forward FFT's radices, first pass first (``plan_16`` in
+    csrc/fft_core.cuh); the inverse runs them in reverse."""
+    bits = fft_len.bit_length() - 1
+    return (16,) * (bits // 4) + ((1 << (bits % 4),) if bits % 4 else ())
+
+
+def threads(fft_len: int) -> int:
+    """Threads of a block: fft_len / 16 up to 4096, 512 above."""
+    return fft_len // 16 if fft_len <= 4096 else 512
+
+
+def staged(fft_len: int) -> bool:
+    """Whether a block stages the next signal block by cp.async (a second
+    plane of fft_len points fits only up to 4096)."""
+    return fft_len <= 4096
+
+
+def two_level_bits(fft_len: int) -> int:
+    """S of the two-level twiddle table: w^m = hi[m >> S] * lo[m mod 2^S],
+    S = ceil(log2(fft_len) / 2)."""
+    return fft_len.bit_length() // 2
+
+
+def smem_bytes(fft_len: int) -> int:
+    """Dynamic shared memory of a block: the in-place (re, im) plane, the
+    staging plane where there is one, H (complex64) up to 8192, and the
+    two-level table."""
+    S = two_level_bits(fft_len)
+    entries = (1 << S) + (fft_len >> S)
+    h = 8 * fft_len if fft_len <= 8192 else 0
+    return (4 if staged(fft_len) else 2) * fft_len * 4 + h + 8 * entries
+
+
+def spectrum(h_eff: torch.Tensor, fft_len: int) -> torch.Tensor:
+    """H as the kernel takes it: the FFT of the (real or complex) taps
+    zero-padded to fft_len, in complex128, rounded once to complex64,
+    natural order, unscaled (the kernel applies the inverse's 1/fft_len,
+    a power of two, at its store).  Four device ops: the zeros, the taps
+    copied in, the FFT and the cast (the JAX kernel builds its H outside the
+    kernel too)."""
+    z = h_eff.new_zeros(fft_len, dtype=torch.complex128)
+    z[:h_eff.shape[-1]] = h_eff
+    return torch.fft.fft(z).to(torch.complex64)
 
 
 def _check_planes(xr, xi, hr, hi):
@@ -67,106 +127,141 @@ def _check_planes(xr, xi, hr, hi):
         raise ValueError("xr/xi and hr/hi must have equal shapes")
 
 
-def _taps_spectrum(hr, hi, fft_len: int, norm: str = "backward"):
-    """FFT of the taps zero-padded to fft_len, in complex128 (the JAX
-    kernel builds its H outside the kernel too); ``norm="forward"`` folds
-    in the 1/fft_len of the inverse."""
-    h = torch.complex(hr, hi).to(torch.complex128)
-    return torch.fft.fft(h, n=fft_len, norm=norm)
+def _mode(n: int, m_eff: int, fft_len: int, linear: bool):
+    """(pad, L, lim, shift): the output length lim and the centering shift
+    of the stores (c - 1 in circular mode, 0 in linear mode)."""
+    pad, L, _ = _geometry(n, m_eff, fft_len)
+    if linear:
+        return pad, L, n + m_eff - 1, 0
+    if m_eff > n:
+        raise ValueError(f"overlap_save: {m_eff} taps on a circle of {n}: "
+                         f"clip them first (conv_ops._clip_kernel)")
+    return pad, L, n, m_eff - m_eff // 2 - 1
 
 
-def blocked_linear_conv_plain(xr, xi, hr, hi, fft_len: int):
-    """Plain PyTorch version of :func:`blocked_linear_conv_cuda`: the
-    pieces IFFT(FFT(block_b zero-padded) * H) on ``torch.fft``, as
-    (2, nb, fft_len) f32 planes."""
-    _check_planes(xr, xi, hr, hi)
+def conv_blocks_plain(xr, xi, H, m_eff: int, fft_len: int,
+                      linear: bool = False, imag: bool = True):
+    """Plain PyTorch version of :func:`conv_blocks_cuda`: the blocks
+    gathered with the same mod-n (or zero) loads, ``torch.fft``, x H, the
+    unscaled inverse, the discard of each block's first pad points and the
+    centering roll.  Returns (2, lim) f32 planes, (1, lim) without
+    ``imag``."""
     n = xr.shape[0]
-    _, L, nb = _geometry(n, hr.shape[0], fft_len)
-    x = torch.nn.functional.pad(torch.complex(xr, xi), (0, nb * L - n))
-    blocks = torch.nn.functional.pad(x.reshape(nb, L), (0, fft_len - L))
-    H = _taps_spectrum(hr, hi, fft_len).to(torch.complex64)
-    y = torch.fft.ifft(torch.fft.fft(blocks, dim=-1) * H, dim=-1)
-    return torch.stack((y.real, y.imag))
-
-
-def _bit_reversed(v: torch.Tensor, dtype=None) -> torch.Tensor:
-    """v[bitrev(p)] for p in range(len(v)), len(v) = 2^k, contiguous in
-    ``dtype`` (one copy): index bits reversed as the axes of a (2,) * k
-    view."""
-    k = v.shape[0].bit_length() - 1
-    view = v.reshape((2,) * k).permute(*reversed(range(k)))
-    return view.to(dtype or v.dtype,
-                   memory_format=torch.contiguous_format).reshape(-1)
-
-
-def _kernel_spectrum(hr, hi, fft_len: int) -> torch.Tensor:
-    """H as the kernel takes it: complex64 in bit-reversed order, with the
-    inverse transform's 1/fft_len folded in."""
-    return _bit_reversed(_taps_spectrum(hr, hi, fft_len, "forward"),
-                         torch.complex64)
+    pad, L, lim, shift = _mode(n, m_eff, fft_len, linear)
+    nb = -(-lim // L)
+    g = ((torch.arange(nb, device=xr.device) * L - pad)[:, None]
+         + torch.arange(fft_len, device=xr.device))
+    x = torch.complex(xr, xi) if xi is not None else xr.to(torch.complex64)
+    if linear:
+        z = torch.where((g >= 0) & (g < n), x[g.clamp(0, n - 1)], 0)
+    else:
+        z = x[g % n]
+    y = torch.fft.ifft(torch.fft.fft(z, dim=-1) * H, dim=-1)
+    out = torch.roll(y[:, pad:].reshape(-1)[:lim], -shift)
+    return torch.stack((out.real, out.imag) if imag else (out.real,))
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("overlap_save")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.overlap_save_launch.argtypes = ([vp] * 5
-                                        + [ctypes.c_longlong, ci, ci, ci, vp])
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.overlap_save_launch.argtypes = ([vp] * 5 + [ll, ci, ci, ll, ll, ci,
+                                                    ci, vp])
     lib.overlap_save_launch.restype = ci
     lib.overlap_save_error_string.argtypes = [ci]
     lib.overlap_save_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def blocked_linear_conv_cuda(xr, xi, hr, hi, fft_len: int):
-    """Linear-convolution pieces of overlap-add, one row per block.
+def _aligned(p: torch.Tensor) -> torch.Tensor:
+    """``p`` contiguous at a 16-byte aligned address (the kernel copies
+    16-byte chunks with cp.async): a copy only where it is not."""
+    p = p.contiguous()
+    return p if p.data_ptr() % 16 == 0 else p.clone()
 
-    xr, xi: (n,) f32 planes of the signal (a real signal passes a zero
-    ``xi``); hr, hi: (m_eff,) f32 planes of the taps, with
-    ``fits(m_eff, fft_len)``.  Returns the (2, nb, fft_len) f32 planes
-    (re, im) of the pieces: row b = IFFT(FFT(x[b*L : b*L + L] zero-padded
-    to fft_len) * H), the JAX kernel's output before its fold.  The kernel
-    takes H as complex64 in bit-reversed order, scaled by 1/fft_len
-    (``csrc/overlap_save.cu``).  A CPU tensor takes
-    :func:`blocked_linear_conv_plain`; a CUDA tensor launches the kernel
-    and adds one to ``blocked_linear_conv_cuda.launches``."""
-    _check_planes(xr, xi, hr, hi)
-    n = xr.shape[0]
-    _, L, nb = _geometry(n, hr.shape[0], fft_len)
-    dev = xr.device
+
+def _route(dev: torch.device) -> bool:
+    """True for a CUDA device, False for the CPU; raises for any other."""
+    if dev.type == "cuda":
+        return True
     if dev.type == "cpu":
-        return blocked_linear_conv_plain(xr, xi, hr, hi, fft_len)
-    if dev.type != "cuda":
-        raise ValueError(f"blocked_linear_conv_cuda: no kernel for {dev}")
-    xr, xi = xr.contiguous(), xi.contiguous()
-    H = _kernel_spectrum(hr, hi, fft_len)
+        return False
+    raise ValueError(f"overlap_save: no kernel for {dev}")
+
+
+def conv_blocks_cuda(xr, xi, H, m_eff: int, fft_len: int,
+                     linear: bool = False, imag: bool = True):
+    """K3: the overlap-save convolution of the (n,) float32 planes
+    ``xr``, ``xi`` (``xi`` None: a real signal) with the m_eff taps whose
+    :func:`spectrum` is ``H``, circular or ``linear`` (module docstring).
+    Returns (2, lim) f32 planes (re, im), or (1, lim) without ``imag``:
+    the kernel then stores no imaginary plane.  A CPU tensor takes
+    :func:`conv_blocks_plain`; a CUDA tensor launches the kernel and adds
+    one to ``conv_blocks_cuda.launches``."""
+    if xr.dtype != torch.float32 or xr.dim() != 1:
+        raise TypeError("xr: expected a 1-D float32 plane")
+    if xi is not None and (xi.dtype != xr.dtype or xi.shape != xr.shape
+                           or xi.device != xr.device):
+        raise ValueError("xi: expected a plane like xr, or None")
+    n = xr.shape[0]
+    if not _route(xr.device):
+        return conv_blocks_plain(xr, xi, H, m_eff, fft_len, linear, imag)
+    pad, L, lim, shift = _mode(n, m_eff, fft_len, linear)
+    if H.dtype != torch.complex64 or H.shape != (fft_len,) \
+            or H.device != xr.device:
+        raise ValueError(f"H: expected ({fft_len},) complex64 on "
+                         f"{xr.device}")
+    xr = _aligned(xr)
+    xi = None if xi is None else _aligned(xi)
+    H = _aligned(H)
+    y = torch.empty((2 if imag else 1, lim), dtype=torch.float32,
+                    device=xr.device)
     lib = _lib()
-    y = torch.empty((2, nb, fft_len), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.overlap_save_launch(
-            xr.data_ptr(), xi.data_ptr(), H.data_ptr(),
-            y[0].data_ptr(), y[1].data_ptr(), n, L, nb,
-            fft_len.bit_length() - 1, stream)
+    rc = _build.launch(xr.device, lib.overlap_save_launch, xr.data_ptr(),
+                       None if xi is None else xi.data_ptr(), H.data_ptr(),
+                       y.data_ptr(), y.data_ptr() + 4 * lim if imag else None,
+                       n, L, pad, lim, shift, fft_len.bit_length() - 1,
+                       int(linear))
     if rc != 0:
         raise RuntimeError("overlap_save kernel launch failed: "
                            + lib.overlap_save_error_string(rc).decode())
-    blocked_linear_conv_cuda.launches += 1
+    conv_blocks_cuda.launches += 1
     return y
 
 
-blocked_linear_conv_cuda.launches = 0
+conv_blocks_cuda.launches = 0
 
 
-def _blocked_linear_conv(xr, xi, hr, hi, fft_len: int):
-    """Linear convolution of the planes with the taps, length
-    n + m_eff - 1: :func:`blocked_linear_conv_cuda`, then the overlap-add
-    fold in torch, both planes at once.  Planes in, (2, n + m_eff - 1)
-    planes out (JAX ``_blocked_linear_conv_pallas``)."""
-    n, m_eff = xr.shape[0], hr.shape[0]
-    _, L, _ = _geometry(n, m_eff, fft_len)
-    y = blocked_linear_conv_cuda(xr, xi, hr, hi, fft_len)
-    return overlap_add(y, L, n + m_eff - 1)
+def circular_conv_cuda(xr, xi, hr, hi, fft_len: int):
+    """Centered circular convolution of the (n,) f32 planes with the
+    (m_eff,) f32 tap planes (m_eff <= n, ``fits(m_eff, fft_len)``), as
+    (2, n) planes: the kernel in circular mode."""
+    _check_planes(xr, xi, hr, hi)
+    H = spectrum(torch.complex(hr, hi), fft_len)
+    return conv_blocks_cuda(xr, xi, H, hr.shape[0], fft_len)
+
+
+def circular_conv_plain(xr, xi, hr, hi, fft_len: int):
+    """Plain PyTorch version of :func:`circular_conv_cuda`."""
+    _check_planes(xr, xi, hr, hi)
+    return conv_blocks_plain(xr, xi, spectrum(torch.complex(hr, hi), fft_len),
+                             hr.shape[0], fft_len)
+
+
+def blocked_linear_conv_cuda(xr, xi, hr, hi, fft_len: int):
+    """Linear convolution of the (n,) f32 planes with the (m_eff,) f32 tap
+    planes (``fits(m_eff, fft_len)``), as (2, n + m_eff - 1) planes: the
+    kernel in linear mode (JAX ``_blocked_linear_conv_pallas``)."""
+    _check_planes(xr, xi, hr, hi)
+    H = spectrum(torch.complex(hr, hi), fft_len)
+    return conv_blocks_cuda(xr, xi, H, hr.shape[0], fft_len, linear=True)
+
+
+def blocked_linear_conv_plain(xr, xi, hr, hi, fft_len: int):
+    """Plain PyTorch version of :func:`blocked_linear_conv_cuda`."""
+    _check_planes(xr, xi, hr, hi)
+    return conv_blocks_plain(xr, xi, spectrum(torch.complex(hr, hi), fft_len),
+                             hr.shape[0], fft_len, linear=True)
 
 
 _KERNEL_DTYPES = (torch.float32, torch.complex64)
@@ -191,21 +286,23 @@ def _check_precision(x_dtype, h_dtype):
                         f"precision, got {x_dtype} and {h_dtype}")
 
 
+def _clipped_spectrum(n: int, h: torch.Tensor, fft_len: int):
+    """(H, m_eff) of the taps clipped around their center to the circle of
+    n (``conv_ops._clip_kernel``)."""
+    start, m_eff, _ = _clip_kernel(n, h.shape[-1])
+    return spectrum(h[start:start + m_eff], fft_len), m_eff
+
+
 def overlap_save_planar(xr, xi, h, fft_len: int):
     """Centered circular convolution of the (n,) float32 planes xr, xi
     with the real or complex taps ``h`` (at most complex64), through
-    :func:`blocked_linear_conv_cuda`; returns f32 (out_re, out_im)."""
+    :func:`conv_blocks_cuda` in circular mode; returns f32
+    (out_re, out_im)."""
     _check_precision(xr.dtype, h.dtype)
     _check_precision(xi.dtype, h.dtype)
-    n = xr.shape[-1]
-    start, m_eff, c = _clip_kernel(n, h.shape[-1])
-    h_eff = h[start:start + m_eff]
-    hr = (h_eff.real if h_eff.is_complex() else h_eff).float()
-    hi = (h_eff.imag.float() if h_eff.is_complex()
-          else torch.zeros_like(hr))
-    out = circular_wrap(_blocked_linear_conv(xr, xi, hr, hi, fft_len),
-                        n, m_eff, c)
-    return out[0], out[1]
+    H, m_eff = _clipped_spectrum(xr.shape[-1], h, fft_len)
+    y = conv_blocks_cuda(xr, xi, H, m_eff, fft_len)
+    return y[0], y[1]
 
 
 def overlap_save_cuda(x: torch.Tensor, h: torch.Tensor, is_complex: bool,
@@ -213,13 +310,11 @@ def overlap_save_cuda(x: torch.Tensor, h: torch.Tensor, is_complex: bool,
     """Circular centered convolution of the 1-D ``x`` with ``h``, the
     semantics of ``ops.conv_ops.overlap_save``, through the kernel
     (JAX ``overlap_save_pallas``).  Real f32 output when not
-    ``is_complex``, complex64 otherwise.  ``x`` float32 or complex64,
-    ``h`` at most complex64."""
+    ``is_complex`` (the kernel stores no imaginary plane), complex64
+    otherwise; a real ``x`` passes no imaginary plane.  ``x`` float32 or
+    complex64, ``h`` at most complex64."""
     _check_precision(x.dtype, h.dtype)
-    if x.is_complex():
-        xr, xi = x.real, x.imag
-    else:
-        xr = x
-        xi = torch.zeros_like(xr)
-    out_r, out_i = overlap_save_planar(xr, xi, h, fft_len)
-    return torch.complex(out_r, out_i) if is_complex else out_r
+    xr, xi = (x.real, x.imag) if x.is_complex() else (x, None)
+    H, m_eff = _clipped_spectrum(x.shape[-1], h, fft_len)
+    y = conv_blocks_cuda(xr, xi, H, m_eff, fft_len, imag=is_complex)
+    return torch.complex(y[0], y[1]) if is_complex else y[0]

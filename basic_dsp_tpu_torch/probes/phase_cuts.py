@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of K1 (``csrc/rowfft_mag.cu``) and K6
-(``csrc/channelizer.cu``) goes, on an NVIDIA GPU.
+"""Where the time of K1 (``csrc/rowfft_mag.cu``), K3
+(``csrc/overlap_save.cu``) and K6 (``csrc/channelizer.cu``) goes, on an
+NVIDIA GPU.
 
-    python3 basic_dsp_tpu_torch/probes/phase_cuts.py
+    python3 basic_dsp_tpu_torch/probes/phase_cuts.py [K1] [K3] [K6]
 
+(no argument: all three).
 Builds each kernel as it is and in variants with one phase cut out by an
 edit of its source (the edits are listed below; each must match the
 source, or the probe stops), then times every build at its main path's
@@ -26,6 +28,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from basic_dsp_tpu_torch.kernels import _build  # noqa: E402
+from basic_dsp_tpu_torch.kernels import overlap_save_cuda as osc  # noqa: E402
 from basic_dsp_tpu_torch.kernels import spectrum_cuda as sc  # noqa: E402
 from basic_dsp_tpu_torch.ops import fourstep  # noqa: E402
 from basic_dsp_tpu_torch.parallel import channelizer as chz  # noqa: E402
@@ -77,6 +80,36 @@ K6_CUTS = {
 }
 
 
+K3_CUTS = {
+    "as built": [],
+    "no FFT passes (the in-place ones)": [
+        ("    fft_core::passes_inplace<-1, LOG2N, T, F.count, F.bits, 1, "
+         "F.count - 1>(\n        dr, di, tl);", ""),
+        ("    fft_core::passes_inplace<1, LOG2N, T, I.count, I.bits, 1, "
+         "I.count - 1>(\n        dr, di, tl);", "")],
+    "no loads": [("      cp_async::copy16(dr, xr + g);\n"
+                  "      if (xi != nullptr) cp_async::copy16(di, xi + g);",
+                  "")],
+    "no stores": [("          yr[o] = vr[q] * kInvN;\n"
+                   "          if (yi != nullptr) yi[o] = vi[q] * kInvN;",
+                   "          if (vr[q] == 1234.5f) yr[o] = vi[q];")],
+    "no H loads": [("G::kHShared ? hs[i + q * PM] : __ldg(h + i + q * PM);",
+                    "make_float2(0.5f, 0.25f);")],
+    "H from L2, not shared memory": [
+        ("static constexpr bool kHShared = LOG2N <= 13;",
+         "static constexpr bool kHShared = false;")],
+    "no twiddle table fill": [("  fft_core::TwoLevel<LOG2N>::fill(tab);\n",
+                               "")],
+    "no cp.async staging": [("static constexpr bool kStage = LOG2N <= 12;",
+                             "static constexpr bool kStage = false;")],
+    "three blocks an SM (85 registers), H from L2": [
+        ("static constexpr int kMinBlocks = LOG2N <= 12 ? 2 : 1;",
+         "static constexpr int kMinBlocks = LOG2N <= 12 ? 3 : 1;"),
+        ("static constexpr bool kHShared = LOG2N <= 13;",
+         "static constexpr bool kHShared = false;")],
+}
+
+
 def build(kernel, label, edits):
     """The library of ``csrc/<kernel>.cu`` with ``edits`` applied."""
     text = (_build.CSRC / f"{kernel}.cu").read_text()
@@ -119,8 +152,13 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     OUT.mkdir(parents=True, exist_ok=True)
-    jobs = [("rowfft_mag", k, v) for k, v in K1_CUTS.items()]
-    jobs += [("channelizer", k, v) for k, v in K6_CUTS.items()]
+    which = set(sys.argv[1:]) or {"K1", "K3", "K6"}
+    jobs = []
+    for tag, kernel, cuts in (("K1", "rowfft_mag", K1_CUTS),
+                              ("K3", "overlap_save", K3_CUTS),
+                              ("K6", "channelizer", K6_CUTS)):
+        if tag in which:
+            jobs += [(kernel, k, v) for k, v in cuts.items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda j: build(*j), jobs))
 
@@ -153,11 +191,28 @@ def main():
                ang.data_ptr(), None, S, C, taps + 1, cc.strip_rows(C, S),
                stream]
 
+    n3, m3, fl3 = 1 << 22, 384, 4096
+    pad3, L3, _ = osc._geometry(n3, m3, fl3)
+    x3r, x3i = (torch.from_numpy(rng.standard_normal(n3)
+                                 .astype(np.float32)).to(dev)
+                for _ in range(2))
+    H3 = osc.spectrum(torch.from_numpy(
+        rng.standard_normal(m3).astype(np.complex64)).to(dev), fl3)
+    y3 = torch.empty(2, n3, device=dev)
+    k3_args = [x3r.data_ptr(), x3i.data_ptr(), H3.data_ptr(), y3.data_ptr(),
+               y3.data_ptr() + 4 * n3, n3, L3, pad3, n3, m3 - m3 // 2 - 1,
+               fl3.bit_length() - 1, 0, stream]
+
     for (kernel, label, _), lib in zip(jobs, libs):
         if kernel == "rowfft_mag":
             fn = lib.rowfft_mag_launch
             fn.argtypes = [vp] * 9 + [ci] * 3 + [vp]
             args, shape = k1_args, f"K1 rowfft_mag ({n1}, {n2})"
+        elif kernel == "overlap_save":
+            fn = lib.overlap_save_launch
+            fn.argtypes = [vp] * 5 + [ll, ci, ci, ll, ll, ci, ci, vp]
+            args, shape = k3_args, (f"K3 overlap_save (n={n3}, {m3} taps, "
+                                    f"fft_len {fl3})")
         else:
             fn = lib.channelizer_launch
             fn.argtypes = [vp] * 7 + [ll, ci, ci, ci, vp]

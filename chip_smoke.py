@@ -14,8 +14,13 @@ Phases (any failure raises and exits non-zero):
    ``fourstep_mag_fused`` (K2) against ``fourstep_mag_fused_plain`` at
    four, among them a non-power-of-two n1 (the direct sum), the 4M
    geometry and L2 = 1024,
-   ``blocked_linear_conv_cuda`` against ``blocked_linear_conv_plain`` at
-   five (n, taps, fft_len), with complex and with real taps, and the
+   K3 in both modes, ``circular_conv_cuda`` against
+   ``circular_conv_plain`` and ``blocked_linear_conv_cuda`` against
+   ``blocked_linear_conv_plain``, at eight (n, taps, fft_len), among them
+   the 4M geometry, 8192, 16384, an n below fft_len (the circular loads
+   wrap more than once) and an n that 4 does not divide, with complex and
+   with real taps, and ``conv_blocks_cuda`` on a real signal (no imaginary
+   plane in or out) against ``conv_blocks_plain``; and the
    resampler's two wrappers against their plain versions on one row and
    on two: ``resample_direct_cuda`` (K4) at six (P, Q, L, n), among them
    interpolate_lin's 2-tap geometry with zero offsets, and
@@ -32,7 +37,9 @@ Phases (any failure raises and exits non-zero):
       ``windowed_spectrum`` once each;
    b. the long-tap convolution: ``conv_ops.convolve_signal_planar`` at
       n = 2^22 with 384 complex taps (fft_len 4096), against a float64
-      oracle (<= 5e-6); then ``convolve_signal`` once, and
+      oracle (<= 5e-6), one K3 launch, and its profile must show K3 and
+      the ops of the taps' spectrum H alone; then ``convolve_signal``
+      once, and
       ``fir_fft_chain`` with 384 raised-cosine taps (its overlap-save FIR
       runs on ``torch.fft``, its spectrum through ``rowfft_mag``);
    c. config #3: ``interp_ops.interpolatef`` of 2^20 complex samples x 1.5
@@ -60,7 +67,10 @@ Phases (any failure raises and exits non-zero):
    chain against the unfused one in turns; each kernel against its plain
    version and its library call (one PyTorch call computing the same
    function, where there is one) in turns, and its device time from
-   ``torch.profiler``; and each kernel's bound, the
+   ``torch.profiler`` (K3 also with its taps' spectrum H computed in the
+   call, and against the block call ``ifft(fft(blocks) * H)`` that was its
+   yardstick before its library call became the whole-signal
+   ``ifft(fft(x) * Hn)``); and each kernel's bound, the
    larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
    over 67 TFLOP/s, from this run's shapes.
 
@@ -85,9 +95,11 @@ GEOMETRIES = [(8, 256), (8, 16384), (128, 32768), (16, 65536), (64, 131072)]
 FUSED_GEOMETRIES = [(8, 256), (24, 4096), (128, 32768), (64, 131072)]
 CONV_TAPS = 384
 CONV_FFT_LEN = 4096
-# (n, taps, fft_len); the last needs the kernel's large shared-memory opt-in.
+# K3 (n, taps, fft_len): n below fft_len (700) and n not a multiple of 4
+# (5001) take the kernel's single loads; 8192 and 16384 its unstaged blocks.
 OS_GEOMETRIES = [(4096, 33, 1024), (8192, 129, 2048), (5000, 63, 1024),
-                 (N, CONV_TAPS, CONV_FFT_LEN), (1 << 20, 4097, 16384)]
+                 (N, CONV_TAPS, CONV_FFT_LEN), (1 << 20, 385, 8192),
+                 (1 << 20, 4097, 16384), (700, 129, 1024), (5001, 63, 1024)]
 KERNEL_TOL = 2e-6
 CHAIN_TOL = 5e-6
 REPS = 20
@@ -305,14 +317,14 @@ def main():
     def reset_counts():
         sc.rowfft_mag.launches = 0
         sc.fourstep_mag_fused.launches = 0
-        osc.blocked_linear_conv_cuda.launches = 0
+        osc.conv_blocks_cuda.launches = 0
         rsc.resample_direct_cuda.launches = 0
         rsc.resample_rowblock_cuda.launches = 0
         chc.channelize_demod_cuda.launches = 0
 
     def other_launches():
         return (sc.rowfft_mag.launches + sc.fourstep_mag_fused.launches
-                + osc.blocked_linear_conv_cuda.launches
+                + osc.conv_blocks_cuda.launches
                 + rsc.resample_direct_cuda.launches
                 + rsc.resample_rowblock_cuda.launches)
 
@@ -368,18 +380,33 @@ def main():
         for kind in ("complex", "real"):
             if kind == "real":
                 hi = torch.zeros_like(hr)
-            got = osc.blocked_linear_conv_cuda(xr, xi, hr, hi, fl)
-            ref = osc.blocked_linear_conv_plain(xr, xi, hr, hi, fl)
-            torch.cuda.synchronize()
-            err, abs_err = planes_err(got, ref)
-            print(f"blocked_linear_conv_cuda vs plain at (n={n}, taps={m}, "
-                  f"fft_len={fl}), {kind} taps: {err:.3e} relative to max "
-                  f"(tol {KERNEL_TOL})")
-            assert got[0].shape == ref[0].shape == (
-                osc._geometry(n, m, fl)[2], fl)
-            assert err <= KERNEL_TOL, (n, m, fl, kind, err)
-            if (n, m, fl, kind) == (N, CONV_TAPS, CONV_FFT_LEN, "complex"):
-                os_abs_err_4m = abs_err
+            for mode, kernel, plain, length in (
+                    ("circular", osc.circular_conv_cuda,
+                     osc.circular_conv_plain, n),
+                    ("linear", osc.blocked_linear_conv_cuda,
+                     osc.blocked_linear_conv_plain, n + m - 1)):
+                got = kernel(xr, xi, hr, hi, fl)
+                ref = plain(xr, xi, hr, hi, fl)
+                torch.cuda.synchronize()
+                err, abs_err = planes_err(got, ref)
+                print(f"K3 {mode} vs plain at (n={n}, taps={m}, "
+                      f"fft_len={fl}), {kind} taps: {err:.3e} relative to "
+                      f"max (tol {KERNEL_TOL})")
+                assert got.shape == ref.shape == (2, length)
+                assert err <= KERNEL_TOL, (n, m, fl, kind, mode, err)
+                if (n, m, fl, kind, mode) == (N, CONV_TAPS, CONV_FFT_LEN,
+                                              "complex", "circular"):
+                    os_abs_err_4m = abs_err
+        H = osc.spectrum(torch.complex(hr, hi), fl)
+        got = osc.conv_blocks_cuda(xr, None, H, m, fl, imag=False)
+        ref = osc.conv_blocks_plain(xr, None, H, m, fl, imag=False)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        print(f"K3 circular vs plain at (n={n}, taps={m}, fft_len={fl}), "
+              f"real signal, real part only: {err:.3e} (tol {KERNEL_TOL})")
+        assert got.shape == ref.shape == (1, n)
+        assert err <= KERNEL_TOL, (n, m, fl, err)
+    assert osc.conv_blocks_cuda.launches == 5 * len(OS_GEOMETRIES)
     del got, ref
 
     sinc = bt.SincFunction()
@@ -495,11 +522,12 @@ def main():
     reset_counts()
     cr, ci = conv_ops.convolve_signal_planar(xr, xi, h)
     torch.cuda.synchronize()
-    os_launches = osc.blocked_linear_conv_cuda.launches
+    os_launches = osc.conv_blocks_cuda.launches
     print(f"main path: convolve_signal_planar n={N}, {CONV_TAPS} complex "
-          f"taps, blocked_linear_conv_cuda launches: {os_launches}, "
-          f"rowfft_mag launches: {sc.rowfft_mag.launches}")
-    assert os_launches == 1, "the conv path did not launch overlap_save"
+          f"taps, conv_blocks_cuda launches: {os_launches}, "
+          f"other kernels: {other_launches() - os_launches}")
+    assert os_launches == 1, "the conv path did not launch K3 once"
+    assert other_launches() == 1
     assert cr.shape == ci.shape == (N,) and cr.dtype == torch.float32
     assert bool(torch.isfinite(cr).all() and torch.isfinite(ci).all())
     err, _ = planes_err((cr.double(), ci.double()),
@@ -513,7 +541,17 @@ def main():
     print(f"convolve_signal vs oracle: {err:.3e}")
     assert got.shape == (N,) and got.dtype == torch.complex64
     assert err <= CHAIN_TOL, err
-    assert osc.blocked_linear_conv_cuda.launches == 2
+    assert osc.conv_blocks_cuda.launches == 2
+    # The path runs K3 and the ops of H (osc.spectrum) and nothing else: no
+    # fold, wrap or concatenation.
+    _, h_ops = device_ms_per_call(lambda: osc.spectrum(h, CONV_FFT_LEN))
+    _, path_ops = device_ms_per_call(
+        lambda: conv_ops.convolve_signal_planar(xr, xi, h))
+    k3_ops = [k for k in path_ops if "overlap_save_blocks" in k]
+    print(f"convolve_signal_planar's kernels: {sorted(path_ops)}")
+    if path_ops:
+        assert len(k3_ops) == 1, path_ops
+        assert set(path_ops) - set(k3_ops) <= set(h_ops), (path_ops, h_ops)
     del conv_ref, got, cr, ci
     taps_long = rc_taps(CONV_TAPS, dev)
     before = sc.rowfft_mag.launches
@@ -671,10 +709,6 @@ def main():
     del ref, got, out
 
     # 4. times (CUDA events, median of REPS after warm-up)
-    conv_ms = median_ms(lambda: conv_ops.convolve_signal_planar(xr, xi, h))
-    print(f"convolve_signal_planar: {conv_ms:.4f} ms/call, "
-          f"{N / conv_ms / 1e3:.1f} Msamples/s (n={N}, {CONV_TAPS} complex "
-          f"taps, fft_len {CONV_FFT_LEN}) on {smi}")
     x = torch.complex(xr, xi)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
                                                      CONV_FFT_LEN))
@@ -685,6 +719,9 @@ def main():
          lambda: chain(xr, xi)),
         ("config #1 fused: FirFftChainPlanar(fused=True), 2^22, 128 taps",
          N, lambda: chain_f(xr, xi)),
+        (f"cell 2: convolve_signal_planar, 2^22, {CONV_TAPS} complex taps, "
+         f"fft_len {CONV_FFT_LEN}", N,
+         lambda: conv_ops.convolve_signal_planar(xr, xi, h)),
         ("config #3: interpolatef x1.5, 2^20 complex", CFG3_N * 3 // 2,
          lambda: interp_ops.interpolatef(x3, sinc, 1.5, 0.0, 10, 1.0)),
         ("config #4: ModulationChainPlanar, 2^17 symbols x 2 planes",
@@ -779,19 +816,25 @@ def main():
         torch.nn.functional.pad(x, (0, os_nb * os_L - N)).reshape(os_nb,
                                                                   os_L),
         (0, CONV_FFT_LEN - os_L))
-    H = torch.fft.fft(h, n=CONV_FFT_LEN)
+    H = osc.spectrum(h, CONV_FFT_LEN)
+    H_blocks = torch.fft.fft(h, n=CONV_FFT_LEN)
+    # the same centered circular convolution as one whole-signal product:
+    # Hn the length-N FFT of the taps laid out on the circle
+    Hn = torch.fft.fft(conv_ops.kernel_layout(h, N))
     measure(f"overlap_save (n={N}, {CONV_TAPS} taps, fft_len "
             f"{CONV_FFT_LEN})", "basic_dsp_tpu_torch/csrc/overlap_save.cu",
             "basic_dsp_tpu/kernels/overlap_save_pallas.py:192", os_launches,
             os_abs_err_4m,
-            {"plain": lambda: osc.blocked_linear_conv_plain(
-                xr, xi, hr, hi, CONV_FFT_LEN),
-             "kernel": lambda: osc.blocked_linear_conv_cuda(
+            {"plain": lambda: osc.conv_blocks_plain(xr, xi, H, CONV_TAPS,
+                                                    CONV_FFT_LEN),
+             "kernel": lambda: osc.conv_blocks_cuda(xr, xi, H, CONV_TAPS,
+                                                    CONV_FFT_LEN),
+             "kernel with H": lambda: osc.circular_conv_cuda(
                  xr, xi, hr, hi, CONV_FFT_LEN),
-             "library": lambda: torch.fft.ifft(
-                 torch.fft.fft(blocks, dim=-1) * H, dim=-1)},
-            (xr, xi, hr, hi),
-            (torch.empty(2, os_nb, CONV_FFT_LEN, device=dev),),
+             "library": lambda: torch.fft.ifft(torch.fft.fft(x) * Hn),
+             "blocks": lambda: torch.fft.ifft(
+                 torch.fft.fft(blocks, dim=-1) * H_blocks, dim=-1)},
+            (xr, xi, H), (torch.empty(2, N, device=dev),),
             os_nb * (2 * 5 * CONV_FFT_LEN * np.log2(CONV_FFT_LEN)
                      + 6 * CONV_FFT_LEN))
     del blocks

@@ -1,13 +1,15 @@
 """PyTorch port, a numpy model of the register-resident FFT passes of
-basic_dsp_tpu_torch/csrc/fft_core.cuh, which the channelizer (K6) and the
-row stage of the four-step spectrum (K1, K2) share: the in-register
-radix-2/4/8/16 DFTs with their constant twiddles, the pass tables rounded
-once from double, and the Stockham passes between two buffers, whose
-compile-time words rest on each layout's XOR-linear element map.  The
-kernels' models in tests/test_torch_channelizer_kernel.py and
-tests/test_torch_fused.py import it; here it is held against numpy's DFT
-for both signs and every plan the kernels use (2e-6 of the maximum: f32
-butterflies)."""
+basic_dsp_tpu_torch/csrc/fft_core.cuh, which the channelizer (K6), the
+row stage of the four-step spectrum (K1, K2) and the overlap-save
+convolution (K3) share: the in-register radix-2/4/8/16 DFTs with their
+constant twiddles, the pass tables rounded once from double, the Stockham
+passes between two buffers, whose compile-time words rest on each layout's
+XOR-linear element map, and K3's in-place passes with their two-level
+twiddles and per-pass swizzles.  The kernels' models in
+tests/test_torch_channelizer_kernel.py, tests/test_torch_fused.py and
+tests/test_torch_overlap_save.py import it; here it is held against
+numpy's DFT for both signs and every plan the kernels use (2e-6 of the
+maximum: f32 butterflies), and the twiddles against float64."""
 import numpy as np
 import pytest
 
@@ -190,3 +192,181 @@ def test_static_pass_words_equal_the_layout_words(name, lin, plan, N):
         for q in range(R):
             assert (lin(base + q * P) == (lin(base) ^ lin(q * P))).all()
         P *= R
+
+
+# ---------------------------------------------------------------------
+# The in-place passes (pass_inplace, twiddle_item, TwoLevel), which the
+# overlap-save kernel (K3, csrc/overlap_save.cu) runs; its model in
+# tests/test_torch_overlap_save.py imports these.
+
+def plan_16(N):
+    """plan_16: radix-16 passes, the remainder last."""
+    bits = N.bit_length() - 1
+    return (16,) * (bits // 4) + ((1 << (bits % 4),) if bits % 4 else ())
+
+
+def strides(plan):
+    """The stride of each pass: the product of the radices before it."""
+    out, p = [], 1
+    for R in plan:
+        out.append(p)
+        p *= R
+    return out
+
+
+def two_level(N):
+    """TwoLevel<log2 N>: lo[e] = w_N^e (2^S entries), hi[e] = w_N^(e 2^S),
+    S = ceil(log2 N / 2), w_N = exp(-2 pi i / N), each rounded once from
+    double.  Returns (lo, hi, S) as float32 (re, im) pairs."""
+    S = N.bit_length() // 2
+    lo = np.exp(-2j * np.pi * np.arange(1 << S) / N)
+    hi = np.exp(-2j * np.pi * (np.arange(N >> S) << S) / N)
+    f = lambda a: (a.real.astype(np.float32), a.imag.astype(np.float32))
+    return f(lo), f(hi), S
+
+
+def cmul(a, b):
+    """A complex product of float32 (re, im) pairs, as the kernel forms it."""
+    return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+
+def tw_lookup(tl, m, sign):
+    """TwoLevel::w<SIGN>(m) = hi[m >> S] * lo[m mod 2^S], conjugated for
+    SIGN = +1."""
+    (lo_r, lo_i), (hi_r, hi_i), S = tl
+    a = (lo_r[m & ((1 << S) - 1)], lo_i[m & ((1 << S) - 1)])
+    b = (hi_r[m >> S], hi_i[m >> S])
+    re, im = cmul(a, b)
+    return re, (-im if sign > 0 else im)
+
+
+def item_twiddles(tl, R, P, N, k, sign):
+    """twiddle_item's w^r = w_{PR}^(sign r k), r < R (w^0 unused): w^1,
+    w^2, w^4, w^8 looked up, the rest products of those."""
+    m = k * (N // (P * R))
+    w = [None] * R
+    for r in (1, 2, 4, 8):
+        if r < R:
+            w[r] = tw_lookup(tl, m * r, sign)
+    for r in range(3, R):
+        if r & (r - 1):
+            top = 1 << (r.bit_length() - 1)
+            w[r] = cmul(w[top], w[r - top])
+    return w
+
+
+def apply_twiddles(xr, xi, w):
+    for r in range(1, len(xr)):
+        xr[r], xi[r] = (xr[r] * w[r][0] - xi[r] * w[r][1],
+                        xr[r] * w[r][1] + xi[r] * w[r][0])
+
+
+def pass_swizzle(P, R):
+    """PassSwizzle<P, R>: where a pass of stride P and radix R leaves
+    element e, e ^ (((e >> S) & (32 / P - 1)) << log2 P), S = max(log2 PR,
+    5); the identity for P >= 32."""
+    if P >= 32:
+        return lambda e: e
+    S = max((P * R).bit_length() - 1, 5)
+    mask, up = 32 // P - 1, P.bit_length() - 1
+    return lambda e: e ^ (((e >> S) & mask) << up)
+
+
+def bank_check(addrs, what):
+    """Each warp (32 consecutive items) of an access hits 32 distinct banks
+    or the same word (a broadcast)."""
+    a = np.asarray(addrs).reshape(-1, 32)
+    for row in a:
+        words = np.unique(row)
+        assert len(np.unique(words % 32)) == len(words), (what, row)
+
+
+def inplace_pass(buf, R, P, N, sign, tl, lin_in, lin_out, log=None):
+    """pass_inplace over every transform (row) of ``buf``, a float32
+    (rows, 2, words) array updated in place: every item reads its R
+    points, twiddles them (P > 1) and runs dft_regs; then every item
+    writes.  The writes must cover each word of lin_out once."""
+    n = N // R
+    i = np.arange(n)
+    k = i & (P - 1)
+    a_in = [lin_in(i) ^ lin_in(r * n) for r in range(R)]
+    xr = [buf[:, 0, a] for a in a_in]
+    xi = [buf[:, 1, a] for a in a_in]
+    if P > 1:
+        apply_twiddles(xr, xi, item_twiddles(tl, R, P, N, k, sign))
+    xr, xi = dft_regs(xr, xi, R, sign)
+    lb = lin_out((i - k) * R + k)
+    a_out = [lb ^ lin_out(q * P) for q in range(R)]
+    every = np.concatenate(a_out)
+    assert np.array_equal(np.sort(every), np.sort(lin_out(np.arange(N))))
+    for q in range(R):
+        buf[:, 0, a_out[q]] = xr[q]
+        buf[:, 1, a_out[q]] = xi[q]
+    if log is not None:
+        log.extend(("read", a) for a in a_in)
+        log.extend(("write", a) for a in a_out)
+
+
+@pytest.mark.parametrize("N", [8192, 16384])
+def test_plan_16_reaches_8192_and_16384(N):
+    """run_16's new plans (16.16.16.2, 16.16.16.4), ping-pong as K1 runs
+    them, give numpy's forward DFT."""
+    plan = plan_16(N)
+    assert plan == (16, 16, 16, N // 4096)
+    u = _signal(N, (1, N))
+    got = _transform(u, plan, -1)
+    want = np.fft.fft(u.astype(np.complex128), axis=1)
+    assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("N", [1024, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_inplace_passes_give_the_dft(N, sign):
+    """The in-place passes with two-level twiddles, forward plan_16 or its
+    reverse (the inverse's plan), on one plane, each pass writing under its
+    PassSwizzle and the next reading it, against numpy's DFT of the same
+    sign; no two writes of a pass land on one word and every access of a
+    warp is free of bank conflicts."""
+    plan = plan_16(N)[::-1] if sign > 0 else plan_16(N)
+    u = _signal(N + sign, (2, N))
+    buf = np.empty((2, 2, N), np.float32)
+    buf[:, 0] = u.real
+    buf[:, 1] = u.imag
+    tl = two_level(N)
+    log = []
+    lin = lambda e: e
+    for R, P in zip(plan, strides(plan)):
+        out = pass_swizzle(P, R)
+        inplace_pass(buf, R, P, N, sign, tl, lin, out, log)
+        lin = out
+    got = buf[:, 0, lin(np.arange(N))] + 1j * buf[:, 1, lin(np.arange(N))]
+    want = (np.fft.fft if sign < 0 else
+            lambda a, axis: N * np.fft.ifft(a, axis=axis))(
+                u.astype(np.complex128), axis=1)
+    assert np.abs(got - want).max() <= 2e-6 * np.abs(want).max()
+    for kind, a in log:
+        bank_check(a, (N, sign, kind))
+
+
+@pytest.mark.parametrize("N", [1024, 4096, 16384])
+def test_two_level_twiddles_against_float64(N):
+    """Every twiddle the in-place passes use, looked up or formed by the
+    products of twiddle_item, against exp(-2 pi i r k / (P R)) in float64:
+    within 3e-7 (2.4e-7 at worst, at 16384: up to four looked-up powers in
+    one product, each a product of two entries rounded once); a lookup alone
+    within 1.5e-7 (1.2e-7 at worst)."""
+    tl = two_level(N)
+    m = np.arange(N)
+    re, im = tw_lookup(tl, m, -1)
+    exact = np.exp(-2j * np.pi * m / N)
+    assert np.abs(re + 1j * im - exact).max() <= 1.5e-7
+    worst = 0.0
+    for R, P in zip(plan_16(N), strides(plan_16(N))):
+        if P == 1:
+            continue
+        k = np.arange(P)
+        w = item_twiddles(tl, R, P, N, k, -1)
+        for r in range(1, R):
+            exact = np.exp(-2j * np.pi * r * k / (P * R))
+            worst = max(worst, np.abs(w[r][0] + 1j * w[r][1] - exact).max())
+    assert worst <= 3e-7, worst
