@@ -69,12 +69,12 @@
 
 #include "cp_async.cuh"
 #include "fft_core.cuh"
+#include "persistent.cuh"
 
 namespace {
 
 constexpr int kMinLog2 = 10;   // fft_len 1024
 constexpr int kMaxLog2 = 14;   // fft_len 16384
-constexpr int kMaxDevices = 64;
 
 // Element e of the staging plane.
 struct Natural {
@@ -292,31 +292,13 @@ int launch(const float* xr, const float* xi, const float* h, float* yr,
            float* yi, long long n, int L, int pad, long long lim,
            long long shift, cudaStream_t stream) {
   using G = Geo<LOG2N>;
-  // Resident blocks an SM, found at the first launch on each device.
-  static int per_sm[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int resident = 0;
+  const cudaError_t e = persistent::grid(
+      reinterpret_cast<const void*>(overlap_save_blocks<LOG2N, LINEAR>),
+      G::kThreads, static_cast<int>(G::kSmem), &resident);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
-  if (per_sm[dev] == 0) {
-    if (G::kSmem > 48 * 1024) {
-      e = cudaFuncSetAttribute(overlap_save_blocks<LOG2N, LINEAR>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(G::kSmem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    int blocks = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, overlap_save_blocks<LOG2N, LINEAR>, G::kThreads, G::kSmem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    int sms = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    per_sm[dev] = blocks * sms;
-  }
   const long long nb = (lim + L - 1) / L;
-  const long long grid = nb < per_sm[dev] ? nb : per_sm[dev];
+  const long long grid = nb < resident ? nb : resident;
   overlap_save_blocks<LOG2N, LINEAR>
       <<<static_cast<unsigned>(grid), G::kThreads, G::kSmem, stream>>>(
           xr, xi, reinterpret_cast<const float2*>(h), yr, yi, n, L, pad,

@@ -66,24 +66,36 @@
 // arithmetic, ~5 N log2 N flops (0.46 GFLOP), is ~7 us of FP32.  The TPU
 // kernel kept the stage-1 result B, both (n1, n2) planes (32 MiB at 2^22),
 // in VMEM.  On Hopper it cannot stay on chip, so stage 1 writes B*T once
-// (32 MiB) and the row kernel above, launched without its twiddle, reads
-// it: two kernels on one stream,
-//   stage 1: one block per panel of 16 adjacent columns, all n1 rows in
-//            shared memory (16 KiB at n1 = 128): a radix-2 FP32 FFT down
-//            the columns for a power-of-two n1, a direct DFT sum over a
-//            table of n1 roots otherwise, then T and one store of B*T;
+// (32 MiB, which the 50 MB L2 can hold as the row stage reads it next) and
+// the row kernel above reads it: two kernels on one stream,
+//   stage 1: for a power-of-two n1 (the main path: n1 = 128),
+//            stage1_panels<LOG2_N1>, compiled for each n1: persistent
+//            blocks walk panels of NC adjacent columns (NC = 4096 / n1,
+//            32 at n1 = 128, so each row segment is 128 bytes; 128 for n1
+//            <= 32), all n1 rows in shared memory.  A panel arrives by
+//            16-byte cp.async copies, all in flight together, into the
+//            conflict-free ColLayout of the row kernel's step 1, while the
+//            panel before it transforms (three buffers of 32 KiB, two
+//            blocks an SM); the column FFT is fft_core::run_16 (128 =
+//            16.8: two register-resident passes), and the panel leaves as
+//            whole 16-byte words, NC * 4 bytes a row.  A non-power-of-two
+//            n1 takes stage1_direct: panels of 16 columns and the direct
+//            DFT sum over a table of n1 roots.  Either applies the big
+//            twiddle T[k1, j] = A[k1, j1] * B[k1, j2] before its store,
+//            from the factored planes that K1 reads (0.4 MiB at 2^22);
 //   rows:    the cluster kernel, untwiddled.
-// T is computed per element with double sincospi and rounded once to
-// float (within one float rounding of numpy's complex128 exp rounded to
-// complex64, the plain version's T) instead of reading the dense (n1, n2)
-// planes: that saves 32 MiB of reads and the caller's 32 MiB of
-// constants at the cost of ~4M double sincospi at 2^22.  Error grade: f32,
-// as K1 (no tensor cores: TF32 would round to ~1e-3).
+// Every twiddle comes from a table rounded once from double: no sincospi
+// per element.  Stage 1 applies T because the other design, T left to the
+// row kernel on load as K1 does, is slower on the H100: its in-place T
+// pass is a phase of its own (probes/phase_cuts.py K2 times both, and the
+// row stage after stage 1 and after an L2 flush).  Error grade: f32, as
+// K1 (no tensor cores: TF32 would round to ~1e-3).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "cp_async.cuh"
 #include "fft_core.cuh"
+#include "persistent.cuh"
 
 namespace {
 
@@ -94,7 +106,7 @@ constexpr int kRowWords = 129; // a 128-point row of step 2, padded
 constexpr int kBatch = 8;      // gather loads in flight per thread
 constexpr int kSmemPerSM = 233472;   // bytes of shared memory an SM holds
 constexpr int kSmemReserved = 1024;  // bytes the runtime keeps per block
-constexpr int kColsS = 16;     // columns per stage-1 block
+constexpr int kColsS = 16;     // columns per stage1_direct block
 constexpr int kThreadsS = 256;
 
 // exp(-2 pi i k / n), rounded once from double.
@@ -104,29 +116,16 @@ __device__ __forceinline__ float2 unit_root(long long k, long long n) {
   return make_float2(static_cast<float>(c), static_cast<float>(s));
 }
 
-// One in-place radix-2 decimation-in-time stage over `count` butterflies
-// of `cols` interleaved transforms of length 2^log2n held column-major in
-// (sr, si): element i of transform t sits at i * cols + t.
-__device__ __forceinline__ void dit_stage(float* sr, float* si,
-                                          const float2* tw, int s,
-                                          int log2n, int cols, int count) {
-  const int half = 1 << s;
-  for (int b = threadIdx.x; b < count; b += blockDim.x) {
-    const int t = b % cols;
-    const int q = b / cols;              // butterfly index in [0, n/2)
-    const int pos = q & (half - 1);
-    const int i0 = (((q >> s) << (s + 1)) + pos) * cols + t;
-    const int i1 = i0 + half * cols;
-    const float2 w = tw[pos << (log2n - 1 - s)];
-    const float ur = sr[i0], ui = si[i0];
-    const float xr = sr[i1], xi = si[i1];
-    const float vr = xr * w.x - xi * w.y;
-    const float vi = xr * w.y + xi * w.x;
-    sr[i0] = ur + vr;
-    si[i0] = ui + vi;
-    sr[i1] = ur - vr;
-    si[i1] = ui - vi;
-  }
+// v * T with T = a * b, a = A[k1, j >> 7] and b = B[k1, j & 127] of the
+// factored planes (A: (n1, L2), B: (n1, 128)): the row kernel's T on load
+// and stage 1's before its store.
+__device__ __forceinline__ void twiddle(float& vr, float& vi, float ar,
+                                        float ai, float br, float bi) {
+  const float tr = ar * br - ai * bi;
+  const float ti = ar * bi + ai * br;
+  const float r = vr * tr - vi * ti;
+  vi = vr * ti + vi * tr;
+  vr = r;
 }
 
 // The row kernel's geometry for L2 = 2^LOG2_L2 (cols_per_block and
@@ -252,12 +251,7 @@ rowfft_cluster(const float* __restrict__ br, const float* __restrict__ bi,
     for (int j1 = threadIdx.x >> log2nc; j1 < L2;
          j1 += blockDim.x >> log2nc) {
       const int a = col.word(j1, t);
-      const float ar = tar[k1 * L2 + j1], ai = tai[k1 * L2 + j1];
-      const float tr = ar * b_r - ai * b_i;
-      const float ti = ar * b_i + ai * b_r;
-      const float vr = xr[a], vi = xi[a];
-      xr[a] = vr * tr - vi * ti;
-      xi[a] = vr * ti + vi * tr;
+      twiddle(xr[a], xi[a], tar[k1 * L2 + j1], tai[k1 * L2 + j1], b_r, b_i);
     }
     __syncthreads();
   }
@@ -315,69 +309,165 @@ rowfft_cluster(const float* __restrict__ br, const float* __restrict__ bi,
   }
 }
 
-// Stage 1 of the DIF four-step for one panel of kColsS adjacent columns
-// j = c0 + t of the (n1, n2) planes A:
-//     C[k1, j] = w_N^(k1 j) * sum_j1 w_n1^(k1 j1) A[j1, j],  N = n1 n2,
-// stored as the (n1, n2) planes cr, ci.  log2_n1 >= 0 takes the radix-2
-// FFT (n1 = 2^log2_n1); log2_n1 < 0 the direct sum over n1 roots.
+// Stage 1's geometry for n1 = 2^LOG2_N1 (stage1_geometry in
+// kernels/spectrum_cuda.py mirrors it): panels of NC columns, NC = 4096 /
+// n1 (at most 128), so that a buffer holds 4096 complex values (32 KiB);
+// three buffers of two planes (a panel in flight, the panel that
+// transforms, the passes' other buffer) and the pass tables.
+template <int LOG2_N1>
+struct Stage1Geometry {
+  static constexpr int kN1 = 1 << LOG2_N1;
+  static constexpr int kNC = kN1 <= 32 ? 128 : 4096 / kN1;
+  static constexpr int kLog2NC = fft_core::ilog2(kNC);
+  static constexpr int kMask = kNC < 32 ? 32 / kNC - 1 : 0;
+  static constexpr int kWords = kN1 * kNC;     // one plane of one buffer
+  static constexpr int kBuffers = 3;
+  static constexpr int kTables =
+      fft_core::table_entries(fft_core::plan_16(LOG2_N1));
+  static constexpr int kSmem = kBuffers * 8 * kWords + 8 * kTables;
+  static constexpr int kThreads = 256;
+  static_assert(kSmem <= 232448, "a block's shared memory");
+};
+
+// Starts copying the (n1, NC) panel of columns c0 .. c0 + NC - 1 of the
+// planes (ar, ai) into (xr, xi) at col.word(j1, t): 16-byte cp.async
+// copies, NC / 4 to a row, all in flight together.
+template <class G, class Layout>
+__device__ __forceinline__ void load_panel(const Layout& col,
+                                           const float* __restrict__ ar,
+                                           const float* __restrict__ ai,
+                                           float* xr, float* xi, int n2,
+                                           int c0) {
+  constexpr int kPerRow = G::kNC >> 2;
+  constexpr int kChunks = G::kN1 * kPerRow;
+  for (int q = threadIdx.x; q < 2 * kChunks; q += blockDim.x) {
+    const int plane = q >= kChunks;
+    const int c = q - plane * kChunks;
+    const int j1 = c / kPerRow;
+    const int m = (c - j1 * kPerRow) << 2;
+    const size_t g = static_cast<size_t>(j1) * n2 + c0 + m;
+    cp_async::copy16((plane ? xi : xr) + col.word(j1, m),
+                     (plane ? ai : ar) + g);
+  }
+  cp_async::commit();
+}
+
+// Stage 1 of the DIF four-step for a power-of-two n1, persistent blocks
+// over the panels of NC adjacent columns j = c0 + t of the (n1, n2) planes
+// A:  C[k1, j] = sum_j1 w_n1^(k1 j1) A[j1, j] times w_N^(k1 j), stored
+// as the (n1, n2) planes cr, ci.  Each block stages its next panel while
+// the current one transforms.
+template <int LOG2_N1>
+__global__ void __launch_bounds__(Stage1Geometry<LOG2_N1>::kThreads, 2)
+stage1_panels(const float* __restrict__ ar, const float* __restrict__ ai,
+              const float* __restrict__ tar, const float* __restrict__ tai,
+              const float* __restrict__ tbr, const float* __restrict__ tbi,
+              float* __restrict__ cr, float* __restrict__ ci, int n2) {
+  using G = Stage1Geometry<LOG2_N1>;
+  constexpr int nc = G::kNC;
+  constexpr int words = G::kWords;
+  constexpr int per_row = nc >> 2;
+  const ColLayout<G::kLog2NC, G::kMask> col{};
+  extern __shared__ float4 smem4[];
+  float* bufs = reinterpret_cast<float*>(smem4);   // buffer b at 2 b words
+  float* yr = bufs + 2 * (G::kBuffers - 1) * words;
+  float* yi = yr + words;
+  float2* tw = reinterpret_cast<float2*>(bufs + 2 * G::kBuffers * words);
+  constexpr fft_core::Plan plan = fft_core::plan_16(LOG2_N1);
+  fft_core::fill_tables<-1>(tw, plan);
+
+  const int panels = n2 / nc;
+  const int L2 = n2 >> 7;
+  int cur = 0;
+  if (static_cast<int>(blockIdx.x) < panels) {
+    load_panel<G>(col, ar, ai, bufs, bufs + words, n2, blockIdx.x * nc);
+  }
+  for (int p = blockIdx.x; p < panels; p += gridDim.x) {
+    float* xr = bufs + 2 * cur * words;
+    float* xi = xr + words;
+    cp_async::wait_all();
+    __syncthreads();
+    if (p + static_cast<int>(gridDim.x) < panels) {
+      float* nr = bufs + 2 * (cur ^ 1) * words;   // free since the barrier
+      load_panel<G>(col, ar, ai, nr, nr + words, n2,
+                    (p + gridDim.x) * nc);
+    }
+    const int in_y = fft_core::run_16<-1, LOG2_N1>(col, xr, xi, yr, yi, tw,
+                                                   nc);
+    const float* dr = in_y ? yr : xr;    // C[k1, c0 + t] at col.word(k1, t)
+    const float* di = in_y ? yi : xi;
+    // Whole 16-byte words: rows of NC floats, 128 bytes at n1 = 128.  A
+    // panel lies within one j1 = c0 >> 7, so a word's four T share a.
+    const int c0 = p * nc;
+    for (int q = threadIdx.x; q < G::kN1 * per_row; q += blockDim.x) {
+      const int k1 = q / per_row;
+      const int m = (q - k1 * per_row) << 2;
+      const int a = col.word(k1, m);
+      float4 vr = *reinterpret_cast<const float4*>(dr + a);
+      float4 vi = *reinterpret_cast<const float4*>(di + a);
+      const int j = c0 + m;
+      const float a_r = __ldg(tar + k1 * L2 + (j >> 7));
+      const float a_i = __ldg(tai + k1 * L2 + (j >> 7));
+      const float4 b_r = __ldg(reinterpret_cast<const float4*>(
+          tbr + k1 * kLanes + (j & 127)));
+      const float4 b_i = __ldg(reinterpret_cast<const float4*>(
+          tbi + k1 * kLanes + (j & 127)));
+      twiddle(vr.x, vi.x, a_r, a_i, b_r.x, b_i.x);
+      twiddle(vr.y, vi.y, a_r, a_i, b_r.y, b_i.y);
+      twiddle(vr.z, vi.z, a_r, a_i, b_r.z, b_i.z);
+      twiddle(vr.w, vi.w, a_r, a_i, b_r.w, b_i.w);
+      const size_t g = static_cast<size_t>(k1) * n2 + c0 + m;
+      *reinterpret_cast<float4*>(cr + g) = vr;
+      *reinterpret_cast<float4*>(ci + g) = vi;
+    }
+    cur ^= 1;
+  }
+}
+
+// Stage 1 for any n1 (the non-power-of-two ones: 24, 40, ..., 1016), one
+// block per panel of kColsS columns:  C[k1, j] = sum_j1 w_n1^(k1 j1 mod
+// n1) A[j1, j] over a table of n1 roots, times w_N^(k1 j).
 __global__ void __launch_bounds__(kThreadsS)
-fourstep_stage1(const float* __restrict__ ar, const float* __restrict__ ai,
-                float* __restrict__ cr, float* __restrict__ ci,
-                int n1, int n2, int log2_n1) {
+stage1_direct(const float* __restrict__ ar, const float* __restrict__ ai,
+              const float* __restrict__ tar, const float* __restrict__ tai,
+              const float* __restrict__ tbr, const float* __restrict__ tbi,
+              float* __restrict__ cr, float* __restrict__ ci, int n1,
+              int n2) {
   extern __shared__ float smem[];
   float* sr = smem;
   float* si = sr + n1 * kColsS;
   float2* tw = reinterpret_cast<float2*>(si + n1 * kColsS);
-  const bool radix2 = log2_n1 >= 0;
   const int c0 = blockIdx.x * kColsS;
   const int total = n1 * kColsS;
-
-  for (int k = threadIdx.x; k < (radix2 ? n1 / 2 : n1); k += blockDim.x) {
-    tw[k] = unit_root(k, n1);
-  }
-  // Load the (n1, 16) panel, bit-reversed along j1 for the in-place DIT.
+  for (int k = threadIdx.x; k < n1; k += blockDim.x) tw[k] = unit_root(k, n1);
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int j1 = idx / kColsS;
-    const int t = idx % kColsS;
-    const size_t g = static_cast<size_t>(j1) * n2 + c0 + t;
-    const int r = radix2 ? __brev(j1) >> (32 - log2_n1) : j1;
-    sr[r * kColsS + t] = ar[g];
-    si[r * kColsS + t] = ai[g];
+    const size_t g = static_cast<size_t>(idx / kColsS) * n2 + c0
+        + idx % kColsS;
+    sr[idx] = ar[g];
+    si[idx] = ai[g];
   }
   __syncthreads();
-  if (radix2) {
-    for (int s = 0; s < log2_n1; ++s) {
-      dit_stage(sr, si, tw, s, log2_n1, kColsS, (n1 / 2) * kColsS);
-      __syncthreads();
-    }
-  }
-  const long long N = static_cast<long long>(n1) * n2;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int k1 = idx / kColsS;
     const int t = idx % kColsS;
-    float xr, xi;
-    if (radix2) {
-      xr = sr[idx];
-      xi = si[idx];
-    } else {
-      // sum_j1 A[j1] w_n1^(k1 j1 mod n1), the exponent kept below n1.
-      xr = 0.0f;
-      xi = 0.0f;
-      int m = 0;
-      for (int j1 = 0; j1 < n1; ++j1) {
-        const float2 w = tw[m];
-        const float a_r = sr[j1 * kColsS + t], a_i = si[j1 * kColsS + t];
-        xr += a_r * w.x - a_i * w.y;
-        xi += a_r * w.y + a_i * w.x;
-        m += k1;
-        if (m >= n1) m -= n1;
-      }
+    // sum_j1 A[j1] w_n1^(k1 j1 mod n1), the exponent kept below n1.
+    float xr = 0.0f, xi = 0.0f;
+    int m = 0;
+    for (int j1 = 0; j1 < n1; ++j1) {
+      const float2 w = tw[m];
+      const float a_r = sr[j1 * kColsS + t], a_i = si[j1 * kColsS + t];
+      xr += a_r * w.x - a_i * w.y;
+      xi += a_r * w.y + a_i * w.x;
+      m += k1;
+      if (m >= n1) m -= n1;
     }
     const int j = c0 + t;
-    const float2 T = unit_root(static_cast<long long>(k1) * j, N);
-    const size_t g = static_cast<size_t>(k1) * n2 + j;
-    cr[g] = xr * T.x - xi * T.y;
-    ci[g] = xr * T.y + xi * T.x;
+    const int L2 = n2 >> 7;
+    twiddle(xr, xi, tar[k1 * L2 + (j >> 7)], tai[k1 * L2 + (j >> 7)],
+            tbr[k1 * kLanes + (j & 127)], tbi[k1 * kLanes + (j & 127)]);
+    const size_t g = static_cast<size_t>(k1) * n2 + c0 + t;
+    cr[g] = xr;
+    ci[g] = xi;
   }
 }
 
@@ -448,6 +538,27 @@ cudaError_t launch_rows(const float* br, const float* bi, const float* tar,
 #undef ROWFFT_L2
 }
 
+// Stage 1 for n1 = 2^LOG2_N1 on `s`: persistent blocks, as many as fit
+// the card, over the n2 / NC panels.
+template <int LOG2_N1>
+cudaError_t launch_stage1(const float* ar, const float* ai, const float* tar,
+                          const float* tai, const float* tbr,
+                          const float* tbi, float* cr, float* ci, int n2,
+                          cudaStream_t s) {
+  using G = Stage1Geometry<LOG2_N1>;
+  auto* kernel = stage1_panels<LOG2_N1>;
+  int resident = 0;
+  const cudaError_t e = persistent::grid(
+      reinterpret_cast<const void*>(kernel), G::kThreads, G::kSmem,
+      &resident);
+  if (e != cudaSuccess) return e;
+  const int panels = n2 / G::kNC;
+  const int grid = panels < resident ? panels : resident;
+  kernel<<<grid, G::kThreads, G::kSmem, s>>>(ar, ai, tar, tai, tbr, tbi, cr,
+                                              ci, n2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -466,31 +577,45 @@ int rowfft_mag_launch(const float* br, const float* bi,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Launches stage 1 and the row stage (untwiddled) on `stream`: the
-// (n1, L2, 128) magnitudes of the four-step spectrum of the (n1, n2 =
-// L2 * 128) planes ar, ai.  cr/ci are (n1, n2) scratch planes for B*T,
-// wr/wi the (L2, 128) inner twiddle; all allocated by the caller, cr and
-// ci 16-byte aligned.  Returns the cudaError_t of the launches (0 on
-// success); does not synchronise.
+// Launches stage 1 and the row stage on `stream`: the (n1, L2, 128)
+// magnitudes of the four-step spectrum of the (n1, n2 = L2 * 128) planes
+// ar, ai.  tar..tbi: the factored big twiddle (A: (n1, L2), B: (n1, 128)),
+// wr/wi the (L2, 128) inner twiddle, cr/ci (n1, n2) scratch planes for
+// stage 1's result; all allocated by the caller, ar, ai, tbr, tbi, cr and
+// ci 16-byte aligned (stage 1 reads B as float4).  Returns the
+// cudaError_t of the launches (0 on success); does not synchronise.
 int fourstep_mag_fused_launch(const float* ar, const float* ai,
+                              const float* tar, const float* tai,
+                              const float* tbr, const float* tbi,
                               const float* wr, const float* wi,
                               float* cr, float* ci, float* out, int n1,
                               int L2, int shift_cols, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n2 = L2 * kLanes;
-  const int log2_n1 = log2_exact(n1);
-  const int smem_s = static_cast<int>(
-      2 * n1 * kColsS * sizeof(float)
-      + (log2_n1 >= 0 ? n1 / 2 : n1) * sizeof(float2));
-  cudaError_t e = set_smem(fourstep_stage1, smem_s);
+  cudaError_t e;
+#define STAGE1_N1(LOG2)                                                     \
+  case LOG2:                                                                \
+    e = launch_stage1<LOG2>(ar, ai, tar, tai, tbr, tbi, cr, ci, n2, s);     \
+    break;
+  switch (log2_exact(n1)) {
+    STAGE1_N1(3) STAGE1_N1(4) STAGE1_N1(5) STAGE1_N1(6) STAGE1_N1(7)
+    STAGE1_N1(8) STAGE1_N1(9) STAGE1_N1(10)
+    default: {
+      if (n1 < 1 || n1 > 1024) return static_cast<int>(cudaErrorInvalidValue);
+      const int smem = static_cast<int>(2 * n1 * kColsS * sizeof(float)
+                                        + n1 * sizeof(float2));
+      e = set_smem(stage1_direct, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      stage1_direct<<<n2 / kColsS, kThreadsS, smem, s>>>(
+          ar, ai, tar, tai, tbr, tbi, cr, ci, n1, n2);
+      e = cudaGetLastError();
+    }
+  }
+#undef STAGE1_N1
   if (e != cudaSuccess) return static_cast<int>(e);
-  fourstep_stage1<<<n2 / kColsS, kThreadsS, smem_s, s>>>(ar, ai, cr, ci, n1,
-                                                          n2, log2_n1);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(launch_rows(
-      cr, ci, nullptr, nullptr, nullptr, nullptr, wr, wi, out, n1, L2,
-      shift_cols, s));
+  return static_cast<int>(launch_rows(cr, ci, nullptr, nullptr, nullptr,
+                                      nullptr, wr, wi, out, n1, L2,
+                                      shift_cols, s));
 }
 
 const char* rowfft_mag_error_string(int code) {

@@ -76,6 +76,14 @@ def _raw_stream(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
+def aligned(p: torch.Tensor) -> torch.Tensor:
+    """``p`` contiguous at a 16-byte aligned address, for a kernel that
+    reads it in 16-byte pieces (cp.async, float4): a copy only where it is
+    not (a view at an odd offset)."""
+    p = p.contiguous()
+    return p if p.data_ptr() % 16 == 0 else p.clone()
+
+
 def launch(dev, fn, *args) -> int:
     """Calls the C entry ``fn(*args, stream)``, ``stream`` the current
     stream of ``dev``, and returns its code.  Enters ``dev``'s device

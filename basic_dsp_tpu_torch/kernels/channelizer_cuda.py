@@ -208,10 +208,7 @@ def _lib() -> ctypes.CDLL:
 def _launch(xr, xi, taps, C, S, tp1, demod, prefix):
     """Runs ``csrc/channelizer.cu`` on float32 CUDA planes."""
     lib = _lib()
-    xr, xi = xr.contiguous(), xi.contiguous()
-    if xr.data_ptr() % 16 or xi.data_ptr() % 16:
-        # the kernel copies rows in 16-byte pieces (cp.async)
-        xr, xi = xr.clone(), xi.clone()
+    xr, xi = _build.aligned(xr), _build.aligned(xi)
     taps = taps.to(torch.float32).contiguous()
     # the contiguous planes stay referenced until the launch is queued
     held = () if prefix is None else tuple(p.contiguous() for p in prefix)

@@ -173,13 +173,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _aligned(p: torch.Tensor) -> torch.Tensor:
-    """``p`` contiguous at a 16-byte aligned address (the kernel copies
-    16-byte chunks with cp.async): a copy only where it is not."""
-    p = p.contiguous()
-    return p if p.data_ptr() % 16 == 0 else p.clone()
-
-
 def _route(dev: torch.device) -> bool:
     """True for a CUDA device, False for the CPU; raises for any other."""
     if dev.type == "cuda":
@@ -211,9 +204,9 @@ def conv_blocks_cuda(xr, xi, H, m_eff: int, fft_len: int,
             or H.device != xr.device:
         raise ValueError(f"H: expected ({fft_len},) complex64 on "
                          f"{xr.device}")
-    xr = _aligned(xr)
-    xi = None if xi is None else _aligned(xi)
-    H = _aligned(H)
+    xr = _build.aligned(xr)
+    xi = None if xi is None else _build.aligned(xi)
+    H = _build.aligned(H)
     y = torch.empty((2 if imag else 1, lim), dtype=torch.float32,
                     device=xr.device)
     lib = _lib()

@@ -9,10 +9,11 @@ Both wrappers compute, for each row of a (rows, n) real signal::
 
 :func:`resample_direct_cuda` serves the geometries of the JAX package's K4
 branch, :func:`resample_rowblock_cuda` those of its row-block branch
-(Q >= 64).  For a float32 CUDA tensor both launch the one kernel of
-``csrc/resample.cu`` (a direct FP32 stencil over a window staged in shared
-memory), each adding one to its own ``launches``; a failed build or launch
-raises.  For a CPU tensor each runs its plain PyTorch version:
+(Q >= 64).  For a float32 CUDA tensor both launch ``csrc/resample.cu``
+(runs of outputs over a register window with broadcast taps, or for tap
+rows longer than 32 the direct stencil), each adding one to its own
+``launches``; a failed build or launch raises.  For a CPU tensor each
+runs its plain PyTorch version:
 :func:`resample_direct_plain` (JAX's XLA band path, windows @ M) and
 :func:`resample_rowblock_plain` (JAX's row-block form, sum_r V[j+r] @ M_r).
 The plain versions also take float64, which the dispatch sends them on any
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -33,6 +35,12 @@ SMEM_MAX = 200 * 1024      # shared memory a CUDA block may take (bytes)
 SMEM_TAPS_MAX = 96 * 1024  # taps and offs are staged in shared memory
                            # up to this; beyond it they are read from
                            # device memory
+# resample_runs (csrc/resample.cu)
+RUN_WIDTHS = (8, 16, 24, 32)   # the register windows compiled
+RUN_OUTPUTS = 16               # outputs a run covers at least, P <= 32
+RUN_PHASES = 24                # phases a group covers at most, P > 32
+RUN_SMEM_MAX = 96 * 1024       # two blocks an SM at least
+WARPS = 8
 
 
 def _check(rows, taps, P: int, Q: int, offs, L: int, out_len: int,
@@ -48,21 +56,33 @@ def _check(rows, taps, P: int, Q: int, offs, L: int, out_len: int,
     if tuple(taps.shape) != (P, 2 * L + 1):
         raise ValueError(f"taps: expected shape {(P, 2 * L + 1)}, got "
                          f"{tuple(taps.shape)}")
-    if len(offs) != P or not _offs_in_range(tuple(offs), Q):
+    return _offsets(P, Q, offs)
+
+
+_OFFSETS = {}
+
+
+def _offsets(P: int, Q: int, offs) -> list:
+    """Checks ``offs`` (P ints in [0, Q)) and returns its record [offs,
+    values, {device: int32 tensor}, {L: launch geometry}], the one cache of
+    the launch's constants.  A tuple is checked once: its record is kept by
+    identity (``interp_ops.polyphase_taps`` hands out one tuple for each
+    (P, Q)), so a call that repeats it hashes nothing (a 160-entry tuple
+    costs microseconds to hash), builds no geometry and copies nothing to
+    the device."""
+    key = (P, Q, id(offs))
+    hit = _OFFSETS.get(key)
+    if hit is not None and hit[0] is offs:
+        return hit
+    values = tuple(int(o) for o in offs)
+    if len(values) != P or not all(0 <= o < Q for o in values):
         raise ValueError(f"offs: expected {P} offsets in [0, {Q})")
-
-
-@functools.lru_cache(maxsize=256)
-def _offs_in_range(offs: tuple, Q: int) -> bool:
-    return all(0 <= int(o) < Q for o in offs)
-
-
-def _taps_on(taps, rows: torch.Tensor) -> torch.Tensor:
-    """Taps (tensor or numpy) in the rows' dtype on their device, rounded
-    once (lin/hermite build float64 numpy taps)."""
-    if not isinstance(taps, torch.Tensor):
-        taps = torch.from_numpy(np.ascontiguousarray(taps))
-    return taps.to(device=rows.device, dtype=rows.dtype).contiguous()
+    record = [offs, values, {}, {}]
+    if isinstance(offs, tuple):
+        if len(_OFFSETS) >= 256:
+            _OFFSETS.clear()
+        _OFFSETS[key] = record
+    return record
 
 
 def _circular(rows: torch.Tensor, k: int, need: int) -> torch.Tensor:
@@ -128,8 +148,7 @@ def _rowblock_sum(V: torch.Tensor, mats, splits, nrows: int) -> torch.Tensor:
 
 
 def _rowblock_split(P: int, Q: int, L: int, n: int):
-    from ..ops import interp_ops
-    g = interp_ops._rowblock_geometry(P, Q, L)
+    g = _interp_ops()._rowblock_geometry(P, Q, L)
     if g is None or g[1] > n:
         raise ValueError(f"no row-block geometry for P={P}, Q={Q}, L={L} "
                          f"at n={n}")
@@ -152,7 +171,6 @@ def resample_rowblock_plain(rows, taps, P: int, Q: int, offs, L: int,
     return _rowblock_sum(V, mats, splits, nrows)[:, :out_len]
 
 
-@functools.lru_cache(maxsize=256)
 def _tile_geometry(P: int, Q: int, L: int, offs: tuple):
     """(G, win, shared_taps) of a CUDA block: G output blocks of P outputs
     (about TILE_OUTPUTS outputs), a window of win = (G-1)*Q + max(offs) +
@@ -171,39 +189,123 @@ def _tile_geometry(P: int, Q: int, L: int, offs: tuple):
     return G, (G - 1) * Q + maxoff + T, shared_taps
 
 
-@functools.lru_cache(maxsize=64)
-def _device_offs(offs: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(offs, dtype=torch.int32, device=device)
+def run_smem(P: int, tw: int, KT: int, win: int) -> int:
+    """Shared bytes of resample_runs: two window buffers of win + 3 words
+    (the tile's alignment offset) rounded to 16 bytes, the (P, tw) taps,
+    the tile's KT * P outputs with a pad word every 32, and P steps."""
+    winw = (win + 3 + 3) & ~3
+    nout = KT * P
+    return 4 * (2 * winw + P * tw + nout + (nout >> 5) + 1) + 4 * P
+
+
+FIXED_K = 7          # output blocks a lane takes at one phase (Q <= 2)
+
+
+def _run_geometry(P: int, Q: int, L: int, offs: tuple):
+    """(tw, K, groups, KT, win) of resample_runs, or None when the direct
+    stencil takes the geometry (2L+1 > 32, or no tile fits).  tw: the
+    register window, the least of RUN_WIDTHS >= 2L+1.  Q <= 2: groups = 0,
+    a lane at one phase over K = FIXED_K output blocks, 8 // gcd(P, 8)
+    tasks of P phases a tile (so that the 8 warps share them evenly).  Q >
+    2, the phases walked: P <= 32, one group and runs of K output blocks (K
+    odd, K P >= RUN_OUTPUTS); P > 32, K = 1 and 8 * ceil(P / (8 *
+    RUN_PHASES)) groups, 8 // groups (at least 1) tasks a group.  A task
+    is a warp's 32 lanes, so a tile holds KT = 32 K tasks-a-group output
+    blocks; win = (KT-1)*Q + max(offs) + tw.  K, then the tasks a group,
+    halve until the block's shared memory fits RUN_SMEM_MAX."""
+    T = 2 * L + 1
+    tw = next((w for w in RUN_WIDTHS if w >= T), None)
+    if tw is None or 4 * P * (tw + 1) > SMEM_TAPS_MAX:
+        return None
+    if Q <= 2:
+        groups, K = 0, FIXED_K
+        per_group = WARPS // math.gcd(P, WARPS)
+    elif P <= 32:
+        groups, K = 1, -(-RUN_OUTPUTS // P) | 1
+        per_group = WARPS
+    else:
+        groups, K = 8 * -(-P // (8 * RUN_PHASES)), 1
+        per_group = max(1, WARPS // groups)
+    maxoff = max(int(o) for o in offs)
+    while True:
+        KT = 32 * K * per_group
+        win = (KT - 1) * Q + maxoff + tw
+        if run_smem(P, tw, KT, win) <= RUN_SMEM_MAX:
+            return tw, K, groups, KT, win
+        if K > 1 and groups:
+            K = max(1, K // 2) | 1 if K > 2 else 1
+        elif per_group > 1:
+            per_group //= 2
+        else:
+            return None
+
+
+def _launch_geometry(P: int, Q: int, L: int, offs: tuple) -> tuple:
+    """The arguments (tw, K, groups, KT, win, shared_taps) of
+    ``resample_launch``: resample_runs' geometry, or with tw = 0 the direct
+    stencil's (G output blocks a CUDA block as KT)."""
+    g = _run_geometry(P, Q, L, offs)
+    if g is not None:
+        return g + (1,)
+    G, win, shared_taps = _tile_geometry(P, Q, L, offs)
+    return 0, 1, 1, G, win, int(shared_taps)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_taps(taps_key, device: torch.device) -> torch.Tensor:
+    """Numpy taps (lin/hermite build float64 ones) on ``device`` in
+    float32, rounded once, built once for each ``interp_ops._taps_key``."""
+    return torch.from_numpy(_interp_ops()._keyed_taps(taps_key).copy()).to(
+        device=device, dtype=torch.float32)
+
+
+@functools.cache
+def _interp_ops():
+    """ops.interp_ops, imported at first use (it imports this module)."""
+    from ..ops import interp_ops
+    return interp_ops
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("resample")
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.resample_launch.argtypes = [vp] * 4 + [ll, ll] + [ci] * 7 + [vp]
+    lib.resample_launch.argtypes = [vp] * 4 + [ll, ll] + [ci] * 10 + [vp]
     lib.resample_launch.restype = ci
     lib.resample_error_string.argtypes = [ci]
     lib.resample_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(rows, taps, P, Q, offs, L, out_len) -> torch.Tensor:
-    """Runs ``csrc/resample.cu`` on the (R, n) f32 CUDA rows."""
+def _launch(rows, taps, P, Q, record, L, out_len) -> torch.Tensor:
+    """Runs ``csrc/resample.cu`` on the (R, n) f32 CUDA rows, ``record``
+    from :func:`_offsets`; a geometry seen before builds nothing on the
+    host but the output."""
     R, n = rows.shape
-    offs = tuple(offs)
-    G, win, shared_taps = _tile_geometry(P, Q, L, offs)
+    dev = rows.device
+    values = record[1]
+    geometry = record[3].get(L)
+    if geometry is None:
+        geometry = record[3][L] = _launch_geometry(P, Q, L, values)
+    o = record[2].get(dev)
+    if o is None:
+        o = record[2][dev] = torch.tensor(values, dtype=torch.int32,
+                                          device=dev)
     rows = rows.contiguous()
-    t = _taps_on(taps, rows)
-    o = _device_offs(offs, rows.device)
-    out = torch.empty((R, out_len), dtype=torch.float32, device=rows.device)
+    if isinstance(taps, torch.Tensor):
+        t = taps
+        if (t.device != dev or t.dtype is not torch.float32
+                or not t.is_contiguous()):
+            t = t.to(device=dev, dtype=torch.float32).contiguous()
+    else:
+        t = _device_taps(_interp_ops()._taps_key(taps), dev)
+    out = torch.empty((R, out_len), dtype=torch.float32, device=dev)
     if out_len == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = lib.resample_launch(
-            rows.data_ptr(), t.data_ptr(), o.data_ptr(), out.data_ptr(), n,
-            out_len, R, P, Q, L, G, win, int(shared_taps), stream)
+    rc = _build.launch(dev, lib.resample_launch, rows.data_ptr(),
+                       t.data_ptr(), o.data_ptr(), out.data_ptr(), n,
+                       out_len, R, P, Q, L, *geometry)
     if rc != 0:
         raise RuntimeError("resample kernel launch failed: "
                            + lib.resample_error_string(rc).decode())
@@ -225,10 +327,10 @@ def resample_direct_cuda(rows, taps, P: int, Q: int, offs, L: int,
     :func:`resample_direct_plain` (``c`` is its output-block factor; the
     kernel has no use for it); a CUDA tensor launches the kernel and adds
     one to ``resample_direct_cuda.launches``."""
-    _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
+    record = _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
     if _device_of(rows, "resample_direct_cuda") == "cpu":
         return resample_direct_plain(rows, taps, P, Q, offs, L, out_len, c)
-    out = _launch(rows, taps, P, Q, offs, L, out_len)
+    out = _launch(rows, taps, P, Q, record, L, out_len)
     resample_direct_cuda.launches += 1
     return out
 
@@ -243,11 +345,11 @@ def resample_rowblock_cuda(rows, taps, P: int, Q: int, offs, L: int,
     arguments and result as :func:`resample_direct_cuda`; a CPU tensor
     takes :func:`resample_rowblock_plain`, a CUDA tensor launches the
     kernel and adds one to ``resample_rowblock_cuda.launches``."""
-    _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
+    record = _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
     _rowblock_split(P, Q, L, rows.shape[-1])
     if _device_of(rows, "resample_rowblock_cuda") == "cpu":
         return resample_rowblock_plain(rows, taps, P, Q, offs, L, out_len)
-    out = _launch(rows, taps, P, Q, offs, L, out_len)
+    out = _launch(rows, taps, P, Q, record, L, out_len)
     resample_rowblock_cuda.launches += 1
     return out
 

@@ -6,8 +6,9 @@ four-step, applies the factored big twiddle, runs each row's length-n2
 FFT, folds the global fftshift into a 64-column rotation and returns
 magnitudes, in the layout (n1, L2, 128) of the JAX kernel's
 ``permuted=False`` output.  :func:`fourstep_mag_fused` (K2) takes the
-windowed planes before stage 1 and runs both stages, with the dense big
-twiddle, into the same layout.
+windowed planes before stage 1 and runs both stages into the same
+layout: a column-FFT kernel, then the row kernel with the factored big
+twiddle.
 
 For a CUDA tensor each launches ``csrc/rowfft_mag.cu`` (the source says
 how and why) or raises; for a CPU tensor it runs its plain PyTorch
@@ -133,7 +134,7 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rowfft_mag_launch.argtypes = [vp] * 9 + [ci, ci, ci, vp]
     lib.rowfft_mag_launch.restype = ci
-    lib.fourstep_mag_fused_launch.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.fourstep_mag_fused_launch.argtypes = [vp] * 11 + [ci, ci, ci, vp]
     lib.fourstep_mag_fused_launch.restype = ci
     lib.rowfft_mag_error_string.argtypes = [ci]
     lib.rowfft_mag_error_string.restype = ctypes.c_char_p
@@ -176,9 +177,7 @@ def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
         W = _held_twiddle(L2, n2, dev)
     _check_planes("W", W, [(L2, LANES)] * 2, dev)
     lib = _lib()
-    if Br.data_ptr() % 16 or Bi.data_ptr() % 16:
-        # the kernel copies its rows in 16-byte pieces (cp.async)
-        Br, Bi = Br.clone(), Bi.clone()
+    Br, Bi = _build.aligned(Br), _build.aligned(Bi)   # cp.async rows
     out = torch.empty((n1, L2, LANES), dtype=torch.float32, device=dev)
     tf = [p.data_ptr() for p in Tfac] if Tfac is not None else [None] * 4
     rc = _build.launch(
@@ -198,9 +197,30 @@ rowfft_mag.launches = 0
 def fused_supported(n1: int, n2: int) -> bool:
     """Geometries :func:`fourstep_mag_fused` takes: the row stage's n2
     (L2 = n2 / 128 a power of two in [2, 1024]) and, as JAX's kernel,
-    n1 a multiple of 8; n1 <= 1024 keeps stage 1's (n1, 16) column panel
-    in shared memory (128 KiB at n1 = 1024)."""
+    n1 a multiple of 8; n1 <= 1024 keeps stage 1's column panel in shared
+    memory (:func:`stage1_geometry`; the direct sum's (n1, 16) panel, 128
+    KiB at n1 = 1016)."""
     return supported(n1, n2) and n1 % 8 == 0 and 8 <= n1 <= 1024
+
+
+STAGE1_THREADS = 256
+STAGE1_BUFFERS = 3    # the panel in flight, the panel that transforms, and
+                      # the passes' other buffer
+
+
+def stage1_geometry(n1: int) -> tuple:
+    """(NC, mask, shared bytes) of stage 1 for a power-of-two n1
+    (``Stage1Geometry`` in csrc/rowfft_mag.cu, compiled for each n1):
+    panels of NC = 4096 / n1 columns (at most 128; 32 at n1 = 128, rows of
+    128 bytes), laid out as the row kernel's step 1 (``mask`` permutes rows
+    of fewer than 32 words within their bank line), three buffers of
+    n1 * NC complex values and the pass tables of ``radix_plan(n1)``."""
+    nc = LANES if n1 <= 32 else 4096 // n1
+    mask = 32 // nc - 1 if nc < 32 else 0
+    tables, p = 0, 1
+    for j, R in enumerate(radix_plan(n1)):
+        tables, p = tables + (p * R if j else 0), p * R
+    return nc, mask, STAGE1_BUFFERS * 8 * n1 * nc + 8 * tables
 
 
 @functools.lru_cache(maxsize=2)
@@ -218,6 +238,17 @@ def _dense_consts(n1: int, n2: int, device: torch.device):
         device)
 
 
+@functools.lru_cache(maxsize=8)
+def _held_factored(n1: int, n2: int, device: torch.device) -> tuple:
+    """The factored big twiddle planes (A: (n1, L2), B: (n1, 128)) of
+    ``fourstep._dif_twiddle_factored`` on ``device``, built once per
+    geometry and device, for a wrapper called without ``Tfac``."""
+    from ..ops import fourstep
+
+    return tuple(torch.from_numpy(p).to(device)
+                 for p in fourstep._dif_twiddle_factored(n1, n2))
+
+
 def fourstep_mag_fused_plain(Ar: torch.Tensor, Ai: torch.Tensor,
                              shift: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`fourstep_mag_fused`: stage 1 as the
@@ -232,16 +263,26 @@ def fourstep_mag_fused_plain(Ar: torch.Tensor, Ai: torch.Tensor,
     return rowfft_mag_plain(C.real.contiguous(), C.imag.contiguous(), shift)
 
 
+def _fused_operands(Ar, Ai, Tfac) -> tuple:
+    """Ar, Ai and Tfac as ``fourstep_mag_fused_launch`` reads them: stage 1
+    copies A's panels by 16-byte cp.async and reads the twiddle's B planes
+    (Tfac[2:]) as float4, so each of these starts 16-byte aligned (a copy
+    where a view does not)."""
+    return (_build.aligned(Ar), _build.aligned(Ai),
+            (*Tfac[:2], *map(_build.aligned, Tfac[2:])))
+
+
 def fourstep_mag_fused(Ar: torch.Tensor, Ai: torch.Tensor,
-                       shift: bool = True, W=None) -> torch.Tensor:
+                       shift: bool = True, W=None, Tfac=None) -> torch.Tensor:
     """|fftshift(FFT)| of the (n1, n2)-reshaped planar signal, both
-    four-step stages in one launch.
+    four-step stages in one call.
 
     Ar, Ai: the (n1, n2) float32 planes of the windowed signal, n1 * n2 =
     N, ``fused_supported(n1, n2)``.  ``W``: optional (Wr, Wi) inner-twiddle
-    planes (:func:`inner_twiddle`); built once and held when None.  Returns
-    (n1, L2, 128) f32 in :func:`rowfft_mag`'s layout (flatten with
-    :func:`natural_flatten`).  A CPU tensor takes
+    planes (:func:`inner_twiddle`), ``Tfac``: optional factored big twiddle
+    (Ar, Ai, Br, Bi) of ``fourstep._dif_twiddle_factored``; each built once
+    and held when None.  Returns (n1, L2, 128) f32 in :func:`rowfft_mag`'s
+    layout (flatten with :func:`natural_flatten`).  A CPU tensor takes
     :func:`fourstep_mag_fused_plain`; a CUDA tensor launches
     ``fourstep_mag_fused_launch`` (stage 1, then K1's row kernel) and adds
     one to ``fourstep_mag_fused.launches``, not to
@@ -263,15 +304,19 @@ def fourstep_mag_fused(Ar: torch.Tensor, Ai: torch.Tensor,
         raise ValueError(f"fourstep_mag_fused: no kernel for device {dev}")
     if W is None:
         W = _held_twiddle(L2, n2, dev)
+    if Tfac is None:
+        Tfac = _held_factored(n1, n2, dev)
     _check_planes("W", W, [(L2, LANES)] * 2, dev)
+    _check_planes("Tfac", Tfac, [(n1, L2)] * 2 + [(n1, LANES)] * 2, dev)
     lib = _lib()
+    Ar, Ai, Tfac = _fused_operands(Ar, Ai, Tfac)
     C = torch.empty((2, n1, n2), dtype=torch.float32, device=dev)
     out = torch.empty((n1, L2, LANES), dtype=torch.float32, device=dev)
     cr = C.data_ptr()
     rc = _build.launch(
         dev, lib.fourstep_mag_fused_launch, Ar.data_ptr(), Ai.data_ptr(),
-        W[0].data_ptr(), W[1].data_ptr(), cr, cr + 4 * n1 * n2,
-        out.data_ptr(), n1, L2, LANES // 2 if shift else 0)
+        *(p.data_ptr() for p in Tfac), W[0].data_ptr(), W[1].data_ptr(), cr,
+        cr + 4 * n1 * n2, out.data_ptr(), n1, L2, LANES // 2 if shift else 0)
     if rc != 0:
         raise RuntimeError("fourstep_mag_fused kernel launch failed: "
                            + lib.rowfft_mag_error_string(rc).decode())

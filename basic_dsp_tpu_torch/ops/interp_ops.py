@@ -38,6 +38,13 @@ def _real_dtype(x: torch.Tensor) -> torch.dtype:
     return x.dtype.to_real()
 
 
+@functools.lru_cache(maxsize=64)
+def _phase_offsets(P: int, Q: int) -> tuple:
+    """offs[p] = (p*Q) // P, one tuple for each (P, Q): the resampler's
+    wrappers key their constants by its identity."""
+    return tuple(int(o) for o in (np.arange(P) * Q) // P)
+
+
 def polyphase_taps(fun, P: int, Q: int, delay: float, L: int,
                    real_dtype: torch.dtype, device=None):
     """Per-phase tap vectors for the P/Q polyphase resampler, sampled in
@@ -52,7 +59,7 @@ def polyphase_taps(fun, P: int, Q: int, delay: float, L: int,
     device = config.resolve_device(device)
     p = np.arange(P)
     fracs = ((p * Q) % P) / P
-    offs = tuple(int(o) for o in (p * Q) // P)
+    offs = _phase_offsets(P, Q)
     s = torch.arange(-L, L + 1, dtype=real_dtype, device=device)
     f = torch.as_tensor(fracs, dtype=real_dtype, device=device)
     return fun.calc(s[None, :] - f[:, None] + delay), offs

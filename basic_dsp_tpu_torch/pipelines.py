@@ -12,8 +12,8 @@
    the card), then one transpose into spectrum order.
 
 With ``fused=True`` steps 3 and 4 are one launch,
-``kernels.spectrum_cuda.fourstep_mag_fused`` (stage 1, the dense big
-twiddle and the row stage).  :class:`FirFftChainPlanar` holds the chain's
+``kernels.spectrum_cuda.fourstep_mag_fused`` (stage 1, then the row stage
+with the factored big twiddle).  :class:`FirFftChainPlanar` holds the chain's
 constants as buffers, so a call computes and does not rebuild them.
 
 ``modulation_chain_planar`` (config #4) pulse-shapes two PRBS symbol
@@ -84,12 +84,13 @@ def _check_budget(budget):
 
 def _planar_chain(xr, xi, taps, bands, window, dft, Tfac, W, n1, n2):
     """The chain after its constants; ``dft`` None takes the fused
-    spectrum (``Tfac`` unused)."""
+    spectrum."""
     fr, fi = conv_ops.toeplitz_conv_planar(xr, xi, taps, bands)
     Ar = (fr * window).reshape(n1, n2)
     Ai = (fi * window).reshape(n1, n2)
     if dft is None:
-        M = spectrum_cuda.fourstep_mag_fused(Ar, Ai, shift=True, W=W)
+        M = spectrum_cuda.fourstep_mag_fused(Ar, Ai, shift=True, W=W,
+                                             Tfac=Tfac)
     else:
         Br, Bi = fourstep.stage1_planar(*dft, Ar, Ai)
         M = spectrum_cuda.rowfft_mag(Br, Bi, shift=True, Tfac=Tfac, W=W)
@@ -108,14 +109,14 @@ def _geometry(n: int, n1: int, fused: bool):
 
 def _constants(n1: int, n2: int, device, fused: bool):
     """(dft, Tfac, W) planes on ``device``; the fused kernel computes its
-    own stage 1 and twiddle, so it takes W alone (dft, Tfac None)."""
+    own stage 1, so it takes Tfac and W alone (dft None)."""
     W = spectrum_cuda.inner_twiddle(n2 // spectrum_cuda.LANES, n2, device)
-    if fused:
-        return None, None, W
-    dft = tuple(torch.from_numpy(p).to(device)
-                for p in fourstep._dft_planes(n1))
     Tfac = tuple(torch.from_numpy(p).to(device)
                  for p in fourstep._dif_twiddle_factored(n1, n2))
+    if fused:
+        return None, Tfac, W
+    dft = tuple(torch.from_numpy(p).to(device)
+                for p in fourstep._dft_planes(n1))
     return dft, Tfac, W
 
 
@@ -142,9 +143,9 @@ def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
 
 class FirFftChainPlanar(torch.nn.Module):
     """:func:`fir_fft_chain_planar` with its constants as buffers: the
-    Toeplitz band matrices, the window, the inner twiddle and, unless
-    ``fused``, the DFT-n1 Karatsuba planes and the factored big twiddle
-    (the fused kernel computes its own).  The signal length is the
+    Toeplitz band matrices, the window, the inner twiddle, the factored big
+    twiddle and, unless ``fused``, the DFT-n1 Karatsuba planes (the fused
+    kernel computes its own stage 1).  The signal length is the
     window's.  ``forward(xr, xi)`` returns the (n,) magnitude spectrum."""
 
     def __init__(self, taps: torch.Tensor, window: torch.Tensor,
@@ -162,8 +163,8 @@ class FirFftChainPlanar(torch.nn.Module):
         if not self.fused:
             for name, p in zip(("dft_r", "dft_p", "dft_m"), dft):
                 self.register_buffer(name, p)
-            for name, p in zip(("tw_ar", "tw_ai", "tw_br", "tw_bi"), Tfac):
-                self.register_buffer(name, p)
+        for name, p in zip(("tw_ar", "tw_ai", "tw_br", "tw_bi"), Tfac):
+            self.register_buffer(name, p)
         self.register_buffer("w_r", W[0])
         self.register_buffer("w_i", W[1])
 
@@ -172,11 +173,8 @@ class FirFftChainPlanar(torch.nn.Module):
         if xr.shape != (n,) or xi.shape != (n,):
             raise ValueError(f"expected two ({n},) planes, got "
                              f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-        if self.fused:
-            dft = Tfac = None
-        else:
-            dft = (self.dft_r, self.dft_p, self.dft_m)
-            Tfac = (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi)
+        dft = None if self.fused else (self.dft_r, self.dft_p, self.dft_m)
+        Tfac = (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi)
         return _planar_chain(xr, xi, self.taps, self.bands, self.window, dft,
                              Tfac, (self.w_r, self.w_i), self.n1, self.n2)
 

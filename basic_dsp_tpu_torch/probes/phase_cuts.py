@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of K1 (``csrc/rowfft_mag.cu``), K3
-(``csrc/overlap_save.cu``) and K6 (``csrc/channelizer.cu``) goes, on an
-NVIDIA GPU.
+"""Where the time of K1 and K2 (``csrc/rowfft_mag.cu``), K3
+(``csrc/overlap_save.cu``), K6 (``csrc/channelizer.cu``) and the
+resampler RS (``csrc/resample.cu``, K4 and K5) goes, on an NVIDIA GPU.
 
-    python3 basic_dsp_tpu_torch/probes/phase_cuts.py [K1] [K3] [K6]
+    python3 basic_dsp_tpu_torch/probes/phase_cuts.py [K1] [K2] [K3] [K6] [RS]
 
-(no argument: all three).
+(no argument: all five).
 Builds each kernel as it is and in variants with one phase cut out by an
 edit of its source (the edits are listed below; each must match the
 source, or the probe stops), then times every build at its main path's
 shape: CUDA events around 50 back-to-back launches through the C entry,
 after 3 warm-up launches.  The cuts change what the kernels compute: they
-only say how much device time a phase holds.  The variant sources and
-libraries go to ``basic_dsp_tpu_torch/_build/cuts/`` (git-ignored).
+only say how much device time a phase holds.  K2 also times its row stage
+alone, untwiddled as K2 launches it, once right after stage 1 (B*T in L2,
+as on the path) and once after a 64 MiB flush; its "T in the row stage"
+build is the other design, stage 1 a pure column FFT and the row kernel
+applying the factored twiddle on load, as K1 does.  The variant sources
+and libraries go to ``basic_dsp_tpu_torch/_build/cuts/`` (git-ignored).
 """
 import concurrent.futures
 import ctypes
@@ -80,6 +84,97 @@ K6_CUTS = {
 }
 
 
+K2_ROWS_OFF = ("  if (e != cudaSuccess) return static_cast<int>(e);\n"
+               "  return static_cast<int>(launch_rows(cr, ci,",
+               "  if (e != cudaSuccess) return static_cast<int>(e);\n"
+               "  if (n1 > 0) return 0;\n"
+               "  return static_cast<int>(launch_rows(cr, ci,")
+K2_NO_T = ("      twiddle(vr.x, vi.x, a_r, a_i, b_r.x, b_i.x);\n"
+           "      twiddle(vr.y, vi.y, a_r, a_i, b_r.y, b_i.y);\n"
+           "      twiddle(vr.z, vi.z, a_r, a_i, b_r.z, b_i.z);\n"
+           "      twiddle(vr.w, vi.w, a_r, a_i, b_r.w, b_i.w);", "")
+K2_CUTS = {
+    "as built": [],
+    "T in the row stage (design b)": [
+        K2_NO_T,
+        ("launch_rows(cr, ci, nullptr, nullptr, nullptr,\n"
+         "                                      nullptr, wr, wi,",
+         "launch_rows(cr, ci, tar, tai, tbr, tbi,\n"
+         "                                      wr, wi,")],
+    "no twiddle": [K2_NO_T],
+    "no row stage": [K2_ROWS_OFF],
+    "no row stage, no stage-1 passes": [
+        K2_ROWS_OFF,
+        ("const int in_y = fft_core::run_16<-1, LOG2_N1>(col, xr, xi, yr, "
+         "yi, tw,\n                                                   nc);",
+         "const int in_y = 0;")],
+    "no row stage, no stage-1 loads": [
+        K2_ROWS_OFF,
+        ("    cp_async::copy16((plane ? xi : xr) + col.word(j1, m),\n"
+         "                     (plane ? ai : ar) + g);", "")],
+    "no row stage, no stage-1 stores": [
+        K2_ROWS_OFF,
+        ("      *reinterpret_cast<float4*>(cr + g) = vr;\n"
+         "      *reinterpret_cast<float4*>(ci + g) = vi;",
+         "      if (vr.x == 1234.5f) *reinterpret_cast<float4*>(cr + g) = vi;")],
+    "no row stage, no cp.async staging": [
+        K2_ROWS_OFF,
+        ("  if (static_cast<int>(blockIdx.x) < panels) {\n"
+         "    load_panel<G>(col, ar, ai, bufs, bufs + words, n2, "
+         "blockIdx.x * nc);\n  }", ""),
+        ("    cp_async::wait_all();\n    __syncthreads();\n"
+         "    if (p + static_cast<int>(gridDim.x) < panels) {\n"
+         "      float* nr = bufs + 2 * (cur ^ 1) * words;   // free since the "
+         "barrier\n"
+         "      load_panel<G>(col, ar, ai, nr, nr + words, n2,\n"
+         "                    (p + gridDim.x) * nc);\n    }",
+         "    __syncthreads();             // the last panel's store read it\n"
+         "    load_panel<G>(col, ar, ai, xr, xi, n2, p * nc);\n"
+         "    cp_async::wait_all();\n    __syncthreads();")],
+}
+RS_CUTS = {
+    "as built": [],
+    "no window staging": [
+        ("    if ((reinterpret_cast<uintptr_t>(xr + g) & 15) == 0 && g + 4 <= n) "
+         "{\n      cp_async::copy16(d, xr + g);\n    } else {",
+         "    if (g >= 0) {\n    } else {")],
+    "no taps staging": [
+        ("for (int c = threadIdx.x; c < (raw + 3) / 4; c += blockDim.x) {",
+         "for (int c = threadIdx.x; c < 0; c += blockDim.x) {")],
+    "no compute (every task skipped)": [
+        ("for (int task = warp; task < tasks && QF != 0; task += kWarps) {",
+         "for (int task = warp; task < 0 && QF != 0; task += kWarps) {"),
+        ("for (int task = warp; task < tasks && QF == 0; task += kWarps) {",
+         "for (int task = warp; task < 0 && QF == 0; task += kWarps) {")],
+    "two blocks an SM (128 registers)": [
+        ("__global__ void __launch_bounds__(kThreads, 3)\nresample_runs(",
+         "__global__ void __launch_bounds__(kThreads, 2)\nresample_runs(")],
+    "no FMAs (an add a float4 of taps)": [
+        ("          acc = fmaf(w[4 * q], c.x, acc);\n"
+         "          acc = fmaf(w[4 * q + 1], c.y, acc);\n"
+         "          acc = fmaf(w[4 * q + 2], c.z, acc);\n"
+         "          acc = fmaf(w[4 * q + 3], c.w, acc);",
+         "          acc += w[4 * q] + c.x;"),
+        ("for (int t = 0; t < TW; ++t) acc = fmaf(w[j * QF + t], tap[t], acc);",
+         "for (int t = 0; t < TW; t += 4) acc += w[j * QF + t] + tap[t];")],
+    "no output staging (no shared stores)": [
+        ("        os[padded((k + j) * P + p)] = acc;",
+         "        if (acc == 1234.5f) os[padded((k + j) * P + p)] = acc;"),
+        ("        os[padded(k * P + p)] = acc;",
+         "        if (acc == 1234.5f) os[padded(k * P + p)] = acc;")],
+    "no stores to device memory": [
+        ("for (int j = threadIdx.x; j < m; j += blockDim.x) o[j] = os[padded(j)];",
+         "for (int j = threadIdx.x; j < m; j += blockDim.x) {\n"
+         "      if (os[padded(j)] == 1234.5f) o[j] = 0.0f;\n    }")],
+    "no register shifts (a reload every move)": [
+        ("        if (d == 1) {", "        if (d == 1234) {"),
+        ("        } else if (d == 2) {", "        } else if (d == 1235) {")],
+    "one tile a block (no persistent blocks)": [
+        ("const long long grid = tiles < resident ? tiles : resident;",
+         "const long long grid = tiles;")],
+}
+
+
 K3_CUTS = {
     "as built": [],
     "no FFT passes (the in-place ones)": [
@@ -144,6 +239,22 @@ def events_us(fn):
     return start.elapsed_time(stop) / REPS * 1e3
 
 
+def single_us(before, fn):
+    """Median us of ``fn`` alone, CUDA events around each launch, each
+    after ``before`` (outside the events)."""
+    times = []
+    for _ in range(REPS + 3):
+        before()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) * 1e3)
+    return float(np.median(times[3:]))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("phase_cuts: torch.cuda.is_available() is False")
@@ -152,15 +263,18 @@ def main():
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     OUT.mkdir(parents=True, exist_ok=True)
-    which = set(sys.argv[1:]) or {"K1", "K3", "K6"}
+    which = set(sys.argv[1:]) or {"K1", "K2", "K3", "K6", "RS"}
     jobs = []
     for tag, kernel, cuts in (("K1", "rowfft_mag", K1_CUTS),
+                              ("K2", "rowfft_mag", K2_CUTS),
                               ("K3", "overlap_save", K3_CUTS),
-                              ("K6", "channelizer", K6_CUTS)):
+                              ("K6", "channelizer", K6_CUTS),
+                              ("RS", "resample", RS_CUTS)):
         if tag in which:
-            jobs += [(kernel, k, v) for k, v in cuts.items()]
+            jobs += [(tag, kernel, k, v) for k, v in cuts.items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        libs = list(pool.map(lambda j: build(*j), jobs))
+        libs = list(pool.map(lambda j: build(j[1], f"{j[0]} {j[2]}", j[3]),
+                             jobs))
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -203,28 +317,87 @@ def main():
                y3.data_ptr() + 4 * n3, n3, L3, pad3, n3, m3 - m3 // 2 - 1,
                fl3.bit_length() - 1, 0, stream]
 
-    for (kernel, label, _), lib in zip(jobs, libs):
-        if kernel == "rowfft_mag":
+    Ar, Ai = (torch.from_numpy(rng.standard_normal((n1, n2), np.float32))
+              .to(dev) for _ in range(2))
+    Cs = torch.empty(2, n1, n2, device=dev)
+    k2_args = [Ar.data_ptr(), Ai.data_ptr(), *[t.data_ptr() for t in T],
+               W[0].data_ptr(), W[1].data_ptr(), Cs[0].data_ptr(),
+               Cs[1].data_ptr(), M.data_ptr(), n1, L2, 64, stream]
+
+    from basic_dsp_tpu_torch.kernels import resample_cuda as rsc
+    from basic_dsp_tpu_torch.ops import interp_ops
+    import basic_dsp_tpu_torch as bt
+    rs_shapes = []
+    for P, Q, R in ((3, 2, 2), (160, 147, 1)):
+        taps, offs = interp_ops.polyphase_taps(bt.SincFunction(), P, Q, 0.0,
+                                               10, torch.float32, dev)
+        n = 1 << 20
+        out_len = n * P // Q + (n * P // Q) % 2
+        x = torch.from_numpy(rng.standard_normal((R, n), np.float32)).to(dev)
+        o = torch.tensor(offs, dtype=torch.int32, device=dev)
+        y = torch.empty(R, out_len, device=dev)
+        geometry = rsc._launch_geometry(P, Q, 10, tuple(offs))
+        rs_shapes.append((f"RS {P}/{Q} (K{4 if Q < 64 else 5}, {R} x {n})",
+                          [x.data_ptr(), taps.data_ptr(), o.data_ptr(),
+                           y.data_ptr(), n, out_len, R, P, Q, 10, *geometry,
+                           stream], (x, taps, o, y)))
+
+    stage1_only = None
+    for (tag, kernel, label, _), lib in zip(jobs, libs):
+        if tag == "K2" and label == "no row stage":
+            stage1_only = lib.fourstep_mag_fused_launch
+    for (tag, kernel, label, _), lib in zip(jobs, libs):
+        runs = []
+        if tag == "K1":
             fn = lib.rowfft_mag_launch
             fn.argtypes = [vp] * 9 + [ci] * 3 + [vp]
-            args, shape = k1_args, f"K1 rowfft_mag ({n1}, {n2})"
+            runs = [(k1_args, f"K1 rowfft_mag ({n1}, {n2})")]
+        elif tag == "K2":
+            fn = lib.fourstep_mag_fused_launch
+            fn.argtypes = [vp] * 11 + [ci] * 3 + [vp]
+            runs = [(k2_args, f"K2 fourstep_mag_fused ({n1}, {n2})")]
+        elif tag == "RS":
+            fn = lib.resample_launch
+            fn.argtypes = [vp] * 4 + [ll, ll] + [ci] * 10 + [vp]
+            runs = [(a, name) for name, a, _ in rs_shapes]
         elif kernel == "overlap_save":
             fn = lib.overlap_save_launch
             fn.argtypes = [vp] * 5 + [ll, ci, ci, ll, ll, ci, ci, vp]
-            args, shape = k3_args, (f"K3 overlap_save (n={n3}, {m3} taps, "
-                                    f"fft_len {fl3})")
+            runs = [(k3_args, f"K3 overlap_save (n={n3}, {m3} taps, "
+                              f"fft_len {fl3})")]
         else:
             fn = lib.channelizer_launch
             fn.argtypes = [vp] * 7 + [ll, ci, ci, ci, vp]
-            args, shape = k6_args, f"K6 channelize_demod (C={C}, S={S})"
+            runs = [(k6_args, f"K6 channelize_demod (C={C}, S={S})")]
         fn.restype = ci
-        rc = fn(*args)
-        torch.cuda.synchronize()
-        if rc:
-            raise SystemExit(f"phase_cuts: {shape} {label}: launch error {rc}")
-        us = events_us(lambda: fn(*args))
-        print(f"{shape}, {label}: {us:.1f} us/launch (CUDA events, {REPS} "
-              f"back-to-back launches) on {smi}", flush=True)
+        for args, shape in runs:
+            rc = fn(*args)
+            torch.cuda.synchronize()
+            if rc:
+                raise SystemExit(f"phase_cuts: {shape} {label}: launch error "
+                                 f"{rc}")
+            us = events_us(lambda: fn(*args))
+            print(f"{shape}, {label}: {us:.1f} us/launch (CUDA events, {REPS} "
+                  f"back-to-back launches) on {smi}", flush=True)
+        if tag == "K2" and label == "as built" and stage1_only is not None:
+            # The row stage alone, untwiddled as K2 launches it (K1's entry
+            # with no T), its B*T just written by stage 1 or flushed from
+            # L2 by 64 MiB of writes.
+            rows = lib.rowfft_mag_launch
+            rows.argtypes, rows.restype = [vp] * 9 + [ci] * 3 + [vp], ci
+            stage1_only.argtypes = fn.argtypes
+            stage1_only.restype = ci
+            row_args = [Cs[0].data_ptr(), Cs[1].data_ptr(), None, None, None,
+                        None, W[0].data_ptr(), W[1].data_ptr(), M.data_ptr(),
+                        n1, L2, 64, stream]
+            flush = torch.empty(16 << 20, device=dev)
+            for when, before in (
+                    ("right after stage 1", lambda: stage1_only(*k2_args)),
+                    ("after a 64 MiB flush", lambda: flush.zero_())):
+                us = single_us(before, lambda: rows(*row_args))
+                print(f"K2 row stage alone, untwiddled ({n1}, {n2}), {when}: "
+                      f"{us:.1f} us/launch (CUDA events around each launch, "
+                      f"median of {REPS}) on {smi}", flush=True)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ Phases (any failure raises and exits non-zero):
 2. kernels vs plain, on the card, <= 2e-6 relative to the maximum:
    ``rowfft_mag`` (K1) against ``rowfft_mag_plain`` at five geometries,
    ``fourstep_mag_fused`` (K2) against ``fourstep_mag_fused_plain`` at
-   four, among them a non-power-of-two n1 (the direct sum), the 4M
+   ten, among them two non-power-of-two n1 (the direct sum), every
+   power-of-two n1 from 8 to 1024 (each a compiled stage-1 plan), the 4M
    geometry and L2 = 1024,
    K3 in both modes, ``circular_conv_cuda`` against
    ``circular_conv_plain`` and ``blocked_linear_conv_cuda`` against
@@ -22,8 +23,10 @@ Phases (any failure raises and exits non-zero):
    with real taps, and ``conv_blocks_cuda`` on a real signal (no imaginary
    plane in or out) against ``conv_blocks_plain``; and the
    resampler's two wrappers against their plain versions on one row and
-   on two: ``resample_direct_cuda`` (K4) at six (P, Q, L, n), among them
-   interpolate_lin's 2-tap geometry with zero offsets, and
+   on two: ``resample_direct_cuda`` (K4) at eleven (P, Q, L, n), among them
+   interpolate_lin's 2-tap geometry with zero offsets, each branch of the
+   kernel (one phase a lane, phases walked, P > 32, a reload, the direct
+   stencil), and
    ``resample_rowblock_cuda`` (K5) at three, among them an n that 147
    does not divide; ``channelize_demod_cuda`` (K6) against
    ``channelize_demod_plain`` at four (C, S, taps per phase), among them
@@ -90,9 +93,12 @@ N = 1 << 22
 TAPS = 128
 GEOMETRIES = [(8, 256), (8, 16384), (128, 32768), (16, 65536), (64, 131072)]
 # K1, K2: (16, 65536) and (64, 131072) run the row kernel's 16-block
-# clusters, three blocks an SM and one; K2's n1 = 24 takes stage 1's
-# direct sum.
-FUSED_GEOMETRIES = [(8, 256), (24, 4096), (128, 32768), (64, 131072)]
+# clusters, three blocks an SM and one; K2's n1 = 24 and 1016 take stage 1's
+# direct sum, and the power-of-two n1 reach every stage1_panels<n1>
+# compiled (8 to 1024; 1024: the narrowest panel, 4 columns).
+FUSED_GEOMETRIES = [(8, 256), (24, 4096), (128, 32768), (64, 131072),
+                    (16, 512), (32, 1024), (256, 2048), (512, 256),
+                    (1024, 256), (1016, 256)]
 CONV_TAPS = 384
 CONV_FFT_LEN = 4096
 # K3 (n, taps, fft_len): n below fft_len (700) and n not a multiple of 4
@@ -108,9 +114,15 @@ REPS = 20
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 # Resampler geometries (P, Q, L, n); K4 also at interpolate_lin's 2-tap
-# geometry (5/2, delay 0.3, zero offsets) below.
+# geometry (5/2, delay 0.3, zero offsets) below.  resample_runs at one
+# phase a lane (Q <= 2: 3/2, x10, 2/1, P > 32 at 64/1, a 32-word window at
+# L = 15) and with the phases walked (5/4, 6/5; P > 32 in ragged groups at
+# 41/33; steps of 2 and 3 words, a reload, at 7/16); the direct stencil
+# for 2L+1 > 32 (2/1 at L = 20).
 K4_GEOMETRIES = [(3, 2, 10, 1 << 20), (10, 1, 10, 1 << 17), (2, 1, 5, 4096),
-                 (5, 4, 10, 8192), (6, 5, 10, 1 << 16)]
+                 (5, 4, 10, 8192), (6, 5, 10, 1 << 16), (64, 1, 10, 20001),
+                 (3, 2, 15, 1 << 16), (41, 33, 7, 20001),
+                 (7, 16, 10, 1 << 16), (2, 1, 20, 5000)]
 K5_GEOMETRIES = [(160, 147, 10, 1 << 20), (160, 147, 10, (1 << 20) + 37),
                  (147, 160, 10, 1 << 16)]
 CFG3_N = 1 << 20
@@ -446,8 +458,8 @@ def main():
             assert err <= KERNEL_TOL, (kind, P, Q, L, n, nrows, err)
             rs_abs_err[(kind, P, Q, n, nrows)] = float(
                 (got - ref).abs().max())
-    assert rsc.resample_direct_cuda.launches == 12
-    assert rsc.resample_rowblock_cuda.launches == 6
+    assert rsc.resample_direct_cuda.launches == 2 * (len(K4_GEOMETRIES) + 1)
+    assert rsc.resample_rowblock_cuda.launches == 2 * len(K5_GEOMETRIES)
     del got, ref, rows
 
     k6_abs_err = None
@@ -781,7 +793,8 @@ def main():
             "plain_ms": med["plain"], "bound_ms": bound_ms,
             "bound_us": bound_ms * 1e3, "bound_by": bound_by,
             "library_ms": med.get("library"),
-            "device_ms": dev_ms if dev_ms > 0 else None})
+            "device_ms": dev_ms if dev_ms > 0 else None,
+            "device_kernels_ms": per_kernel})
 
     n1, n2 = 128, 32768
     L2 = n2 // 128
@@ -807,7 +820,7 @@ def main():
              "kernel": lambda: sc.fourstep_mag_fused(Ar, Ai, True, W),
              "library": lambda: torch.abs(torch.fft.fftshift(
                  torch.fft.fft(A)))},
-            (Ar, Ai, *W), (torch.empty(n1, L2, 128, device=dev),),
+            (Ar, Ai, *W, *T), (torch.empty(n1, L2, 128, device=dev),),
             N * (5 * np.log2(N) + 6 + 4))
     del Br, Bi, C, Ar, Ai, A
     hr, hi = h.real.contiguous(), h.imag.contiguous()

@@ -7,8 +7,9 @@ factored twiddle differ by one rounding); ``fir_fft_chain_planar(...,
 fused=True)`` and ``FirFftChainPlanar(..., fused=True)`` against JAX's
 fused chain; the wrapper's refusals and launch counts; and a numpy model
 of the CUDA launch's index arithmetic (``csrc/rowfft_mag.cu``: the stage-1
-column panels, the bit-reversed stores, the direct sum, the twiddle, then
-the cluster row kernel that K1 is, with and without its twiddle) against
+column panels and their register passes, the direct sum, the twiddle at
+the store, then the cluster row kernel that K1 is, with and without its
+twiddle) against
 the plain version, with the row kernel's geometry and bank checks.  The
 CUDA kernels themselves are held to the plain version on the card by
 chip_smoke.py."""
@@ -133,13 +134,16 @@ def test_fused_module_holds_its_constants_and_builds_nothing(monkeypatch):
     chain = bt.FirFftChainPlanar(taps, window, fused=True)
     assert (chain.n1, chain.n2) == (128, 256)
     names = {k for k, _ in chain.named_buffers()}
-    assert names == {"taps", "bands", "window", "w_r", "w_i"}
+    assert names == {"taps", "bands", "window", "w_r", "w_i", "tw_ar",
+                     "tw_ai", "tw_br", "tw_bi"}
     want = chain(xr, xi)
 
     def refuse(*args, **kwargs):
-        raise AssertionError("the module built its inner twiddle again")
+        raise AssertionError("the module built its twiddle planes again")
 
     monkeypatch.setattr(tsc, "inner_twiddle", refuse)
+    monkeypatch.setattr(tsc, "_held_factored", refuse)
+    monkeypatch.setattr(tfs, "_dif_twiddle_factored", refuse)
     assert torch.equal(chain(xr, xi), want)
 
 
@@ -191,6 +195,33 @@ def test_fused_chain_refusals():
                                     budget=budget, fused=True)
 
 
+def test_fused_operands_align_a_and_the_twiddle_planes():
+    """Stage 1 copies A by 16-byte cp.async and reads the twiddle's B
+    planes as float4: ``_fused_operands`` hands the launch 16-byte aligned
+    A and B planes, copying a contiguous view at an odd offset (a slice of
+    one packed tensor) and passing aligned planes and the A twiddle planes
+    (read as scalars) through as they are; the CPU route takes such views
+    too."""
+    n1, n2 = 8, 256
+    Ar, Ai = (torch.from_numpy(p) for p in _planes(n1, n2, 14))
+    T = tuple(torch.from_numpy(p) for p in tfs._dif_twiddle_factored(n1, n2))
+    packed = torch.empty(1 + sum(p.numel() for p in T) + Ar.numel())
+    views, at = [], 1                        # one float in: 4 bytes off
+    for p in (*T, Ar):
+        v = packed[at:at + p.numel()].view(p.shape)
+        v.copy_(p)
+        views.append(v)
+        at += p.numel()
+    *tv, av = views
+    assert all(v.is_contiguous() and v.data_ptr() % 16 for v in views)
+    ar, ai, tf = tsc._fused_operands(av, Ai, tuple(tv))
+    assert ai is Ai and tf[0] is tv[0] and tf[1] is tv[1]
+    for got, want in zip((ar, *tf[2:]), (Ar, *T[2:])):
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, want)
+    assert torch.equal(tsc.fourstep_mag_fused(av, Ai, Tfac=tuple(tv)),
+                       tsc.fourstep_mag_fused_plain(Ar, Ai))
+
+
 def test_cpu_launches_no_kernel():
     fused0, row0 = tsc.fourstep_mag_fused.launches, tsc.rowfft_mag.launches
     Ar, Ai = (torch.from_numpy(p) for p in _planes(16, 1024, 7))
@@ -214,31 +245,9 @@ def _unit_root(k, n):
             np.sin(np.pi * a).astype(np.float32))
 
 
-def _brev(j, bits):
-    """__brev(j) >> (32 - bits)."""
-    j = np.asarray(j)
-    r = np.zeros_like(j)
-    for b in range(bits):
-        r |= ((j >> b) & 1) << (bits - 1 - b)
-    return r
-
-
-def _dit_stage(sr, si, tw, s, log2n, cols, count):
-    """dit_stage over every block at once (axis 0): each butterfly b of
-    the stage touches its own two elements, so the thread loop is one
-    vector step."""
-    b = np.arange(count)
-    t, q = b % cols, b // cols
-    half = 1 << s
-    pos = q & (half - 1)
-    i0 = (((q >> s) << (s + 1)) + pos) * cols + t
-    i1 = i0 + half * cols
-    wr, wi = tw[0][pos << (log2n - 1 - s)], tw[1][pos << (log2n - 1 - s)]
-    ur, ui, xr, xi = sr[:, i0], si[:, i0], sr[:, i1], si[:, i1]
-    vr = xr * wr - xi * wi
-    vi = xr * wi + xi * wr
-    sr[:, i0], si[:, i0] = ur + vr, ui + vi
-    sr[:, i1], si[:, i1] = ur - vr, ui - vi
+def _log2_exact(n):
+    l = int(n).bit_length() - 1
+    return l if 1 << l == n else -1
 
 
 def _tables(plan):
@@ -249,51 +258,101 @@ def _tables(plan):
     return n
 
 
-def _log2_exact(n):
-    l = int(n).bit_length() - 1
-    return l if 1 << l == n else -1
+def _twiddle(vr, vi, Tfac, k1, j):
+    """twiddle(): v * A[k1, j >> 7] * B[k1, j & 127], formed as the kernel
+    forms it (float32)."""
+    Ar, Ai, Br, Bi = Tfac
+    L2 = Ar.shape[1]
+    ar, ai = Ar[k1, j >> 7], Ai[k1, j >> 7]
+    br, bi = Br[k1, j & 127], Bi[k1, j & 127]
+    tr, ti = ar * br - ai * bi, ar * bi + ai * br
+    assert L2 * LANES > int(np.max(j))
+    return vr * tr - vi * ti, vr * ti + vi * tr
 
 
-def _model_stage1(Ar, Ai):
-    """fourstep_stage1: one block per panel of 16 columns (grid n2 / 16),
-    returns the (n1, n2) planes of B*T the kernel stores."""
+def _model_stage1_direct(Ar, Ai, Tfac):
+    """stage1_direct: one block per panel of 16 columns (grid n2 / 16), the
+    sum over a table of n1 roots with the exponent k1 j1 kept below n1."""
     n1, n2 = Ar.shape
     assert n2 % COLS_S == 0          # every supported n2: no ragged panel
     blocks = n2 // COLS_S
-    log2_n1 = _log2_exact(n1)
-    radix2 = log2_n1 >= 0
-    tw = _unit_root(np.arange(n1 // 2 if radix2 else n1), n1)
+    tw = _unit_root(np.arange(n1), n1)
     idx = np.arange(n1 * COLS_S)
-    j1, t = idx // COLS_S, idx % COLS_S
-    r = _brev(j1, log2_n1) if radix2 else j1
+    k1, t = idx // COLS_S, idx % COLS_S
     c0 = np.arange(blocks)[:, None] * COLS_S
-    g_col = c0 + t[None, :]                      # (blocks, n1*16) columns
-    sr = np.zeros((blocks, n1 * COLS_S), np.float32)
-    si = np.zeros_like(sr)
-    sr[:, r * COLS_S + t] = Ar[j1[None, :], g_col]
-    si[:, r * COLS_S + t] = Ai[j1[None, :], g_col]
-    k1 = idx // COLS_S
-    if radix2:
-        for s in range(log2_n1):
-            _dit_stage(sr, si, tw, s, log2_n1, COLS_S, (n1 // 2) * COLS_S)
-        xr, xi = sr, si
-    else:
-        xr = np.zeros_like(sr)
-        xi = np.zeros_like(si)
-        m = np.zeros_like(k1)
-        for jj in range(n1):
-            wr, wi = tw[0][m], tw[1][m]
-            a_r, a_i = sr[:, jj * COLS_S + t], si[:, jj * COLS_S + t]
-            xr += a_r * wr - a_i * wi
-            xi += a_r * wi + a_i * wr
-            m = m + k1
-            m = np.where(m >= n1, m - n1, m)
-    j = c0 + t[None, :]
-    Tr, Ti = _unit_root((k1[None, :] * j) % (n1 * n2), n1 * n2)
-    cr = np.zeros((n1, n2), np.float32)
-    ci = np.zeros_like(cr)
-    cr[k1[None, :], j] = xr * Tr - xi * Ti
-    ci[k1[None, :], j] = xr * Ti + xi * Tr
+    j = c0 + t[None, :]                          # (blocks, n1*16) columns
+    sr = Ar[k1[None, :], j]                      # sr[idx] = A[idx/16, c0+t]
+    si = Ai[k1[None, :], j]
+    xr = np.zeros_like(sr)
+    xi = np.zeros_like(si)
+    m = np.zeros_like(k1)
+    for jj in range(n1):
+        wr, wi = tw[0][m], tw[1][m]
+        a_r, a_i = sr[:, jj * COLS_S + t], si[:, jj * COLS_S + t]
+        xr += a_r * wr - a_i * wi
+        xi += a_r * wi + a_i * wr
+        m = m + k1
+        m = np.where(m >= n1, m - n1, m)
+    xr, xi = _twiddle(xr, xi, Tfac, k1[None, :], j)
+    cr = np.full((n1, n2), np.nan, np.float32)
+    ci = np.full_like(cr, np.nan)
+    cr[k1[None, :], j] = xr
+    ci[k1[None, :], j] = xi
+    return cr, ci
+
+
+def _model_stage1(Ar, Ai, Tfac, log=None):
+    """Stage 1 as the kernels index it; returns the (n1, n2) planes they
+    store.  A power-of-two n1 takes stage1_panels: panels of NC columns
+    (``stage1_geometry``), each copied in 16-byte chunks (every word of the
+    buffer once) to col_word(j1, t), the passes of ``radix_plan(n1)`` down
+    the columns (every panel at once: items w of panel q are q's own), then
+    whole 16-byte words out, each output once.  Shared accesses go to
+    ``log`` in item order.  Buffers start as NaN."""
+    n1, n2 = Ar.shape
+    l1 = _log2_exact(n1)
+    if l1 < 0:
+        return _model_stage1_direct(Ar, Ai, Tfac)
+    NC, mask, _ = tsc.stage1_geometry(n1)
+    lnc = NC.bit_length() - 1
+    words = n1 * NC
+    panels = n2 // NC
+    assert panels * NC == n2
+    X = np.full((2, panels * words), np.nan, np.float32)
+    Y = np.full_like(X, np.nan)
+    per_row = NC // 4
+    c = np.arange(n1 * per_row)
+    j1, m = c // per_row, (c % per_row) * 4
+    q = np.arange(panels)[:, None]
+    copied = np.zeros(panels * words, np.int64)
+    for e in range(4):                           # the four words of a chunk
+        d = q * words + _col_word(j1, m, lnc, mask)[None, :] + e
+        X[0, d] = Ar[j1[None, :], q * NC + m[None, :] + e]
+        X[1, d] = Ai[j1[None, :], q * NC + m[None, :] + e]
+        np.add.at(copied, d.ravel(), 1)
+    assert (copied == 1).all()
+
+    def item(w, log2n):
+        panel, wl = w >> (lnc + log2n), w & ((NC << log2n) - 1)
+        return panel * NC + (wl & (NC - 1)), wl >> lnc
+
+    def addr(t, e):
+        return (t >> lnc) * words + _col_word(e, t & (NC - 1), lnc, mask)
+
+    in_y = stockham(X, Y, tsc.radix_plan(n1), -1, l1, n2, item, addr, log)
+    D = Y if in_y else X
+    cr = np.full((n1, n2), np.nan, np.float32)
+    ci = np.full_like(cr, np.nan)
+    stored = np.zeros((n1, n2), np.int64)
+    for e in range(4):                           # the float4 store
+        a = q * words + _col_word(j1, m, lnc, mask)[None, :] + e
+        j = q * NC + m[None, :] + e
+        vr, vi = D[0, a], D[1, a]
+        vr, vi = _twiddle(vr, vi, Tfac, j1[None, :], j)
+        cr[j1[None, :], j], ci[j1[None, :], j] = vr, vi
+        np.add.at(stored, (np.broadcast_to(j1[None, :], j.shape).ravel(),
+                           j.ravel()), 1)
+    assert (stored == 1).all()
     return cr, ci
 
 
@@ -380,13 +439,17 @@ def _model_rows(Cr, Ci, shift, Tfac=None, log=None):
     return out, writes
 
 
+def _factored(n1, n2):
+    return tfs._dif_twiddle_factored(n1, n2)
+
+
 @pytest.mark.parametrize("n1,n2", GEOMETRIES + [(40, 256), (64, 2048)])
 def test_stage1_model_matches_plain(n1, n2):
-    """Stage 1 as the kernel indexes it (panels, bit-reversed stores,
-    radix-2 or direct sum, T from double) against the plain stage 1 times
-    the dense T."""
+    """Stage 1 as the kernels index it (stage1_panels' cp.async panels and
+    register passes for a power-of-two n1, stage1_direct's sum for 24 and
+    40) against the plain stage 1 times the dense T."""
     Ar, Ai = _planes(n1, n2, 8)
-    cr, ci = _model_stage1(Ar, Ai)
+    cr, ci = _model_stage1(Ar, Ai, _factored(n1, n2))
     F = (torch.from_numpy(p) for p in tfs._dft_planes(n1))
     Br, Bi = tfs.stage1_planar(*F, torch.from_numpy(Ar), torch.from_numpy(Ai))
     _, _, Tr, Ti = tfs._dif_planes(n1, n2)
@@ -399,15 +462,35 @@ def test_stage1_model_matches_plain(n1, n2):
 @pytest.mark.parametrize("n1,n2", [(8, 256), (24, 512), (16, 1024),
                                    (8, 32768), (8, 131072)])
 def test_launch_model_matches_plain(n1, n2, shift):
-    """The whole launch (stage 1, then the cluster row kernel untwiddled)
-    as the kernel indexes it, against the plain version: L2 = 2, 4, 8 (one
-    block a row), 256 (four) and 1024 (16, the largest cluster)."""
+    """The whole launch (stage 1 with the twiddle at its store, then the
+    cluster row kernel untwiddled) as the kernels index it, against the
+    plain version: L2 = 2, 4, 8 (one block a row), 256 (four) and 1024
+    (16, the largest cluster)."""
     Ar, Ai = _planes(n1, n2, 9)
-    got, writes = _model_rows(*_model_stage1(Ar, Ai), shift)
+    Tfac = _factored(n1, n2)
+    got, writes = _model_rows(*_model_stage1(Ar, Ai, Tfac), shift)
     assert (writes == 1).all()
     ref = tsc.fourstep_mag_fused_plain(torch.from_numpy(Ar),
                                        torch.from_numpy(Ai), shift).numpy()
     assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("n1", [8, 16, 32, 64, 128, 256, 512, 1024])
+def test_stage1_panels_are_free_of_bank_conflicts(n1):
+    """Every pass of stage1_panels reads and writes shared memory free of
+    bank conflicts (each warp's 32 items hit distinct banks or one word):
+    ColLayout with NC = 4096 / n1 columns, rows permuted within their bank
+    line below 32 columns (n1 = 256, 512, 1024)."""
+    NC, _, _ = tsc.stage1_geometry(n1)
+    log = []
+    n2 = max(2 * NC, 2 * LANES)
+    Ar, Ai = _planes(n1, n2, 13)
+    _model_stage1(Ar, Ai, _factored(n1, n2), log)
+    assert log
+    for _, a in log:
+        for s0 in range(0, a.size, 32):
+            assert len(set((a[s0:s0 + 32] % 32).tolist())) == len(
+                set(a[s0:s0 + 32].tolist()))
 
 
 @pytest.mark.parametrize("n1,n2", [(3, 256), (2, 8192), (2, 32768),
@@ -452,19 +535,31 @@ def test_row_kernel_geometry(L2):
 
 @pytest.mark.parametrize("n1,n2", [(128, 32768), (24, 4096)])
 def test_kernel_twiddle_is_the_dense_twiddle(n1, n2):
-    """T from double sincospi rounded once equals numpy's complex128 exp
-    rounded to complex64 to within one float32 rounding."""
+    """The big twiddle as the kernels form it, A[k1, j1] * B[k1, j2] of the
+    factored planes in float32, no sincospi per element: within 2.4e-7 of
+    exp(-2 pi i k1 j / N) in float64 (the grade of the two-level twiddles
+    in test_torch_fft_core.py) and within 2.4e-7 of the dense T the plain
+    version uses."""
     k1 = np.arange(n1)[:, None]
     j = np.arange(n2)[None, :]
-    Tr, Ti = _unit_root((k1 * j) % (n1 * n2), n1 * n2)
+    Tr, Ti = _twiddle(np.float32(1), np.float32(0), _factored(n1, n2), k1, j)
+    exact = np.exp(-2j * np.pi * ((k1 * j) % (n1 * n2)) / (n1 * n2))
+    assert np.abs(Tr + 1j * Ti - exact).max() <= 2.4e-7
     _, _, Dr, Di = tfs._dif_planes(n1, n2)
-    assert max(np.max(np.abs(Tr - Dr)), np.max(np.abs(Ti - Di))) <= 6e-8
+    assert max(np.max(np.abs(Tr - Dr)), np.max(np.abs(Ti - Di))) <= 2.4e-7
 
 
 @pytest.mark.parametrize("n1", [8, 24, 128, 1016, 1024])
 def test_stage1_shared_memory_fits(n1):
-    """Stage 1's dynamic shared memory: the (n1, 16) panel's two planes and
-    n1/2 (radix-2) or n1 (direct sum) float2 roots, within the 227 KB a
-    block may opt in to."""
-    roots = n1 // 2 if _log2_exact(n1) >= 0 else n1
-    assert 2 * n1 * COLS_S * 4 + roots * 8 <= 232448
+    """Stage 1's dynamic shared memory within the 227 KB a block may opt in
+    to: for a power-of-two n1 three buffers of n1 * NC complex values and
+    the pass tables (32 KiB buffers: two blocks an SM), for the direct sum
+    the (n1, 16) panel's two planes and n1 float2 roots."""
+    if _log2_exact(n1) >= 0:
+        NC, mask, smem = tsc.stage1_geometry(n1)
+        assert NC * n1 == 4096 or NC == LANES
+        assert smem == 3 * 8 * n1 * NC + 8 * _tables(tsc.radix_plan(n1))
+        assert 2 * (smem + 1024) <= 233472
+        assert (NC >= 32) == (mask == 0)
+    else:
+        assert 2 * n1 * COLS_S * 4 + n1 * 8 <= 232448

@@ -11,10 +11,12 @@ of ops/interp_ops.py, on the CPU.
   the JAX test's own bound for its 3-pass bf16 dots) and
   ``resample_rowblock_plain`` against ``resample_rowblock_pallas``
   (<= 2e-5 x max).
-* A numpy model of ``csrc/resample.cu``'s tiling and index math (window
-  start, modular wrap, partial last tile, 64-bit base) against the plain
-  versions (<= 2e-6 relative to the maximum: f32 sums of 2L+1 terms in
-  another order).
+* A numpy model of ``csrc/resample.cu`` (both modes of resample_runs,
+  warp for warp, and the direct stencil for long tap rows: window start,
+  modular wrap, register window, phase steps, padded output staging,
+  partial last tile, 64-bit base) against the plain versions (<= 2e-6
+  relative to the maximum: f32 sums of 2L+1 terms in another order), with
+  its shared loads per FMA counted.
 * The wrappers' routing, launch counts and input checks, and
   ``state.from_numpy``'s resampler keys.
 """
@@ -247,18 +249,26 @@ def test_plain_versions_in_float64():
 
 # ------------------------------------------------- the kernel's index math
 
-def _kernel_in_numpy(x, taps, P, Q, offs, L, out_len):
-    """csrc/resample.cu in numpy, block for block: tile bx of row r stages
-    x[(bx*G*Q - L + w) mod n] for w < win (64-bit base, C's signed
-    remainder), then output j of the tile sums the window from
-    k*Q + offs[p] (j = k*P + p) against taps row p in float32; outputs
-    past out_len are skipped.  Returns the output and how often each
-    output was written."""
-    G, win, _ = rc._tile_geometry(P, Q, L, offs)
+def _padded(j):
+    """padded(): one pad word every 32 outputs of a tile."""
+    return j + (j >> 5)
+
+
+def _window(x_row, start, words):
+    """stage_window: sx[w] = x[(start - start mod 4 + w) mod n], w < words
+    (16-byte chunks from an aligned base; the wrap in the index math)."""
+    n = x_row.shape[0]
+    base = start - (start & 3)
+    return x_row[(base + np.arange(words, dtype=np.int64)) % n]
+
+
+def _tiles_in_numpy(x, taps, P, Q, offs, L, out_len, G, win):
+    """resample_tiles (the direct stencil): tile bx of row r stages x[(bx*G*Q
+    - L + w) mod n] for w < win (64-bit base, C's signed remainder), then
+    output j = k*P + p of the tile sums the window from k*Q + offs[p]
+    against taps row p in float32; outputs past out_len are skipped."""
     R, n = x.shape
     T = 2 * L + 1
-    taps = np.asarray(taps, np.float32)
-    offs = np.asarray(offs, np.int64)
     out = np.zeros((R, out_len), np.float32)
     writes = np.zeros((R, out_len), np.int64)
     tiles = -(-(-(-out_len // P)) // G)
@@ -268,9 +278,7 @@ def _kernel_in_numpy(x, taps, P, Q, offs, L, out_len):
             s = int(np.fmod(b0 * Q - L, n))
             if s < 0:
                 s += n
-            g = s + np.arange(win, dtype=np.int64)
-            g = np.where(g >= n, g % n, g)
-            sx = x[r, g]
+            sx = x[r, (s + np.arange(win, dtype=np.int64)) % n]
             j = np.arange(G * P)
             i = b0 * P + j
             keep = i < out_len
@@ -285,19 +293,134 @@ def _kernel_in_numpy(x, taps, P, Q, offs, L, out_len):
     return out, writes
 
 
+def _kernel_in_numpy(x, taps, P, Q, offs, L, out_len, counts=None):
+    """csrc/resample.cu in numpy, warp for warp (the 32 lanes of a task as
+    one vector), for the geometry ``_launch_geometry`` gives.  resample_runs:
+    tile t of a row holds output blocks kt = t*KT ..; its window x[(kt*Q -
+    L + w) mod n] is staged from an aligned base (64-bit, C's signed
+    remainder); each task is a warp: with groups == 0 one phase p a lane
+    over FIXED_K blocks (taps and window in registers, output j at window
+    offset j*Q), else runs of consecutive outputs walked with the window
+    moving by step[p] (0, 1, 2: a register shift; else a reload); outputs
+    collect at padded(k*P + p) and leave for i < out_len.  Every window
+    read must stay in the staged words and every output word be written
+    once.  ``counts`` gathers the shared loads (a float4 tap load, a step,
+    a window word and at Q = 2 a float2 pair of window words each count
+    one) and the FMAs on the 2L+1 taps.
+    Returns the output and how often each output was written."""
+    tw, K, groups, KT, win, _ = rc._launch_geometry(P, Q, L, tuple(offs))
+    taps = np.asarray(taps, np.float32)
+    offs = np.asarray(offs, np.int64)
+    if tw == 0:
+        return _tiles_in_numpy(x, taps, P, Q, offs, L, out_len, KT, win)
+    R, n = x.shape
+    T = 2 * L + 1
+    ts = np.zeros((P, tw), np.float32)
+    ts[:, :T] = taps
+    step = np.append(offs[1:] - offs[:-1], Q + offs[0] - offs[-1])
+    per_row = -(-(-(-out_len // P)) // KT)
+    tasks = (P if groups == 0 else groups) * (KT // (32 * K))
+    pg = -(-P // groups) if groups else P
+    winw = (win + 6) & ~3
+    lanes = np.arange(32)
+    nout = KT * P
+    counts = {} if counts is None else counts
+    counts.setdefault("loads", 0)
+    counts.setdefault("fmas", 0)
+    out = np.zeros((R, out_len), np.float32)
+    writes = np.zeros((R, out_len), np.int64)
+    for r in range(R):
+        for tile in range(per_row):
+            kt = np.int64(tile) * KT
+            start = int(np.fmod(kt * Q - L, n))
+            start += n if start < 0 else 0
+            a0 = start & 3
+            xs = _window(x[r], start, winw)[a0:]
+            os_ = np.full(_padded(nout) + 1, np.nan, np.float32)
+            stored = np.zeros_like(os_, dtype=np.int64)
+            for task in range(tasks):
+                if groups == 0:
+                    p = task % P
+                    k = ((task // P) * 32 + lanes) * K
+                    nw = (K - 1) * Q + tw
+                    idx = (k * Q + offs[p])[:, None] + np.arange(nw)
+                    assert idx.max() < xs.size
+                    w = xs[idx]
+                    if Q == 2:      # float2 pairs, a single word at each
+                        odd = (a0 + offs[p]) & 1          # end when odd
+                        window_loads = nw // 2 + odd
+                    else:
+                        window_loads = nw
+                    counts["loads"] += 32 * (tw // 4 + window_loads)
+                    for j in range(K):
+                        acc = np.zeros(32, np.float32)
+                        for t in range(tw):
+                            acc = acc + w[:, j * Q + t] * ts[p, t]
+                        a = _padded((k + j) * P + p)
+                        os_[a] = acc
+                        np.add.at(stored, a, 1)
+                        counts["fmas"] += 32 * T
+                    continue
+                g = task % groups
+                pb = g * pg
+                if pb >= P:
+                    continue
+                J = K * P if groups == 1 else min(P, pb + pg) - pb
+                k = ((task // groups) * 32 + lanes) * K
+                p = pb
+                s = k * Q + offs[p]
+                w = xs[s[:, None] + np.arange(tw)]
+                counts["loads"] += 32 * tw
+                for j in range(J):
+                    acc = np.zeros(32, np.float32)
+                    for t in range(tw):
+                        acc = acc + w[:, t] * ts[p, t]
+                    a = _padded(k * P + p)
+                    os_[a] = acc
+                    np.add.at(stored, a, 1)
+                    counts["loads"] += 32 * (tw // 4)
+                    counts["fmas"] += 32 * T
+                    if j + 1 == J:
+                        break
+                    d = int(step[p])
+                    counts["loads"] += 32
+                    p += 1
+                    if p == P:
+                        p, k = 0, k + 1
+                    s = s + d
+                    assert (s + tw - 1).max() < xs.size
+                    if d in (1, 2):
+                        w = np.concatenate(
+                            [w[:, d:], xs[s[:, None] + np.arange(tw - d, tw)]],
+                            axis=1)
+                        counts["loads"] += 32 * d
+                    elif d != 0:
+                        w = xs[s[:, None] + np.arange(tw)]
+                        counts["loads"] += 32 * tw
+            m = min(nout, out_len - int(kt) * P)
+            a = _padded(np.arange(m))
+            assert (stored[a] == 1).all()
+            out[r, int(kt) * P:int(kt) * P + m] = os_[a]
+            writes[r, int(kt) * P:int(kt) * P + m] += 1
+    return out, writes
+
+
 @pytest.mark.parametrize("P,Q,L,n,rowblock", [
-    (3, 2, 10, 4096, False),        # config #3's factor
+    (3, 2, 10, 4096, False),        # config #3's factor (one phase a lane)
     (10, 1, 10, 1000, False),       # config #4's factor
-    (6, 5, 10, 3001, False),        # span not lane-aligned
+    (6, 5, 10, 3001, False),        # phases walked, P <= 32, span unaligned
     (160, 147, 10, 4 * 147 * 13 + 37, True),   # audio, 147 does not divide n
-    (147, 160, 10, 3000, True),
+    (147, 160, 10, 3000, True),     # steps of 1 and 2
     (2, 1, 5, 11, False),           # windows wrap the signal several times
+    (64, 1, 10, 777, False),        # P > 32 at one phase a lane
+    (41, 33, 7, 2001, False),       # P > 32 walked, a ragged last group
+    (5, 4, 10, 999, False),         # phases walked, a partial last block
 ])
 def test_kernel_model_matches_plain(P, Q, L, n, rowblock):
     x = _signal(P * Q + n, n, rows=2)
     taps, offs = _sinc_taps(P, Q, L)
     out_len = int(round(n * P / Q))
-    out_len += out_len % 2
+    out_len += out_len % 2 if P % 2 == 0 else 1 - out_len % 2
     got, writes = _kernel_in_numpy(x, taps, P, Q, offs, L, out_len)
     assert (writes == 1).all()
     fn = rc.resample_rowblock_plain if rowblock else rc.resample_direct_plain
@@ -321,47 +444,94 @@ def test_kernel_model_lin_taps_zero_offsets():
     assert _rel(got, want) <= TOL
 
 
+@pytest.mark.parametrize("P,Q,offs", [(5, 7, (3, 0, 6, 1, 3)),
+                                      (4, 3, (2, 2, 0, 1))])
+def test_kernel_model_any_offsets(P, Q, offs):
+    """Offsets that do not grow with p (the contract allows any in [0,
+    Q)): steps below 0 or above 2 reload the window; the model against the
+    defining sum."""
+    L, n = 3, 500
+    x = _signal(P + Q, n, rows=1)
+    taps = _signal(7, P * (2 * L + 1)).reshape(P, 2 * L + 1)
+    out_len = n * P // Q
+    got, writes = _kernel_in_numpy(x, taps, P, Q, offs, L, out_len)
+    assert (writes == 1).all()
+    assert _rel(got, _formula(x, taps, P, Q, offs, L, out_len)) <= TOL
+
+
+@pytest.mark.parametrize("P,Q,L,most", [(3, 2, 10, 0.2), (10, 1, 10, 0.3),
+                                        (160, 147, 10, 0.5)])
+def test_shared_loads_per_fma(P, Q, L, most):
+    """Fewer than one shared-memory load per FMA at K4's geometries (3/2
+    of config #3, x10 of config #4: 0.17 and 0.24) and K5's (160/147:
+    0.43), counted in the model: a float4 of taps, a step and a window
+    word each one load, FMAs on the 2L+1 taps (the stencil before did two
+    loads an FMA)."""
+    n = 147 * 160 + 5 if P == 160 else 8192
+    x = _signal(1, n, rows=1)
+    taps, offs = _sinc_taps(P, Q, L)
+    counts = {}
+    _kernel_in_numpy(x, taps, P, Q, offs, L, n * P // Q, counts)
+    assert counts["loads"] / counts["fmas"] <= most
+
+
 @pytest.mark.parametrize("P,Q,L", [(3, 2, 10), (160, 147, 10)])
 def test_kernel_base_index_is_64_bit(P, Q, L):
-    """At 2^31 samples and beyond, b0*Q and b0*P overflow 32 bits; the
+    """At 2^31 samples and beyond, kt*Q and kt*P overflow 32 bits; the
     kernel forms them in 64.  The model's window start and the output's
     source indices agree with the formula in Python integers, where 32-bit
     arithmetic would not."""
     _, offs = _sinc_taps(P, Q, L)
-    G, _, _ = rc._tile_geometry(P, Q, L, offs)
+    tw, K, groups, KT, _, _ = rc._launch_geometry(P, Q, L, tuple(offs))
     n = (1 << 32) + 12345
     out_len = n * P // Q
-    bx = (out_len // P) // G - 1             # a tile near the end
-    b0 = np.int64(bx) * G
-    s = int(np.fmod(b0 * Q - L, n)) % n
-    assert s == (bx * G * Q - L) % n
-    assert int(np.int32(np.int64(bx * G * Q - L) & 0xffffffff)) != s
-    for j in (0, P - 1, G * P - 1):
-        i = int(b0) * P + j
-        k, p = j // P, j % P
-        for t in (0, 2 * L):
-            via_window = (s + k * Q + offs[p] + t) % n
-            assert via_window == ((i // P) * Q + offs[p] + t - L) % n
+    tile = (out_len // P) // KT - 1          # a tile near the end
+    kt = np.int64(tile) * KT
+    s = int(np.fmod(kt * Q - L, n)) % n
+    assert s == (tile * KT * Q - L) % n
+    assert int(np.int32(np.int64(tile * KT * Q - L) & 0xffffffff)) != s
+    for kl in (0, K - 1, KT - 1):            # local blocks of the tile
+        for p in (0, P - 1):
+            i = int(kt) * P + kl * P + p
+            for t in (0, tw - 1):
+                via_window = (s + kl * Q + offs[p] + t) % n
+                assert via_window == ((i // P) * Q + offs[p] + t - L) % n
 
 
 @pytest.mark.parametrize("P,Q,L", [(1, 1, 16320), (3, 2, 10), (160, 147, 10),
                                    (2048, 1, 5), (1, 512, 16000)])
 def test_tile_geometry_fits_every_eligible_band(P, Q, L):
     """Every geometry the dispatch sends to the resampler (band matrix of
-    at most 2^22 elements) fits a CUDA block's shared memory."""
+    at most 2^22 elements) fits a CUDA block's shared memory: resample_runs
+    where 2L+1 <= 32 and its tile fits, else the direct stencil."""
     offs = tuple((p * Q) // P for p in range(P))
-    G, win, shared = rc._tile_geometry(P, Q, L, offs)
-    assert G >= 1 and win == (G - 1) * Q + max(offs) + 2 * L + 1
-    smem = 4 * win + (4 * P * (2 * L + 2) if shared else 0)
-    assert smem <= rc.SMEM_MAX
-    assert G * P >= min(rc.TILE_OUTPUTS, P) or not shared
+    tw, K, groups, KT, win, shared = rc._launch_geometry(P, Q, L, offs)
+    if tw:
+        assert tw >= 2 * L + 1 and KT % (32 * K) == 0
+        assert win == (KT - 1) * Q + max(offs) + tw
+        assert rc.run_smem(P, tw, KT, win) <= rc.RUN_SMEM_MAX
+        assert (groups == 0) == (Q <= 2)
+        assert KT * P >= P * (2 * L + 1)   # the raw taps fit the outputs
+    else:
+        G = KT
+        assert G >= 1 and win == (G - 1) * Q + max(offs) + 2 * L + 1
+        smem = 4 * win + (4 * P * (2 * L + 2) if shared else 0)
+        assert smem <= rc.SMEM_MAX
+        assert G * P >= min(rc.TILE_OUTPUTS, P) or not shared
 
 
 def test_tile_geometry_main_path_shapes():
-    assert rc._tile_geometry(3, 2, 10, (0, 0, 1)) == (683, 1386, True)
-    assert rc._tile_geometry(10, 1, 10, (0,) * 10) == (205, 225, True)
+    """Config #3 (3/2) and config #4 (x10) at one phase a lane, seven
+    blocks each, 24 and 40 tasks a tile (three and five a warp); the audio
+    path (160/147) walks eight groups of 20 phases, a tile of 32 blocks."""
+    assert rc._launch_geometry(3, 2, 10, (0, 0, 1)) == (
+        24, 7, 0, 1792, 3607, 1)
+    assert rc._launch_geometry(10, 1, 10, (0,) * 10) == (
+        24, 7, 0, 896, 919, 1)
     offs = tuple((p * 147) // 160 for p in range(160))
-    assert rc._tile_geometry(160, 147, 10, offs) == (13, 1931, True)
+    assert rc._launch_geometry(160, 147, 10, offs) == (
+        24, 1, 8, 32, 4727, 1)
+    assert rc._launch_geometry(1, 1, 16320, (0,))[0] == 0
 
 
 # ------------------------------------------------------- wrappers, routing
