@@ -27,9 +27,19 @@ and kernels ``kernels.resample_cuda.resample_direct_cuda`` and
 :class:`ChannelizeAndDemodPlanar`) with kernel
 ``kernels.channelizer_cuda.channelize_demod_cuda``.  Six kernels of the
 JAX package's six, in four CUDA libraries, one per ``csrc/*.cu``.
+And the typed core: the vector flavors (:class:`RealTimeVector` …,
+:class:`GenDspVector` and its erroneous-state protocol) and their
+constructors (``to_real_time_vec`` …), the matrix layer
+(:class:`DspMatrix` …, ``convolve_mat``), :class:`Statistics` with
+``merge_stats``, the approximations of ``ops.approx_ops``,
+:class:`DataDomain`/:class:`NumberSpace` and ``io`` (WAV files); a typed
+vector's operations call the ops above, so its ``convolve_signal`` and
+``interpolatef`` reach the same kernels.  The flagship chain's ``budget``
+keeps the JAX grammar and runs f32-exact under every budget.
 Entry points that build tensors (``WindowFunction.sample``,
-``interp_ops.polyphase_taps``, :class:`ModulationChainPlanar`) put them on
-the card unless the caller names a device.
+``interp_ops.polyphase_taps``, :class:`ModulationChainPlanar`, the vector
+and matrix constructors given numpy or list data) put them on the card
+unless the caller names a device.
 """
 from .config import (DspConfig, default_config, matmul_precision,
                      set_default_config, set_matmul_precision)
@@ -66,17 +76,45 @@ from .pipelines import (FirFftChainPlanar, ModulationChainPlanar,
 from .state import from_numpy
 from .windows import (BlackmanHarrisWindow, HammingWindow,
                       RectangularWindow, TriangularWindow, WindowFunction)
+from .meta import DataDomain, NumberSpace
+from .ops import approx_ops, stats_ops
+from .ops.stats_ops import (STATS_VEC_CAPACITY, Statistics, merge_stats,
+                            merge_stats_cols)
+from .vector import (ComplexFreqVector, ComplexTimeVector, DspVector,
+                     GenDspVector, RealFreqVector, RealTimeVector,
+                     interleave_to_complex_freq_vec,
+                     interleave_to_complex_time_vec, to_complex_freq_vec,
+                     to_complex_time_vec, to_gen_dsp_vec, to_real_freq_vec,
+                     to_real_time_vec)
+from .matrix import (ComplexFreqMatrix, ComplexTimeMatrix, DspMatrix,
+                     GenDspMatrix, RealFreqMatrix, RealTimeMatrix, from_rows,
+                     to_complex_freq_mat, to_complex_time_mat, to_gen_dsp_mat,
+                     to_mat, to_real_freq_mat, to_real_time_mat)
+from . import io
+
+__version__ = "0.1.0"
 
 __all__ = [
     "BlackmanHarrisWindow", "ChannelizeAndDemodPlanar",
+    "ComplexFreqMatrix", "ComplexFreqVector",
     "ComplexFrequencyLinearTableLookup",
     "ComplexFrequencyResponse", "ComplexImpulseResponse",
-    "ComplexTimeLinearTableLookup", "DspConfig", "DspError", "ErrorReason",
-    "FirFftChainPlanar", "HammingWindow", "ModulationChainPlanar",
-    "PerformanceError", "RaisedCosineFunction",
-    "RealFrequencyLinearTableLookup", "RealFrequencyResponse",
-    "RealImpulseResponse", "RealTimeLinearTableLookup", "RectangularWindow",
-    "SincFunction", "TriangularWindow", "WindowFunction",
+    "ComplexTimeLinearTableLookup", "ComplexTimeMatrix", "ComplexTimeVector",
+    "DataDomain", "DspConfig", "DspError", "DspMatrix", "DspVector",
+    "ErrorReason", "FirFftChainPlanar", "GenDspMatrix", "GenDspVector",
+    "HammingWindow", "ModulationChainPlanar", "NumberSpace",
+    "PerformanceError", "RaisedCosineFunction", "RealFreqMatrix",
+    "RealFreqVector", "RealFrequencyLinearTableLookup",
+    "RealFrequencyResponse", "RealImpulseResponse",
+    "RealTimeLinearTableLookup", "RealTimeMatrix", "RealTimeVector",
+    "RectangularWindow", "STATS_VEC_CAPACITY", "SincFunction", "Statistics",
+    "TriangularWindow", "WindowFunction", "approx_ops", "from_rows",
+    "interleave_to_complex_freq_vec", "interleave_to_complex_time_vec",
+    "io", "merge_stats", "merge_stats_cols", "stats_ops",
+    "to_complex_freq_mat", "to_complex_freq_vec", "to_complex_time_mat",
+    "to_complex_time_vec", "to_gen_dsp_mat", "to_gen_dsp_vec", "to_mat",
+    "to_real_freq_mat", "to_real_freq_vec", "to_real_time_mat",
+    "to_real_time_vec",
     "blocked_linear_conv_cuda", "blocked_linear_conv_plain",
     "channelize_and_demod", "channelize_and_demod_planar",
     "channelize_demod_cuda", "channelize_demod_plain",

@@ -1,10 +1,15 @@
 """Four-step (Bailey) factored FFT (counterpart of
-``basic_dsp_tpu/ops/fourstep.py``, DIF half).
+``basic_dsp_tpu/ops/fourstep.py``).
 
 DIF split: A[j1, j2] = x[j1*n2 + j2]; stage 1 is the n1-point DFT over
 columns as a matmul against a constant DFT matrix, then the big twiddle
 T[k1, j2] = w_N^(k1 j2), then the batched length-n2 FFT along rows; the
 natural output order is the (n1, n2) transpose.
+
+DIT dual (:func:`dit_spectrum_mag`): A[j2, j1] = x[j1 + n1*j2], rows of
+consecutive samples; stage 1 is the length-n2 FFT down the columns, then
+the twiddle, then the n1-point DFT as matmuls with the fftshift folded
+into the DFT matrix as a column rotation.
 
 The constant planes are built in host numpy in float64 and cast to
 float32, exactly as the JAX package builds them, so both packages compute
@@ -71,6 +76,57 @@ def _dif_twiddle_factored(n1: int, n2: int):
             np.ascontiguousarray(A.imag.astype(np.float32)),
             np.ascontiguousarray(B.real.astype(np.float32)),
             np.ascontiguousarray(B.imag.astype(np.float32)))
+
+
+@functools.lru_cache(maxsize=16)
+def _dit_planes(n1: int, n2: int, shift: bool):
+    """(F_re, F_im, T_re, T_im) numpy f32 planes for the DIT dual:
+    T[k2, j] = w_N^(j k2); F[j, k1] = w_n1^(j k1), with the spectrum's
+    fftshift folded in as a column rotation (k1 + n1/2) when ``shift``."""
+    N = n1 * n2
+    j = np.arange(n1)
+    k1 = (j + (n1 // 2 if shift else 0)) % n1
+    F = np.exp(-2j * np.pi * np.outer(j, k1) / n1).astype(np.complex64)
+    T = np.exp(-2j * np.pi * np.outer(np.arange(n2), j) / N
+               ).astype(np.complex64)
+    return (np.ascontiguousarray(F.real), np.ascontiguousarray(F.imag),
+            np.ascontiguousarray(T.real), np.ascontiguousarray(T.imag))
+
+
+@functools.lru_cache(maxsize=4)
+def _held_dit_planes(n1: int, n2: int, shift: bool, device: torch.device,
+                     dtype: torch.dtype) -> tuple:
+    """:func:`_dit_planes` on ``device`` in ``dtype``, copied once per
+    geometry, device and dtype (T is 2 x 16 MiB at 4M samples)."""
+    return tuple(torch.from_numpy(p).to(device, dtype)
+                 for p in _dit_planes(n1, n2, shift))
+
+
+def _cmatmul(ar, ai, br, bi):
+    """Complex matmul on real planes, four plain matmuls."""
+    rr = torch.matmul(ar, br)
+    ri = torch.matmul(ar, bi)
+    ir = torch.matmul(ai, br)
+    ii = torch.matmul(ai, bi)
+    return rr - ii, ri + ir
+
+
+def dit_spectrum_mag(xw: torch.Tensor, n1: int = 0,
+                     shift: bool = True) -> torch.Tensor:
+    """|fftshift(FFT(xw))| of the windowed signal ``xw`` by the DIT dual:
+    view as (n2, n1) rows of consecutive samples, ``torch.fft`` down the
+    columns, the precomputed twiddle, the DFT-n1 as four matmuls (fftshift
+    folded into the DFT matrix), then the magnitude transposed."""
+    n = xw.shape[-1]
+    n1, n2 = factor(n, n1)
+    G = torch.fft.fft(xw.reshape(n2, n1), dim=0)
+    # the planes promote to the signal's precision, as in JAX
+    Fr, Fi, Tr, Ti = _held_dit_planes(n1, n2, shift, xw.device,
+                                      G.real.dtype)
+    Hr = G.real * Tr - G.imag * Ti
+    Hi = G.real * Ti + G.imag * Tr
+    Er, Ei = _cmatmul(Hr, Hi, Fr, Fi)
+    return torch.sqrt(Er * Er + Ei * Ei).T.reshape(-1)
 
 
 @functools.lru_cache(maxsize=8)

@@ -69,17 +69,16 @@ def windowed_spectrum(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 
 
 def _check_budget(budget):
-    # Grammar of the JAX chain's per-stage precision budget: "high" = every
-    # dot reduced-precision, "-xla" / "-kernel" restrict it to the matmuls
-    # outside / inside the row kernel.
+    """Accepts the JAX chain's budget grammar: "high" reduces every dot,
+    "high-xla" and "high-kernel" only the dots outside and inside the
+    Pallas kernel.  Every budget runs f32-exact here, which is within the
+    error each one allows: K1 and K2 have no dot (FP32 butterflies), and
+    the FIR's and stage 1's float32 matmuls are both faster and more
+    accurate on the H100 than a 3xTF32 split of them (PERF.md, Findings)."""
     if budget not in BUDGETS:
         raise ValueError(
             f"unknown budget {budget!r}: expected None, 'high', "
             f"'high-xla' or 'high-kernel'")
-    if budget is not None:
-        raise NotImplementedError(
-            "fir_fft_chain_planar: reduced-precision budgets are not "
-            "ported yet; budget=None runs f32-exact")
 
 
 def _planar_chain(xr, xi, taps, bands, window, dft, Tfac, W, n1, n2):
@@ -128,7 +127,8 @@ def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
     FFT magnitude, complex data as (re, im) planes from entry to exit.
 
     Same math as :func:`fir_fft_chain` with real ``taps``.  ``budget``
-    keeps the JAX chain's grammar; only None (f32-exact) is ported.
+    keeps the JAX chain's grammar, and every budget runs f32-exact
+    (:func:`_check_budget`).
     ``fused=True`` runs stage 1 and the row stage as one launch
     (``spectrum_cuda.fourstep_mag_fused``, K2) instead of the stage-1
     matmuls and ``rowfft_mag`` (K1).  Builds the constants on every call;

@@ -65,15 +65,40 @@ Phases (any failure raises and exits non-zero):
    g. the fused spectrum chain: ``FirFftChainPlanar(..., fused=True)`` as
       in a (one K2 launch, no K1 launch), against the float64 oracle (<=
       5e-6); then ``fir_fft_chain_planar(..., fused=True)`` once;
-4. times with CUDA events (median of 20 after warm-up): every path, with
-   ``torch.profiler`` device time per kernel and the idle share; the fused
+   h. the typed vectors at full width: ``to_complex_time_vec`` of 2^22
+      complex64 samples (numpy seed 0, copied to the card by the
+      constructor) ``.convolve_signal`` with 384 complex taps (one K3
+      launch, against the float64 oracle <= 5e-6), then
+      ``.windowed_fft(HammingWindow()).magnitude()`` (<= 5e-6), then
+      ``.statistics()`` (<= 1e-5 of float64 on the host, indices exact)
+      and ``.sum_prec()`` (<= 1e-12 of ``math.fsum``); config #3's x1.5
+      through ``to_complex_time_vec(...).interpolatef`` (one K4 launch) and
+      the audio path's 160/147 through ``to_real_time_vec(...)`` (one K5
+      launch), against the float64 oracle (<= 5e-6);
+   i. a matrix: ``to_complex_time_mat`` of (8, 2^19) complex64 samples,
+      ``.fft().magnitude().statistics()`` (8 ``Statistics`` from one host
+      fetch, against float64) and ``.convolve_mat`` with an (8, 8, 33)
+      complex grid against a float64 einsum oracle (<= 5e-6); no kernel;
+   j. the flagship API: ``fourstep.dit_spectrum_mag`` at 2^22 (<= 5e-6,
+      no kernel); ``fir_fft_chain_planar`` with each budget (None, "high",
+      "high-xla", "high-kernel"), unfused (one K1 launch each) and fused
+      (one K2 launch each), against the float64 oracle (<= 5e-6, every
+      budget bit-equal to None: all run f32-exact); then budget None again
+      with TF32 off afterwards;
+4. times with CUDA events (median of 20 after warm-up): every path (the
+   DIT spectrum among them, its planes held on the card after its first
+   call), with ``torch.profiler`` device time per kernel and the idle
+   share; the fused
    chain against the unfused one in turns; each kernel against its plain
    version and its library call (one PyTorch call computing the same
    function, where there is one) in turns, and its device time from
    ``torch.profiler`` (K3 also with its taps' spectrum H computed in the
    call, and against the block call ``ifft(fft(blocks) * H)`` that was its
    yardstick before its library call became the whole-signal
-   ``ifft(fft(x) * Hn)``); and each kernel's bound, the
+   ``ifft(fft(x) * Hn)``); the typed path of h against the same ops
+   called as functions, in turns (the typed layer's host overhead);
+   ``budget="high"`` against None, unfused and fused, in turns; and each
+   kernel's bound, the
    larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
    over 67 TFLOP/s, from this run's shapes.
 
@@ -82,6 +107,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
 import json
+import math
 import subprocess
 import sys
 import time
@@ -108,6 +134,10 @@ OS_GEOMETRIES = [(4096, 33, 1024), (8192, 129, 2048), (5000, 63, 1024),
                  (1 << 20, 4097, 16384), (700, 129, 1024), (5001, 63, 1024)]
 KERNEL_TOL = 2e-6
 CHAIN_TOL = 5e-6
+STATS_TOL = 1e-5
+PREC_TOL = 1e-12
+MAT_ROWS, MAT_N, MAT_TAPS = 8, 1 << 19, 33
+BUDGETS = (None, "high", "high-xla", "high-kernel")
 REPS = 20
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32 outside the
 # tensor cores.
@@ -720,6 +750,188 @@ def main():
     assert sc.rowfft_mag.launches == 0
     del ref, got, out
 
+    # 3h. the typed vectors at full width: K3, K4 and K5 through the
+    # vector layer
+    rng0 = np.random.default_rng(0)
+    xh_np = (rng0.standard_normal(N)
+             + 1j * rng0.standard_normal(N)).astype(np.complex64)
+    vh = bt.to_complex_time_vec(xh_np)
+    imp = bt.to_complex_time_vec(h.cpu().numpy())
+    assert vh.array.device.type == "cuda" and imp.array.device.type == "cuda"
+    xh = vh.array
+    conv_ref = conv_oracle(xh.real, xh.imag, h)
+    reset_counts()
+    yh = vh.convolve_signal(imp)
+    torch.cuda.synchronize()
+    typed_os = osc.conv_blocks_cuda.launches
+    print(f"main path: ComplexTimeVector.convolve_signal n={N}, {CONV_TAPS} "
+          f"complex taps, conv_blocks_cuda launches: {typed_os}, other "
+          f"kernels: {other_launches() - typed_os}")
+    assert typed_os == 1, "the typed convolution did not launch K3 once"
+    assert other_launches() == 1
+    assert isinstance(yh, bt.ComplexTimeVector) and yh.points() == N
+    assert yh.array.dtype == torch.complex64
+    assert bool(torch.isfinite(torch.view_as_real(yh.array)).all())
+    err = rel_err(yh.array.to(torch.complex128), conv_ref)
+    print(f"typed convolve_signal vs float64 oracle: {err:.3e} relative to "
+          f"max (tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    w64 = bt.HammingWindow().sample(N, dtype=torch.float64, device=dev)
+    spec_ref = torch.fft.fftshift(torch.fft.fft(conv_ref * w64)).abs()
+    del conv_ref
+    mh = yh.windowed_fft(bt.HammingWindow()).magnitude()
+    torch.cuda.synchronize()
+    assert isinstance(mh, bt.RealFreqVector) and mh.points() == N
+    err = rel_err(mh.array.double(), spec_ref)
+    print(f"typed windowed_fft().magnitude() vs float64 oracle: {err:.3e} "
+          f"relative to max (tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    del spec_ref
+    m64 = mh.to_numpy().astype(np.float64)
+    st = mh.statistics()
+    want = {"sum": m64.sum(), "average": m64.mean(),
+            "rms": math.sqrt(np.mean(m64 * m64)), "min": m64.min(),
+            "max": m64.max()}
+    st_err = max(abs(getattr(st, k) - v) / abs(v) for k, v in want.items())
+    print(f"typed statistics() vs float64 on the host: {st_err:.3e} "
+          f"relative (tol {STATS_TOL}), count {st.count}, min index "
+          f"{st.min_index}, max index {st.max_index}")
+    assert st_err <= STATS_TOL and st.count == N, st
+    assert (st.min_index, st.max_index) == (int(m64.argmin()),
+                                            int(m64.argmax()))
+    exact = math.fsum(m64)
+    prec_err = abs(mh.sum_prec() - exact) / abs(exact)
+    print(f"typed sum_prec() vs math.fsum: {prec_err:.3e} relative "
+          f"(tol {PREC_TOL})")
+    assert prec_err <= PREC_TOL, prec_err
+    del m64, mh
+    reset_counts()
+    y4v = bt.to_complex_time_vec(x3).interpolatef(sinc, 1.5, 0.0, 10)
+    torch.cuda.synchronize()
+    typed_k4 = rsc.resample_direct_cuda.launches
+    k5_in_k4_run = rsc.resample_rowblock_cuda.launches
+    err = rel_err(y4v.array.to(torch.complex128),
+                  resample_oracle(x3, sinc, 3, 2, 10, CFG3_N * 3 // 2))
+    print(f"main path: ComplexTimeVector.interpolatef x1.5 of {CFG3_N}, "
+          f"resample_direct_cuda launches: {typed_k4}, resample_rowblock_"
+          f"cuda: {k5_in_k4_run}; vs float64 oracle {err:.3e} (tol {CHAIN_TOL})")
+    assert typed_k4 == 1 and other_launches() == 1, "typed x1.5: not one K4"
+    assert y4v.points() == CFG3_N * 3 // 2 and err <= CHAIN_TOL, err
+    del y4v
+    reset_counts()
+    y5v = bt.to_real_time_vec(xa).interpolatef(sinc, 160 / 147, 0.0, 10)
+    torch.cuda.synchronize()
+    typed_k5 = rsc.resample_rowblock_cuda.launches
+    err = rel_err(y5v.array.double(),
+                  resample_oracle(xa, sinc, 160, 147, 10, audio_len))
+    print(f"main path: RealTimeVector.interpolatef 160/147 of {AUDIO_N}, "
+          f"resample_rowblock_cuda launches: {typed_k5}, other kernels: "
+          f"{other_launches() - typed_k5}; vs float64 oracle {err:.3e} "
+          f"(tol {CHAIN_TOL})")
+    assert typed_k5 == 1 and other_launches() == 1, "typed 160/147: not K5"
+    assert y5v.points() == audio_len and err <= CHAIN_TOL, err
+    del y5v
+
+    # 3i. a matrix: batched FFT, per-row statistics from one host fetch,
+    # the MIMO convolution
+    from basic_dsp_tpu_torch.ops import stats_ops as tst
+    rngm = np.random.default_rng(0)
+    xm_np = (rngm.standard_normal((MAT_ROWS, MAT_N))
+             + 1j * rngm.standard_normal((MAT_ROWS, MAT_N))).astype(
+                 np.complex64)
+    grid = (rngm.standard_normal((MAT_ROWS, MAT_ROWS, MAT_TAPS))
+            + 1j * rngm.standard_normal((MAT_ROWS, MAT_ROWS, MAT_TAPS))
+            ).astype(np.complex64)
+    mat = bt.to_complex_time_mat(xm_np)
+    x64 = mat.array.to(torch.complex128)
+    fetches, host = [], tst._host
+    tst._host = lambda t: fetches.append(tuple(t.shape)) or host(t)
+    reset_counts()
+    try:
+        stats8 = mat.fft().magnitude().statistics()
+    finally:
+        tst._host = host
+    mag64 = torch.fft.fftshift(torch.fft.fft(x64, dim=-1), dim=-1).abs()
+    mat_err = 0.0
+    for i, s8 in enumerate(stats8):
+        row = mag64[i]
+        hi, lo = float(row.max()), float(row.min())
+        mat_err = max(mat_err,
+                      abs(s8.sum - float(row.sum())) / float(row.sum()),
+                      abs(s8.rms - float(row.square().mean().sqrt()))
+                      / hi,
+                      abs(s8.max - hi) / hi, abs(s8.min - lo) / hi,
+                      abs(float(row[s8.max_index]) - hi) / hi,
+                      abs(float(row[s8.min_index]) - lo) / hi)
+    print(f"matrix ({MAT_ROWS}, {MAT_N}) fft().magnitude().statistics(): "
+          f"{len(stats8)} Statistics from {len(fetches)} host fetch(es) "
+          f"{fetches}, {mat_err:.3e} relative to float64 (tol {STATS_TOL})")
+    assert len(stats8) == MAT_ROWS and len(fetches) == 1
+    assert mat_err <= STATS_TOL, mat_err
+    del mag64
+    out_m = mat.convolve_mat(grid)
+    torch.cuda.synchronize()
+    g64 = torch.from_numpy(grid).to(dev, torch.complex128)
+    ref_m = torch.fft.ifft(torch.einsum(
+        "crn,rn->cn", torch.fft.fft(conv_ops.kernel_layout(g64, MAT_N)),
+        torch.fft.fft(x64, dim=-1)), dim=-1)
+    err = rel_err(out_m.array.to(torch.complex128), ref_m)
+    print(f"matrix convolve_mat ({MAT_ROWS}, {MAT_ROWS}, {MAT_TAPS}) grid vs "
+          f"float64 einsum oracle: {err:.3e} relative to max (tol "
+          f"{CHAIN_TOL}); kernel launches: {other_launches()}")
+    assert isinstance(out_m, bt.ComplexTimeMatrix)
+    assert err <= CHAIN_TOL and other_launches() == 0, err
+    del x64, g64, ref_m, out_m, mat
+
+    # 3j. the flagship API: the DIT spectrum and the budgets
+    xw = torch.complex(xr, xi) * window
+    ref_nofir = oracle(xr, xi, taps, window, fir=False)
+    reset_counts()
+    dit = fourstep.dit_spectrum_mag(xw)
+    torch.cuda.synchronize()
+    err = rel_err(dit.double(), ref_nofir)
+    print(f"fourstep.dit_spectrum_mag n={N} vs float64 oracle: {err:.3e} "
+          f"(tol {CHAIN_TOL}); kernel launches: {other_launches()}")
+    assert dit.shape == (N,) and err <= CHAIN_TOL, err
+    assert other_launches() == 0
+    del ref_nofir, dit
+    ref = oracle(xr, xi, taps, window)
+    for fused in (False, True):
+        outs = {}
+        counter = sc.fourstep_mag_fused if fused else sc.rowfft_mag
+        for budget in BUDGETS:
+            reset_counts()
+            outs[budget] = bt.fir_fft_chain_planar(xr, xi, taps, window,
+                                                   budget=budget, fused=fused)
+            torch.cuda.synchronize()
+            launches = (sc.rowfft_mag.launches,
+                        sc.fourstep_mag_fused.launches, other_launches())
+            err = rel_err(outs[budget].double(), ref)
+            print(f"main path: fir_fft_chain_planar(budget={budget!r}, "
+                  f"fused={fused}) rowfft_mag launches: {launches[0]}, "
+                  f"fourstep_mag_fused launches: {launches[1]}, K1-K5 together: "
+                  f"{launches[2]}; vs float64 oracle: {err:.3e} relative to "
+                  f"max (tol {CHAIN_TOL}); allow_tf32 after: "
+                  f"{torch.backends.cuda.matmul.allow_tf32}")
+            assert counter.launches == 1 and launches[2] == 1, (
+                budget, fused, launches)
+            assert chc.channelize_demod_cuda.launches == 0
+            assert err <= CHAIN_TOL, (budget, fused, err)
+            assert torch.equal(outs[budget], outs[None]), (budget, fused)
+            assert torch.backends.cuda.matmul.allow_tf32 is False
+        del outs
+    out = bt.fir_fft_chain_planar(xr, xi, taps, window)
+    torch.cuda.synchronize()
+    err = rel_err(out.double(), ref)
+    print(f"fir_fft_chain_planar(budget=None) after the budgets: {err:.3e} "
+          f"(tol {CHAIN_TOL}), allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul "
+          f"precision {torch.get_float32_matmul_precision()!r}")
+    assert err <= CHAIN_TOL, err
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
+    del ref, out
+
     # 4. times (CUDA events, median of REPS after warm-up)
     x = torch.complex(xr, xi)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
@@ -745,6 +957,8 @@ def main():
                                                         CHAN_C)),
         ("config #5: ChannelizeAndDemodPlanar (taps held)", CHAN_N,
          lambda: chan5(xr5, xi5)),
+        ("flagship: fourstep.dit_spectrum_mag, 2^22 (planes held)", N,
+         lambda: fourstep.dit_spectrum_mag(xw)),
     ]
     for name, outputs, fn in paths:
         ms = median_ms(fn)
@@ -769,6 +983,39 @@ def main():
                        "fused": lambda: chain_f(xr, xi)}, smi)
     print(f"config #1 chain: unfused {N / chains['unfused'] / 1e3:.1f}, "
           f"fused {N / chains['fused'] / 1e3:.1f} Msamples/s on {smi}")
+
+    # The typed layer against the same ops called as functions.
+    hamming = bt.HammingWindow()
+
+    def functions_path():
+        y = conv_ops.convolve_signal(xh, h, True)
+        w = hamming.sample(N, dtype=torch.float32, device=dev)
+        return torch.abs(bt.fft_ops.fft_shifted(y * w))
+
+    def typed_path():
+        return vh.convolve_signal(imp).windowed_fft(hamming).magnitude()
+
+    typed = in_turns(f"typed path (convolve_signal, {CONV_TAPS} taps -> "
+                     f"windowed_fft -> magnitude, 2^22) against the same ops "
+                     f"as functions", {"functions": functions_path,
+                                       "typed": typed_path}, smi)
+    print(f"typed layer: {(typed['typed'] - typed['functions']) * 1e3:.1f} "
+          f"us a call above the functions on {smi}")
+    for label, fn in (("functions", functions_path), ("typed", typed_path)):
+        dev_ms, _ = device_ms_per_call(fn)
+        print(f"typed path, {label}: device {dev_ms:.4f} ms/call "
+              f"(torch.profiler, 10 calls)")
+
+    # budget="high" against None (both f32-exact), in turns.
+    for fused in (False, True):
+        in_turns(f"fir_fft_chain_planar(fused={fused}) budget, 2^22, 128 "
+                 f"taps", {
+                     "None": lambda: bt.fir_fft_chain_planar(
+                         xr, xi, taps, window, fused=fused),
+                     "high": lambda: bt.fir_fft_chain_planar(
+                         xr, xi, taps, window, budget="high", fused=fused)},
+                 smi)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
 
     # Each kernel at its main path's shape: kernel, plain version and
     # library call in turns, and its bound from the same tensors.

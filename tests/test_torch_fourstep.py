@@ -135,3 +135,25 @@ def test_stage1_planar_matches_complex_matmul():
                                  torch.zeros(n1, n2))
     np.testing.assert_array_equal(Br0.numpy(), Brz.numpy())
     np.testing.assert_array_equal(Bi0.numpy(), Biz.numpy())
+
+
+@pytest.mark.parametrize("shift", [True, False])
+@pytest.mark.parametrize("n", [1 << 12, 1 << 14])
+def test_dit_spectrum_mag_matches_jax(n, shift):
+    """The DIT dual (tests/test_fourstep_pipeline.py:24,35): against JAX's
+    and numpy's |fftshift(fft(x))| (or |fft(x)|) to 2e-6 relative."""
+    rng = np.random.default_rng(n + 1)
+    x = (rng.uniform(-10, 10, n) + 1j * rng.uniform(-10, 10, n)).astype(
+        np.complex64)
+    ref = np.asarray(jfs.dit_spectrum_mag(jnp.asarray(x), shift=shift))
+    got = tfs.dit_spectrum_mag(torch.from_numpy(x), shift=shift)
+    exp = np.abs(np.fft.fft(x.astype(np.complex128)))
+    exp = np.fft.fftshift(exp) if shift else exp
+    assert got.shape == ref.shape == exp.shape
+    assert got.dtype == torch.float32
+    assert np.max(np.abs(got.numpy() - ref)) / ref.max() <= TOL
+    assert np.max(np.abs(got.numpy() - exp)) / exp.max() <= TOL
+    n1, n2 = tfs.factor(n)
+    for a, b in zip(tfs._dit_planes(n1, n2, shift),
+                    jfs._dit_planes(n1, n2, shift)):
+        np.testing.assert_array_equal(a, b)

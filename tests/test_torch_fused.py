@@ -189,10 +189,12 @@ def test_fused_chain_refusals():
         bt.fir_fft_chain_planar(xr, xi, taps, window, n1=12, fused=True)
     with pytest.raises(ValueError):
         bt.FirFftChainPlanar(taps, window, n1=12, fused=True)
+    # every budget runs fused, f32-exact
+    exact = bt.fir_fft_chain_planar(xr, xi, taps, window, n1=24, fused=True)
     for budget in ("high", "high-xla", "high-kernel"):
-        with pytest.raises(NotImplementedError):
-            bt.fir_fft_chain_planar(xr, xi, taps, window, n1=24,
-                                    budget=budget, fused=True)
+        got = bt.fir_fft_chain_planar(xr, xi, taps, window, n1=24,
+                                      budget=budget, fused=True)
+        assert torch.equal(got, exact)
 
 
 def test_fused_operands_align_a_and_the_twiddle_planes():

@@ -139,23 +139,78 @@ def test_windowed_spectrum_other_paths_match_jax(n):
 
 
 def test_budget_grammar():
+    """The JAX chain's budget grammar: an unknown budget raises, and every
+    budget runs f32-exact, the same computation as None."""
     xr, xi, taps, window = (torch.from_numpy(a)
                             for a in _params(n=1 << 15, m=7))
     with pytest.raises(ValueError):
         bt.fir_fft_chain_planar(xr, xi, taps, window, budget="low")
+    exact = bt.fir_fft_chain_planar(xr, xi, taps, window)
     for budget in ("high", "high-xla", "high-kernel"):
-        with pytest.raises(NotImplementedError):
+        assert torch.equal(bt.fir_fft_chain_planar(
+            xr, xi, taps, window, budget=budget), exact)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("budget", [None, "high", "high-xla", "high-kernel"])
+def test_budget_matches_jax(budget, fused):
+    """Each budget against the JAX chain's own (its Pallas kernels in
+    interpret mode) to 5e-5 relative to the maximum, the grade
+    tests/test_pallas_spectrum.py holds "high" to, fused and unfused."""
+    xr, xi, taps, window = _params(n=1 << 15, m=M, seed=3)
+    ref = np.asarray(jpl.fir_fft_chain_planar(
+        jnp.asarray(xr), jnp.asarray(xi), jnp.asarray(taps),
+        jnp.asarray(window), interpret=True, budget=budget, fused=fused))
+    got = bt.fir_fft_chain_planar(
+        *(torch.from_numpy(a) for a in (xr, xi, taps, window)),
+        budget=budget, fused=fused)
+    assert _rel(got.numpy(), ref) <= 5e-5
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("budget", ["high", "high-xla", "high-kernel"])
+def test_budget_equals_held_chain(budget, fused):
+    """Every budget computes what :class:`FirFftChainPlanar` (which has no
+    budget) computes from its held constants."""
+    xr, xi, taps, window = (torch.from_numpy(a)
+                            for a in _params(n=1 << 15, m=7, seed=5))
+    got = bt.fir_fft_chain_planar(xr, xi, taps, window, budget=budget,
+                                  fused=fused)
+    held = bt.FirFftChainPlanar(taps, window, fused=fused)(xr, xi)
+    assert torch.equal(got, held)
+
+
+def test_tf32_restored_after_a_call_that_raised(monkeypatch):
+    """A budget call leaves the process's matmul settings (TF32 off,
+    "highest") as they were, inside the call and after it raised."""
+    from basic_dsp_tpu_torch import config
+    from basic_dsp_tpu_torch.ops import conv_ops
+    xr, xi, taps, window = (torch.from_numpy(a)
+                            for a in _params(n=1 << 15, m=7))
+    seen = []
+
+    def failing(*args, **kw):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.get_float32_matmul_precision()))
+        raise RuntimeError("inside the chain")
+    monkeypatch.setattr(conv_ops, "toeplitz_conv_planar", failing)
+    for budget in ("high", None):
+        with pytest.raises(RuntimeError):
             bt.fir_fft_chain_planar(xr, xi, taps, window, budget=budget)
+    assert seen == [(False, "highest")] * 2
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert config.matmul_precision() == "highest"
 
 
 def test_unported_paths_raise():
-    """Reduced-precision budgets and lengths outside the row kernel's
-    geometry raise; fir_fft_chain's overlap-save FIR (taps > 202) is
-    ported and no longer does (its parity: test_torch_conv_dispatch)."""
+    """Lengths outside the row kernel's geometry raise; the budgets and
+    fir_fft_chain's overlap-save FIR (taps > 202) are ported and no longer
+    do (their parity: test_budget_matches_jax, test_torch_conv_dispatch)."""
     xr, _, taps, window = (torch.from_numpy(a)
                            for a in _params(n=1 << 15, m=7))
-    with pytest.raises(NotImplementedError):
-        bt.fir_fft_chain_planar(xr, xr, taps, window, budget="high")
+    out = bt.fir_fft_chain_planar(xr, xr, taps, window, budget="high")
+    assert out.shape == xr.shape and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError):
         bt.FirFftChainPlanar(taps, torch.ones(1000))
     out = bt.fir_fft_chain(xr, torch.ones(300) / 300, window)
