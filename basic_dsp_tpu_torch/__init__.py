@@ -40,8 +40,20 @@ Entry points that build tensors (``WindowFunction.sample``,
 ``interp_ops.polyphase_taps``, :class:`ModulationChainPlanar`, the vector
 and matrix constructors given numpy or list data) put them on the card
 unless the caller names a device.
+Also ``streaming`` (:class:`streaming.StreamingFir` on K3 in linear
+mode, :class:`streaming.StreamingResampler` on K4 and K5), ``autotune``
+(the dispatch knobs calibrated per device kind, lazily at a typed vector's
+first large convolution), ``profiling`` (``time_op``, ``throughput``,
+``trace``), and the sharded functions on ``torch.distributed``:
+:func:`make_mesh` and ``config.distributed_init``, ``parallel.collectives``
+(the halo shifts as point-to-point sends between ring neighbours),
+``parallel.sharded`` (``sharded_convolve_signal`` on K3,
+``sharded_interpolatef`` on K4 and K5, ``sharded_sum``,
+``sharded_statistics``) and :func:`sharded_channelize_and_demod` (K6 with
+the left neighbour's halo as its look-back prefix).  A mesh runs on the
+card over NCCL unless the caller names ``device_type="cpu"`` (gloo).
 """
-from .config import (DspConfig, default_config, matmul_precision,
+from .config import (DspConfig, default_config, make_mesh, matmul_precision,
                      set_default_config, set_matmul_precision)
 from .errors import DspError, ErrorReason, PerformanceError
 from .conv_types import (ComplexFrequencyLinearTableLookup,
@@ -69,7 +81,7 @@ from .ops import conv_ops, fft_ops, fourstep, interp_ops, reorg_ops
 from . import parallel
 from .parallel import (ChannelizeAndDemodPlanar, channelize_and_demod,
                        channelize_and_demod_planar, fm_demodulate,
-                       polyphase_channelizer)
+                       polyphase_channelizer, sharded_channelize_and_demod)
 from .pipelines import (FirFftChainPlanar, ModulationChainPlanar,
                         fir_fft_chain, fir_fft_chain_planar,
                         modulation_chain_planar, windowed_spectrum)
@@ -90,6 +102,7 @@ from .matrix import (ComplexFreqMatrix, ComplexTimeMatrix, DspMatrix,
                      GenDspMatrix, RealFreqMatrix, RealTimeMatrix, from_rows,
                      to_complex_freq_mat, to_complex_time_mat, to_gen_dsp_mat,
                      to_mat, to_real_freq_mat, to_real_time_mat)
+from . import autotune
 from . import io
 
 __version__ = "0.1.0"
@@ -110,7 +123,8 @@ __all__ = [
     "RectangularWindow", "STATS_VEC_CAPACITY", "SincFunction", "Statistics",
     "TriangularWindow", "WindowFunction", "approx_ops", "from_rows",
     "interleave_to_complex_freq_vec", "interleave_to_complex_time_vec",
-    "io", "merge_stats", "merge_stats_cols", "stats_ops",
+    "autotune", "io", "make_mesh", "merge_stats", "merge_stats_cols",
+    "stats_ops",
     "to_complex_freq_mat", "to_complex_freq_vec", "to_complex_time_mat",
     "to_complex_time_vec", "to_gen_dsp_mat", "to_gen_dsp_vec", "to_mat",
     "to_real_freq_mat", "to_real_freq_vec", "to_real_time_mat",
@@ -127,6 +141,7 @@ __all__ = [
     "polyphase_channelizer", "reorg_ops", "resample_direct_cuda",
     "resample_direct_plain", "resample_rowblock_cuda",
     "resample_rowblock_plain", "rowfft_mag", "rowfft_mag_plain",
-    "set_default_config", "set_matmul_precision", "supported",
+    "set_default_config", "set_matmul_precision",
+    "sharded_channelize_and_demod", "supported",
     "windowed_spectrum",
 ]

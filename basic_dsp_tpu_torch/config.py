@@ -1,15 +1,19 @@
 """Runtime configuration of the PyTorch port.
 
 Counterpart of ``basic_dsp_tpu/config.py``: the dispatch thresholds of
-``DspConfig`` and the matmul-precision dial.  There are no kernel gates:
-a wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
-PyTorch version for a CPU tensor, so the tensor's device picks the path.
+``DspConfig``, the matmul-precision dial, and the device mesh of the
+sharded functions (:func:`make_mesh`, :func:`distributed_init`) on
+``torch.distributed``.  There are no kernel gates: a wrapper launches its
+CUDA kernel for a CUDA tensor and runs its plain PyTorch version for a CPU
+tensor, so the tensor's device picks the path.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -99,3 +103,97 @@ def set_matmul_precision(precision: str) -> None:
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 set_matmul_precision(_matmul_precision)
+
+
+def _mesh_device_type(device_type: Optional[str]) -> str:
+    """The device type of a mesh: "cuda" (NCCL) unless the caller names
+    "cpu" (gloo).  The default raises without CUDA; it never carries on
+    over gloo."""
+    if device_type is None:
+        device_type = "cuda"
+    if device_type not in ("cuda", "cpu"):
+        raise ValueError(f"device_type must be 'cuda' or 'cpu', got "
+                         f"{device_type!r}")
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: meshes run on the card over NCCL "
+                           "by default; pass device_type='cpu' for a gloo "
+                           "mesh on the CPU")
+    return device_type
+
+
+_BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              axis_name: str = "dsp",
+              shape: Optional[Tuple[int, ...]] = None,
+              axis_names: Tuple[str, ...] = ("host", "chip"),
+              device_type: Optional[str] = None):
+    """The device mesh over which long signals and channels shard: a
+    ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the
+    initialized process group, one device a rank.
+
+    Two forms, as in the JAX package:
+
+    * ``make_mesh(n)``: a 1-D mesh of ranks 0..n-1 (all ranks when None),
+      axis ``axis_name``;
+    * ``make_mesh(shape=(H, C))``: a hierarchical ``(host, chip)`` mesh of
+      H x C ranks, axes ``axis_names`` outermost-first, rank h*C + c at
+      (h, c).  The sharded functions shard over every mesh axis,
+      host-major, so the same call works on either form.
+
+    ``device_type`` "cuda" (the default; raises without CUDA) needs an
+    NCCL process group, "cpu" a gloo one: a mesh never runs over another
+    backend than its device's.  Every rank of the group calls this with
+    the same arguments."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = _mesh_device_type(device_type)
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: torch.distributed is not initialized; "
+                           "call config.distributed_init (or "
+                           "torch.distributed.init_process_group) in every "
+                           "process first")
+    backend = str(dist.get_backend())
+    if _BACKENDS[device_type] not in backend:
+        raise RuntimeError(f"make_mesh: a {device_type} mesh needs the "
+                           f"{_BACKENDS[device_type]} backend; the process "
+                           f"group runs {backend}")
+    world = dist.get_world_size()
+    if shape is not None:
+        total = int(np.prod(shape))
+        if world < total:
+            raise ValueError(f"mesh shape {shape} needs {total} devices, "
+                             f"only {world} visible")
+        if len(shape) != len(axis_names):
+            raise ValueError("shape and axis_names must have equal length")
+        return DeviceMesh(device_type, torch.arange(total).reshape(shape),
+                          mesh_dim_names=tuple(axis_names))
+    n = world if n_devices is None else min(int(n_devices), world)
+    return DeviceMesh(device_type, torch.arange(n),
+                      mesh_dim_names=(axis_name,))
+
+
+def distributed_init(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     device_type: Optional[str] = None) -> None:
+    """Initializes ``torch.distributed`` so that :func:`make_mesh` spans
+    every process: one process a device, NCCL for "cuda" (the default;
+    raises without CUDA), gloo for "cpu".  ``coordinator_address``
+    ("host:port") is rank 0's TCP store; None reads ``MASTER_ADDR`` /
+    ``MASTER_PORT``, and a None count or id ``WORLD_SIZE`` / ``RANK``
+    (``env://``).  A CUDA process takes device ``rank % device_count()``.
+    Call once per process before building a mesh."""
+    import torch.distributed as dist
+
+    device_type = _mesh_device_type(device_type)
+    init_method = (f"tcp://{coordinator_address}" if coordinator_address
+                   else "env://")
+    dist.init_process_group(
+        _BACKENDS[device_type], init_method=init_method,
+        world_size=-1 if num_processes is None else int(num_processes),
+        rank=-1 if process_id is None else int(process_id))
+    if device_type == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())

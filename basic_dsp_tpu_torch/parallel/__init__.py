@@ -1,10 +1,22 @@
-"""Channelizer of the port (counterpart of ``basic_dsp_tpu/parallel``): the
-polyphase filterbank and FM demod on one device.  The mesh-sharded
-functions of the JAX package are not ported yet."""
+"""Multi-device execution on ``torch.distributed`` (counterpart of
+``basic_dsp_tpu/parallel``): the polyphase channelizer and FM demod, and
+the sharded functions over a device mesh (``config.make_mesh``).  Sample
+blocks become shards of a ``DTensor``; the overlap that a block-wise
+convolution, resampler or filterbank carries between blocks becomes a
+point-to-point halo exchange between ring neighbours
+(``collectives.shift_from_left/right``); the mergeable statistics partials
+cross in one all-gather.  ``sharded_fft`` and ``mimo`` are not ported
+yet."""
+from . import collectives
 from .channelizer import (ChannelizeAndDemodPlanar, channelize_and_demod,
                           channelize_and_demod_planar, fm_demodulate,
-                          polyphase_channelizer)
+                          polyphase_channelizer,
+                          sharded_channelize_and_demod)
+from .sharded import (shard_time_axis, sharded_convolve_signal,
+                      sharded_interpolatef, sharded_statistics, sharded_sum)
 
 __all__ = ["ChannelizeAndDemodPlanar", "channelize_and_demod",
-           "channelize_and_demod_planar", "fm_demodulate",
-           "polyphase_channelizer"]
+           "channelize_and_demod_planar", "collectives", "fm_demodulate",
+           "polyphase_channelizer", "shard_time_axis",
+           "sharded_channelize_and_demod", "sharded_convolve_signal",
+           "sharded_interpolatef", "sharded_statistics", "sharded_sum"]

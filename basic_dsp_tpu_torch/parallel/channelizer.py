@@ -2,6 +2,10 @@
 config (BASELINE.md config #5); counterpart of
 ``basic_dsp_tpu/parallel/channelizer.py`` on one device.
 
+With a mesh, :func:`sharded_channelize_and_demod` shards the sample axis
+and runs the same core on each rank's rows, K6 with the left neighbour's
+halo as its look-back ``prefix`` on the card.
+
 The filterbank runs in (samples, channels) row layout: the polyphase split
 is a reshape of the signal into rows of C samples, the per-phase FIR a
 stencil of whole-row offset slices against the merged tap matrix
@@ -193,3 +197,65 @@ class ChannelizeAndDemodPlanar(torch.nn.Module):
             raise ValueError(f"expected two equal 1-D planes, got "
                              f"{tuple(xr.shape)} and {tuple(xi.shape)}")
         return _demod_planar(xr, xi, self.taps_merged, self.n_channels)
+
+
+def sharded_channelize_and_demod(x, prototype: torch.Tensor,
+                                 n_channels: int, mesh, axis_name=None):
+    """Mesh-parallel channelizer + FM demod, sharded over the *sample* axis
+    (JAX ``sharded_channelize_and_demod``).
+
+    Each rank holds a contiguous block of samples, i.e. rows of the
+    (samples, phases) polyphase matrix; the per-phase FIR and the demod
+    need the left neighbour's last t + 1 rows (t taps per phase, one row of
+    demod look-back), which cross once with ``shift_from_left(wrap=False)``
+    (the global first rank gets zeros: the causal start).  The DFT runs
+    along the local phase axis: no other communication.
+
+    ``x``: a ``DTensor`` sharded on time or a tensor replicated on every
+    rank.  float32 CUDA shards at a geometry K6 admits run K6
+    (``channelize_demod_cuda``) on the local rows with the halo, padded
+    with zero rows on top, as its (HALO_ROWS, C) ``prefix``; other shards
+    run the generic row path.  Returns the (n_channels, n // n_channels)
+    angles as a ``DTensor`` with ``Shard(-1)``, equal to
+    :func:`channelize_and_demod`."""
+    from . import collectives, sharded
+    axis_name = collectives.resolve_axes(mesh, axis_name)
+    C = n_channels
+    n = x.shape[-1]
+    d = collectives.mesh_size(mesh, axis_name)
+    if n % C != 0:
+        raise ValueError(f"signal length {n} not divisible by {C} channels; "
+                         f"the polyphase split needs n % channels == 0 — "
+                         f"zero-pad the signal first (docs/API.md, "
+                         f"divisibility contract)")
+    S = n // C
+    if S % d != 0:
+        raise ValueError(f"rows {S} not divisible by mesh size {d}; need "
+                         f"(n/channels) % n_devices == 0 — pad the signal or "
+                         f"use a submesh (docs/API.md, divisibility contract)")
+    t = prototype.shape[-1] // C
+    if S // d < t + 1:
+        raise ValueError("shard shorter than FIR+demod halo; "
+                         "use fewer devices")
+    xb, _ = sharded._local(x, mesh, axis_name)
+    taps_merged = _merged_tap_rows(_prototype_on(prototype, xb), C)
+    halo_n = (t + 1) * C
+    with collectives.on_mesh(mesh):
+        halo = collectives.shift_from_left(xb[-halo_n:], axis_name,
+                                           wrap=False)
+    xr, xi = _planes(xb)
+    s_loc = S // d
+    if _kernel_eligible(xr, xi, C, s_loc, t):
+        hr, hi = _planes(halo)
+        pad = torch.zeros((channelizer_cuda.HALO_ROWS - (t + 1), C),
+                          dtype=xr.dtype, device=xr.device)
+        prefix = (torch.cat([pad, hr.reshape(t + 1, C)]),
+                  torch.cat([pad, hi.reshape(t + 1, C)]))
+        ang = channelizer_cuda.channelize_demod_cuda(
+            xr.contiguous(), xi.contiguous(), taps_merged, C, demod=True,
+            prefix=prefix)
+    else:
+        ext = torch.cat([halo, xb]).reshape(-1, C)
+        y = _channelize_rows(ext, taps_merged, s_loc + 1)  # row -1 .. end
+        ang = torch.angle(y[1:] * torch.conj(y[:-1])).T    # (C, s_loc)
+    return sharded._wrap(ang.contiguous(), mesh, axis_name, (C, S))

@@ -1,0 +1,227 @@
+"""Streaming (chunked) processing (counterpart of
+``basic_dsp_tpu/streaming.py``).
+
+Serving pipelines process an unbounded signal in chunks.  These helpers
+carry the small overlap state between chunks explicitly (a function of
+(chunk, state)), so a chunked run reproduces the whole-buffer *linear*
+convolution (the reference's whole-buffer equivalence contract,
+convolution.rs:304-462) and the whole-buffer linear resample.
+
+On the card a float32 or complex64 chunk runs a kernel: the FIR through
+K3 in linear mode (``overlap_save_cuda.conv_blocks_cuda(linear=True)``,
+the taps' spectrum held), the resampler through K4 or K5 (the routing of
+``interp_ops._interpolatef_direct``).  A CPU chunk runs their plain
+versions; the FIR's whole-extent regime and float64 chunks run on
+``torch.fft`` in the promoted dtype, as the JAX package does.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from . import config
+from .ops import conv_ops, interp_ops
+
+
+class FirState(NamedTuple):
+    """Carry for streaming FIR: the last ``m - 1`` input samples."""
+
+    tail: torch.Tensor
+
+
+def _as_taps(taps, device) -> torch.Tensor:
+    """A tensor keeps its device; numpy or list data goes to ``device``
+    (the card when None)."""
+    if isinstance(taps, torch.Tensor):
+        return taps.detach()
+    return torch.as_tensor(np.asarray(taps),
+                           device=config.resolve_device(device))
+
+
+class StreamingFir:
+    """Causal-aligned streaming FIR with the centered-kernel taps.
+
+    For chunk sequence x_0, x_1, ... the concatenated outputs equal the
+    *linear* convolution of the concatenated input, causal part: the
+    centered convolution delayed by ``c - 1`` samples (the lookahead of
+    the centered kernel becomes latency, as in any real-time filter).
+
+    ``taps``: a tensor (it keeps its device) or numpy data (put on
+    ``device``, the card when None).  ``fft_len`` is the JAX package's
+    block length; the kernel runs the same linear convolution at that
+    length clamped into its [1024, 16384] range.
+    """
+
+    def __init__(self, taps, device=None):
+        self.taps = _as_taps(taps, device)
+        self.m = int(self.taps.shape[-1])
+        self.fft_len = conv_ops.pick_fft_len(self.m)
+        self._held = {}
+
+    def init_state(self, dtype=torch.complex64, device=None) -> FirState:
+        """Zero tail of ``m - 1`` samples in the promoted type of ``dtype``
+        and the taps, on ``device`` (the taps' when None)."""
+        dt = torch.promote_types(dtype, self.taps.dtype)
+        dev = self.taps.device if device is None else device
+        return FirState(tail=torch.zeros((max(self.m - 1, 0),), dtype=dt,
+                                         device=dev))
+
+    def _held_taps(self, ext: torch.Tensor, fl_k: int):
+        """(h, H): the taps in ``ext``'s dtype on its device (the real part
+        for a real chunk, as the JAX step casts them), and with ``fl_k``
+        their kernel spectrum (``overlap_save_cuda.spectrum``), both built
+        at the first chunk of that device, dtype and block length, then
+        held."""
+        key = (ext.device, ext.dtype, fl_k)
+        held = self._held.get(key)
+        if held is None:
+            h = self.taps.to(ext.device)
+            if h.is_complex() and not ext.is_complex():
+                h = h.real
+            h = h.to(ext.dtype)
+            H = None
+            if fl_k:
+                from .kernels import overlap_save_cuda
+                H = overlap_save_cuda.spectrum(h, fl_k)
+            held = self._held[key] = (h, H)
+        return held
+
+    def _fir(self, ext: torch.Tensor, n_out: int) -> torch.Tensor:
+        """out[i] = sum_k h[k] ext[i + m - 1 - k], i < n_out: the causal
+        slice [m-1, m-1+n_out) of the linear convolution of ``ext``."""
+        m, n = self.m, ext.shape[-1]
+        if self.fft_len >= n:
+            # Long-kernel / short-chunk regime: one whole-extent FFT.
+            h, _ = self._held_taps(ext, 0)
+            size = conv_ops.next_power_of_two(n + m - 1)
+            lin = torch.fft.ifft(torch.fft.fft(ext, n=size)
+                                 * torch.fft.fft(h, n=size))
+            return lin[m - 1:m - 1 + n_out]
+        fl_k = (conv_ops._kernel_fft_len(n, m, self.fft_len)
+                if ext.dtype in (torch.float32, torch.complex64)
+                and ext.dim() == 1 else 0)
+        h, H = self._held_taps(ext, fl_k)
+        if not fl_k:
+            lin = conv_ops.blocked_linear_conv(ext, h, self.fft_len)
+            return lin[m - 1:m - 1 + n_out]
+        from .kernels import overlap_save_cuda
+        cplx = ext.is_complex()
+        y = overlap_save_cuda.conv_blocks_cuda(
+            ext.real if cplx else ext, ext.imag if cplx else None, H, m,
+            fl_k, linear=True, imag=cplx)
+        y = y[:, m - 1:m - 1 + n_out]
+        return torch.complex(y[0], y[1]) if y.shape[0] == 2 else y[0]
+
+    def process(self, chunk: torch.Tensor,
+                state: FirState) -> Tuple[torch.Tensor, FirState]:
+        """Processes one chunk; returns (out, new_state) with
+        ``len(out) == len(chunk)``.  A real chunk gives a real output."""
+        tail = state.tail
+        ext = torch.cat([tail.to(chunk.dtype), chunk])
+        out = self._fir(ext, chunk.shape[-1])
+        # ext[len - (m - 1):], not ext[-(m - 1):], the whole array at m == 1;
+        # a copy, not a view that would hold the whole extension
+        new_tail = ext[ext.shape[-1] - (self.m - 1):].to(tail.dtype,
+                                                         copy=True)
+        if not chunk.is_complex():
+            out = out.real
+        return out.to(chunk.dtype), FirState(tail=new_tail)
+
+
+def stream_chunks(fir: StreamingFir, x: torch.Tensor,
+                  chunk_size: int) -> torch.Tensor:
+    """Runs a whole signal through the streaming FIR chunk by chunk (the
+    verification harness for chunked == whole-buffer).  A non-divisible
+    tail is processed as one final shorter chunk: no samples dropped."""
+    n = x.shape[-1]
+    state = fir.init_state(x.dtype, x.device)
+    pieces = []
+    for start in range(0, n, chunk_size):
+        out, state = fir.process(x[start:start + chunk_size], state)
+        pieces.append(out)
+    if len(pieces) == 1:
+        return pieces[0]
+    return torch.cat(pieces)
+
+
+class ResamplerState(NamedTuple):
+    """Carry for the streaming resampler: the last ``T`` input samples."""
+
+    tail: torch.Tensor
+
+
+# Denominators up to 512, interpolatef's own bound (``interp_ops._branch``);
+# the JAX package stops at 64, where its dense band matrix M (W x 128 P
+# floats, built per resampler) still fits: at 160/147 it would be 1.55 GB.
+# The port builds no M, so a factor that JAX refuses here (44.1 -> 48 kHz)
+# streams; every factor JAX takes gives JAX's results.
+_MAX_DEN = 512
+
+
+class StreamingResampler:
+    """Chunked fractional resampler for rational factors ``P/Q``: the
+    streaming counterpart of ``interpolatef``.
+
+    Each chunk of ``S`` input samples (``S`` divisible by ``128*Q``) yields
+    exactly ``S*P//Q`` output samples, ``out[i] = sum_t ext[(i//P)*Q +
+    offs[i%P] + t] * taps[i%P, t]`` over the tail-extended chunk ``ext``
+    (JAX ``_direct_apply``).  The concatenated outputs equal the *linear*
+    (zero-padded) resample of the concatenated input, delayed by
+    ``self.output_delay`` samples.
+
+    ``T`` and ``output_delay`` are the JAX package's, from the band
+    matrix's row count ``interp_ops._band_W(P, Q, L, 128)``; the matrix
+    itself is not built (18944 x 20480 float32 at 160/147), so ``Q`` may
+    reach 512 where JAX stops at 64.  The resampler
+    kernels read ``x[((i//P)*Q + offs + t - L) mod n]``, so ``process``
+    hands them ``ext`` rotated left by L, ``[tail[L:], chunk, tail[:L]]``:
+    the one concatenation that builds the extension builds the rotation,
+    and the stencil needs no shift argument.  The taps are sampled in
+    float32 on ``device`` (the card when None).
+    """
+
+    def __init__(self, fun, factor: float, delay: float = 0.0,
+                 conv_len: int = 10, device=None):
+        P, Q = interp_ops.parse_rational_factor(factor, "StreamingResampler",
+                                                _MAX_DEN)
+        L = int(conv_len)
+        taps, offs = interp_ops.polyphase_taps(fun, P, Q, delay, L,
+                                               torch.float32, device)
+        if taps.is_complex():
+            raise ValueError("StreamingResampler needs concrete real taps")
+        self.taps, self.offs = taps, offs
+        self.P, self.Q, self.L = P, Q, L
+        W = interp_ops._band_W(P, Q, L, 128)
+        # Tail length: window lookback (2L) and the band matrix's reach
+        # (W - 128), rounded so (T - L) % Q == 0 keeps the output grid
+        # aligned to whole polyphase cycles.
+        T0 = max(2 * L, W - 128, 0)
+        self.T = T0 + ((L - T0) % Q)
+        #: concatenated-output delay vs the whole-buffer linear resample
+        self.output_delay = (self.T - L) // Q * P
+
+    def init_state(self, dtype=torch.complex64, device=None) -> ResamplerState:
+        dev = self.taps.device if device is None else device
+        return ResamplerState(tail=torch.zeros((self.T,), dtype=dtype,
+                                               device=dev))
+
+    def process(self, chunk: torch.Tensor,
+                state: ResamplerState) -> Tuple[torch.Tensor, ResamplerState]:
+        """Processes one chunk of ``S`` samples (``S % (128*Q) == 0``);
+        returns (out, new_state) with ``len(out) == S*P//Q``."""
+        S = chunk.shape[-1]
+        span = 128 * self.Q
+        if S % span != 0:
+            raise ValueError(f"chunk length {S} must be divisible by "
+                             f"128*Q = {span}")
+        tail, L, T = state.tail.to(chunk.dtype), self.L, self.T
+        rotated = torch.cat([tail[L:], chunk, tail[:L]])
+        out = interp_ops._interpolatef_direct(
+            rotated, self.taps, self.P, self.Q, self.offs, L,
+            S * self.P // self.Q, interp_ops._choose_c(self.P, self.Q))
+        new_tail = (chunk[S - T:] if S >= T
+                    else torch.cat([tail[S:], chunk]))
+        return out.to(chunk.dtype), ResamplerState(
+            tail=new_tail.to(state.tail.dtype, copy=True))

@@ -889,7 +889,8 @@ class DspVector:
                         cfg: Optional[_config.DspConfig] = None) -> "DspVector":
         """Circular centered convolution (``ops.conv_ops.convolve_signal``;
         its dispatch thresholds from ``cfg``, or the process default,
-        ``config.default_config()``)."""
+        ``config.default_config()``, which ``autotune`` calibrates at the
+        first convolution longer than ``overlap_save_min_len``)."""
         bad = (self._binary_check(impulse_response, same_size=False)
                or self._check(domain=DataDomain.TIME)
                or self._check_delta(impulse_response))
@@ -897,6 +898,13 @@ class DspVector:
             return bad
         if self.points() < impulse_response.points():
             return self._invalid(ErrorReason.INVALID_ARGUMENT_LENGTH)
+        if cfg is None and (self.points()
+                            > _config.default_config().overlap_save_min_len):
+            # Lazy one-time calibration on the first large convolution
+            # (reference threading.rs:190-193), for the data's device: loads
+            # the cache entry of its kind or measures and persists one.
+            from . import autotune
+            autotune.ensure_calibrated(self._data.device)
         return self._make(conv_ops.convolve_signal(
             self._data, impulse_response._data, self.is_complex(),
             cfg or _config.default_config()))

@@ -23,15 +23,17 @@ Phases (any failure raises and exits non-zero):
    with real taps, and ``conv_blocks_cuda`` on a real signal (no imaginary
    plane in or out) against ``conv_blocks_plain``; and the
    resampler's two wrappers against their plain versions on one row and
-   on two: ``resample_direct_cuda`` (K4) at eleven (P, Q, L, n), among them
+   on two: ``resample_direct_cuda`` (K4) at thirteen (P, Q, L, n), among them
    interpolate_lin's 2-tap geometry with zero offsets, each branch of the
    kernel (one phase a lane, phases walked, P > 32, a reload, the direct
-   stencil), and
-   ``resample_rowblock_cuda`` (K5) at three, among them an n that 147
-   does not divide; ``channelize_demod_cuda`` (K6) against
-   ``channelize_demod_plain`` at four (C, S, taps per phase), among them
-   config #5's and a ragged S with a non-zero prefix, with ``demod`` True
-   (angles, by the |z|-weighted wrapped error) and False (z), both (C, S);
+   stencil, the extended shapes of phases l and m), and
+   ``resample_rowblock_cuda`` (K5) at four, among them an n that 147
+   does not divide and phase l's extended chunk; ``channelize_demod_cuda``
+   (K6) against ``channelize_demod_plain`` at five (C, S, taps per phase),
+   among them config #5's with no prefix and with phase m's zero one, and
+   a ragged S with a non-zero prefix, with ``demod`` True (angles, by the
+   |z|-weighted wrapped error) and False (z), both (C, S); K3 also at the
+   extended shapes of phases k and m (n + 383);
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    a. the spectrum chain: ``FirFftChainPlanar`` at n = 2^22 with 128
@@ -85,10 +87,30 @@ Phases (any failure raises and exits non-zero):
       (one K2 launch each), against the float64 oracle (<= 5e-6, every
       budget bit-equal to None: all run f32-exact); then budget None again
       with TF32 off afterwards;
+   k. ``streaming.StreamingFir`` with cell 2's 384 complex taps over 2^22
+      complex64 samples (numpy seed 0) in 64 chunks of 2^16: 64 K3 launches
+      (linear mode) and no others; the concatenation against the float64
+      linear convolution (<= 5e-6);
+   l. ``streaming.StreamingResampler``: x1.5 (Sinc, conv_len 10) of config
+      #3's 2^20 complex samples in 16 chunks of 2^16 (16 K4 launches), and
+      160/147 of 7 chunks of 150528 real samples (7 K5 launches: the
+      row-block geometry fits the extended chunk); each concatenation
+      against the float64 zero-padded linear resample delayed by
+      ``output_delay`` (<= 5e-6);
+   m. the sharded functions on a one-rank NCCL mesh (``init_process_group``
+      over an in-process ``HashStore``, then ``make_mesh(1)``):
+      ``sharded_convolve_signal`` at 2^22 with 384 taps (one K3 launch),
+      ``sharded_interpolatef`` x1.5 of 2^20 complex (one K4),
+      ``sharded_channelize_and_demod`` at config #5 (one K6, zero prefix),
+      ``sharded_sum`` and ``sharded_statistics`` of the 2^22 signal (no
+      kernel); each against its single-device function (<= 1e-6) and the
+      float64 oracle (<= 5e-6; sums relative to sum |x|, sums of squares to
+      sum |x|^2); the process group ends after phase 4;
 4. times with CUDA events (median of 20 after warm-up): every path (the
    DIT spectrum among them, its planes held on the card after its first
-   call), with ``torch.profiler`` device time per kernel and the idle
-   share; the fused
+   call; k, l and m by chunk or call, and k and l's host time a chunk),
+   with ``torch.profiler`` device time per kernel and the idle share; the
+   fused
    chain against the unfused one in turns; each kernel against its plain
    version and its library call (one PyTorch call computing the same
    function, where there is one) in turns, and its device time from
@@ -100,16 +122,28 @@ Phases (any failure raises and exits non-zero):
    ``budget="high"`` against None, unfused and fused, in turns; and each
    kernel's bound, the
    larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
-   over 67 TFLOP/s, from this run's shapes.
+   over 67 TFLOP/s, from this run's shapes;
+   o. ``profiling``: ``time_op`` and ``throughput`` of ``FirFftChainPlanar``
+      within 2x of phase 4's event median, and ``trace`` writing a
+      non-empty Chrome trace into a temporary directory;
+   n. last, so that no earlier phase runs tuned knobs: ``autotune.calibrate()``
+      with JAX's defaults into a temporary cache (every earlier phase reads
+      the default knobs from it), the table printed beside the card's name
+      and power limit, ``ensure_calibrated`` from a reset state reporting
+      "cache", a typed ``convolve_signal`` under the tuned knobs (<= 5e-6),
+      and the default config restored.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
+import glob
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -129,10 +163,16 @@ CONV_TAPS = 384
 CONV_FFT_LEN = 4096
 # K3 (n, taps, fft_len): n below fft_len (700) and n not a multiple of 4
 # (5001) take the kernel's single loads; 8192 and 16384 its unstaged blocks.
+# The streaming FIR (phase k) and the sharded convolution (phase m) run K3 in
+# linear mode on the extended signal, n + CONV_TAPS - 1.
+STREAM_CHUNK, STREAM_CHUNKS = 1 << 16, 64
 OS_GEOMETRIES = [(4096, 33, 1024), (8192, 129, 2048), (5000, 63, 1024),
                  (N, CONV_TAPS, CONV_FFT_LEN), (1 << 20, 385, 8192),
-                 (1 << 20, 4097, 16384), (700, 129, 1024), (5001, 63, 1024)]
+                 (1 << 20, 4097, 16384), (700, 129, 1024), (5001, 63, 1024),
+                 (STREAM_CHUNK + CONV_TAPS - 1, CONV_TAPS, CONV_FFT_LEN),
+                 (N + CONV_TAPS - 1, CONV_TAPS, CONV_FFT_LEN)]
 KERNEL_TOL = 2e-6
+SHARD_TOL = 1e-6       # a sharded function against its single-device one
 CHAIN_TOL = 5e-6
 STATS_TOL = 1e-5
 PREC_TOL = 1e-12
@@ -158,13 +198,16 @@ K5_GEOMETRIES = [(160, 147, 10, 1 << 20), (160, 147, 10, (1 << 20) + 37),
 CFG3_N = 1 << 20
 CFG4_SYMBOLS = 1 << 17
 AUDIO_N = 1 << 20
+AUDIO_CHUNK, AUDIO_CHUNKS = 150528, 7     # 8 * 128 * 147 samples a chunk
 CHAN_N = 1 << 22
 CHAN_C = 1024
 CHAN_TAPS = 8
-# K6 geometries (C, S, taps per phase, with a random prefix)
-K6_GEOMETRIES = [(CHAN_C, CHAN_N // CHAN_C, CHAN_TAPS, False),
-                 (256, 1024, 4, False), (512, 4099, CHAN_TAPS, True),
-                 (2048, 64, 15, False)]
+# K6 geometries (C, S, taps per phase, prefix: None, "zero" as phase m's
+# first rank passes, or "random")
+K6_GEOMETRIES = [(CHAN_C, CHAN_N // CHAN_C, CHAN_TAPS, None),
+                 (CHAN_C, CHAN_N // CHAN_C, CHAN_TAPS, "zero"),
+                 (256, 1024, 4, None), (512, 4099, CHAN_TAPS, "random"),
+                 (2048, 64, 15, None)]
 
 
 def rel_err(got, ref):
@@ -219,11 +262,12 @@ def rc_taps(m, dev):
     return (taps / taps.sum()).to(dev)
 
 
-def resample_oracle(x, fun, P, Q, L, out_len, delay=0.0):
+def resample_oracle(x, fun, P, Q, L, out_len, delay=0.0, circular=True):
     """out[i] = sum_t x[((i//P)*Q + offs[p] + t - L) mod n]
     * fun(t - L - frac[p] + delay), p = i % P, offs[p] = (p*Q)//P,
     frac[p] = (p*Q mod P)/P, in float64 (complex128) on x's device, with
-    the taps sampled in float64."""
+    the taps sampled in float64; not ``circular``: x zero outside [0, n)
+    (the linear resample)."""
     n, dev = x.shape[-1], x.device
     p = np.arange(P)
     offs = torch.from_numpy((p * Q) // P).to(dev)
@@ -232,9 +276,13 @@ def resample_oracle(x, fun, P, Q, L, out_len, delay=0.0):
     taps = fun.calc(s[None, :] - frac[:, None] + delay)
     i = torch.arange(out_len, device=dev)
     ph = i % P
-    idx = (((i // P) * Q + offs[ph])[:, None] + s.long()[None, :]) % n
+    idx = ((i // P) * Q + offs[ph])[:, None] + s.long()[None, :]
     xd = x.to(torch.complex128 if x.is_complex() else torch.float64)
-    return (xd[..., idx] * taps[ph]).sum(-1)
+    if circular:
+        return (xd[..., idx % n] * taps[ph]).sum(-1)
+    inside = (idx >= 0) & (idx < n)
+    xs = torch.where(inside, xd[..., idx.clamp(0, n - 1)], 0)
+    return (xs * taps[ph]).sum(-1)
 
 
 def evened(n, P, Q):
@@ -324,7 +372,7 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def main():
+def main(work):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -337,6 +385,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
 
     import basic_dsp_tpu_torch as bt
+    from basic_dsp_tpu_torch import profiling, streaming
     from basic_dsp_tpu_torch.kernels import _build
     from basic_dsp_tpu_torch.kernels import channelizer_cuda as chc
     from basic_dsp_tpu_torch.kernels import overlap_save_cuda as osc
@@ -347,6 +396,15 @@ def main():
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    # The typed convolutions calibrate at their first large call: a
+    # temporary cache holding the default knobs for this card keeps every
+    # phase before n on them (n calibrates into the same cache).
+    os.environ["BDSP_AUTOTUNE_CACHE"] = os.path.join(work, "autotune.json")
+    kind = torch.cuda.get_device_name(0)
+    with open(os.environ["BDSP_AUTOTUNE_CACHE"], "w") as f:
+        json.dump({kind: {"device_kind": kind, "fft_block_len": 0,
+                          "direct_conv_max_imp_len": 202}}, f)
+    default_cfg = bt.default_config()
 
     def planes(*shape):
         return (torch.from_numpy(rng.standard_normal(shape, np.float32))
@@ -453,18 +511,29 @@ def main():
 
     sinc = bt.SincFunction()
     lin_taps, lin_L, _ = interp_ops._lin_taps(5, 2, 0.3)
+    # phases l and m: the extended chunk (tail T + chunk) and the extended
+    # shard (2L + shard), with their own output lengths
+    t_x15 = streaming.StreamingResampler(sinc, 1.5, device=dev).T
+    t_audio = streaming.StreamingResampler(sinc, 160 / 147, device=dev).T
     resample_checks = (
-        [("direct", P, Q, L, n, None) for P, Q, L, n in K4_GEOMETRIES]
-        + [("direct", 5, 2, lin_L, 1 << 16, lin_taps)]
-        + [("rowblock", P, Q, L, n, None) for P, Q, L, n in K5_GEOMETRIES])
+        [("direct", P, Q, L, n, None, None) for P, Q, L, n in K4_GEOMETRIES]
+        + [("direct", 5, 2, lin_L, 1 << 16, lin_taps, None),
+           ("direct", 3, 2, 10, STREAM_CHUNK + t_x15, None,
+            STREAM_CHUNK * 3 // 2),
+           ("direct", 3, 2, 10, CFG3_N + 20, None, CFG3_N * 3 // 2)]
+        + [("rowblock", P, Q, L, n, None, None)
+           for P, Q, L, n in K5_GEOMETRIES]
+        + [("rowblock", 160, 147, 10, AUDIO_CHUNK + t_audio, None,
+            AUDIO_CHUNK * 160 // 147)])
+    n_direct = sum(c[0] == "direct" for c in resample_checks)
     rs_abs_err = {}
-    for kind, P, Q, L, n, taps_np in resample_checks:
+    for kind, P, Q, L, n, taps_np, out_len in resample_checks:
         if taps_np is None:
             taps_k, offs = interp_ops.polyphase_taps(sinc, P, Q, 0.0, L,
                                                      torch.float32, dev)
         else:
             taps_k, offs = taps_np, (0,) * P
-        out_len = evened(n, P, Q)
+        out_len = evened(n, P, Q) if out_len is None else out_len
         wrapper = getattr(rsc, f"resample_{kind}_cuda")
         for nrows in (1, 2):
             rows = torch.from_numpy(
@@ -488,17 +557,21 @@ def main():
             assert err <= KERNEL_TOL, (kind, P, Q, L, n, nrows, err)
             rs_abs_err[(kind, P, Q, n, nrows)] = float(
                 (got - ref).abs().max())
-    assert rsc.resample_direct_cuda.launches == 2 * (len(K4_GEOMETRIES) + 1)
-    assert rsc.resample_rowblock_cuda.launches == 2 * len(K5_GEOMETRIES)
+    assert rsc.resample_direct_cuda.launches == 2 * n_direct
+    assert rsc.resample_rowblock_cuda.launches == 2 * (len(resample_checks)
+                                                       - n_direct)
     del got, ref, rows
 
     k6_abs_err = None
-    for C, S, taps_pp, with_prefix in K6_GEOMETRIES:
+    for C, S, taps_pp, prefix in K6_GEOMETRIES:
         xr, xi = planes(S * C)
         proto = torch.from_numpy((np.hamming(C * taps_pp) / C)
                                  .astype(np.float32)).to(dev)
         ts = chz._merged_tap_rows(proto, C)
-        pre = tuple(planes(chc.HALO_ROWS, C)) if with_prefix else None
+        pre = {None: None,
+               "zero": tuple(torch.zeros((chc.HALO_ROWS, C), device=dev)
+                             for _ in range(2)),
+               "random": tuple(planes(chc.HALO_ROWS, C))}[prefix]
         got = chc.channelize_demod_cuda(xr, xi, ts, C, False, pre)
         ref = chc.channelize_demod_plain(xr, xi, ts, C, False, pre)
         ang = chc.channelize_demod_cuda(xr, xi, ts, C, True, pre)
@@ -507,15 +580,15 @@ def main():
         err, abs_err = z_err(got, ref)
         a_err = angle_err(ang, ang_ref, *ref)
         print(f"channelize_demod_cuda vs plain at (C={C}, S={S}, "
-              f"taps={taps_pp}, prefix {'random' if with_prefix else '0'}): "
+              f"taps={taps_pp}, prefix {prefix}): "
               f"z {err:.3e}, angles {a_err:.3e} relative to max |z| "
               f"(tol {KERNEL_TOL})")
         assert got[0].shape == got[1].shape == ang.shape == (C, S)
         assert bool(torch.isfinite(ang).all())
         assert err <= KERNEL_TOL and a_err <= KERNEL_TOL, (C, S, err, a_err)
-        if not with_prefix:
+        if prefix != "random":
             assert bool((ang[:, 0] == 0).all())    # row -1 is 0
-        if C == CHAN_C:
+        if C == CHAN_C and prefix is None:
             k6_abs_err = abs_err
     assert chc.channelize_demod_cuda.launches == 2 * len(K6_GEOMETRIES)
     del got, ref, ang, ang_ref, xr, xi
@@ -530,10 +603,10 @@ def main():
     reset_counts()
     out = chain(xr, xi)
     torch.cuda.synchronize()
-    launches = sc.rowfft_mag.launches
+    k1_launches = sc.rowfft_mag.launches
     print(f"main path: FirFftChainPlanar n={N} (n1={chain.n1}, "
-          f"n2={chain.n2}), rowfft_mag launches: {launches}")
-    assert launches >= 1, "the main path did not launch rowfft_mag"
+          f"n2={chain.n2}), rowfft_mag launches: {k1_launches}")
+    assert k1_launches >= 1, "the main path did not launch rowfft_mag"
     assert out.shape == (N,) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
     err = rel_err(out.double(), ref)
@@ -932,8 +1005,189 @@ def main():
     assert torch.get_float32_matmul_precision() == "highest"
     del ref, out
 
-    # 4. times (CUDA events, median of REPS after warm-up)
+    # 3k. streaming FIR: 64 chunks of 2^16 with cell 2's taps, K3 in
+    # linear mode once a chunk
+    rng0 = np.random.default_rng(0)
+    xk = torch.from_numpy((rng0.standard_normal(N)
+                           + 1j * rng0.standard_normal(N))
+                          .astype(np.complex64)).to(dev)
+    fir = streaming.StreamingFir(h)
+    reset_counts()
+    state = fir.init_state(torch.complex64)
+    outs = []
+    for k in range(STREAM_CHUNKS):
+        out, state = fir.process(xk[k * STREAM_CHUNK:(k + 1) * STREAM_CHUNK],
+                                 state)
+        outs.append(out)
+    torch.cuda.synchronize()
+    k_launches = osc.conv_blocks_cuda.launches
+    print(f"main path: StreamingFir.process, {STREAM_CHUNKS} chunks of "
+          f"{STREAM_CHUNK} complex samples, {CONV_TAPS} taps (fft_len "
+          f"{fir.fft_len}), conv_blocks_cuda launches: {k_launches}, other "
+          f"kernels: {other_launches() - k_launches}, channelizer: "
+          f"{chc.channelize_demod_cuda.launches}")
+    assert k_launches == STREAM_CHUNKS, "the streaming FIR: not 64 K3"
+    assert other_launches() == STREAM_CHUNKS
+    assert chc.channelize_demod_cuda.launches == 0
+    yk = torch.cat(outs)
+    assert yk.shape == (N,) and yk.dtype == torch.complex64
+    assert bool(torch.isfinite(torch.view_as_real(yk)).all())
+    size = 2 * N
+    lin = torch.fft.ifft(torch.fft.fft(xk.to(torch.complex128), n=size)
+                         * torch.fft.fft(h.to(torch.complex128), n=size))[:N]
+    err = rel_err(yk.to(torch.complex128), lin)
+    print(f"StreamingFir vs float64 linear convolution: {err:.3e} relative "
+          f"to max (tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    del outs, yk, lin
+
+    # 3l. streaming resampler: x1.5 of config #3's signal in chunks of
+    # 2^16 (K4), 160/147 of 7 chunks of 150528 real samples (K5)
+    audio_np = np.random.default_rng(0).standard_normal(
+        AUDIO_CHUNK * AUDIO_CHUNKS).astype(np.float32)
+    xl_audio = torch.from_numpy(audio_np).to(dev)
+    stream_rs = {}
+    for name, factor, xin, chunk, kernel in (
+            ("x1.5", 1.5, x3, STREAM_CHUNK, "resample_direct_cuda"),
+            ("160/147", 160 / 147, xl_audio, AUDIO_CHUNK,
+             "resample_rowblock_cuda")):
+        rs = streaming.StreamingResampler(sinc, factor, 0.0, 10,
+                                             device=dev)
+        nchunks = xin.shape[-1] // chunk
+        reset_counts()
+        state = rs.init_state(xin.dtype)
+        outs = []
+        for k in range(nchunks):
+            out, state = rs.process(xin[k * chunk:(k + 1) * chunk], state)
+            outs.append(out)
+        torch.cuda.synchronize()
+        rs_launches = getattr(rsc, kernel).launches
+        print(f"main path: StreamingResampler {name}, {nchunks} chunks of "
+              f"{chunk} {'complex' if xin.is_complex() else 'real'} samples "
+              f"(T {rs.T}, output_delay {rs.output_delay}), {kernel} "
+              f"launches: {rs_launches}, other kernels: "
+              f"{other_launches() - rs_launches}")
+        assert rs_launches == nchunks and other_launches() == nchunks, name
+        got = torch.cat(outs)
+        out_len = xin.shape[-1] * rs.P // rs.Q
+        assert got.shape == (out_len,) and got.dtype == xin.dtype
+        assert bool(torch.isfinite(torch.view_as_real(got)
+                                   if got.is_complex() else got).all())
+        d = rs.output_delay
+        ref = resample_oracle(xin, sinc, rs.P, rs.Q, 10, out_len - d,
+                              circular=False)
+        wide = torch.complex128 if got.is_complex() else torch.float64
+        err = rel_err(got[d:].to(wide), ref)
+        print(f"StreamingResampler {name} vs float64 linear resample delayed "
+              f"by {d}: {err:.3e} relative to max (tol {CHAIN_TOL})")
+        assert err <= CHAIN_TOL, (name, err)
+        stream_rs[name] = (rs, xin[:chunk].contiguous())
+        del outs, got, ref
+
+    # 3m. the sharded functions on a one-rank NCCL mesh
+    import torch.distributed as dist
+    from basic_dsp_tpu_torch.parallel import sharded as shd
+    from torch.distributed.tensor import DTensor
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    mesh = bt.make_mesh(1)
+    print(f"mesh: {mesh}, backend {dist.get_backend()}")
     x = torch.complex(xr, xi)
+    conv_ref = conv_oracle(xr, xi, h)
+    reset_counts()
+    ys = shd.sharded_convolve_signal(x, h, mesh)
+    torch.cuda.synchronize()
+    m_os = osc.conv_blocks_cuda.launches
+    print(f"main path: sharded_convolve_signal n={N}, {CONV_TAPS} taps, mesh "
+          f"of 1, conv_blocks_cuda launches: {m_os}, other kernels: "
+          f"{other_launches() - m_os + chc.channelize_demod_cuda.launches}")
+    assert m_os == 1 and other_launches() == 1, "sharded conv: not one K3"
+    assert isinstance(ys, DTensor) and ys.shape == (N,)
+    ys = ys.to_local()
+    assert ys.dtype == torch.complex64
+    assert bool(torch.isfinite(torch.view_as_real(ys)).all())
+    single = conv_ops.convolve_signal(x, h, True)
+    errs = (rel_err(ys, single), rel_err(ys.to(torch.complex128), conv_ref))
+    print(f"sharded_convolve_signal vs convolve_signal {errs[0]:.3e} (tol "
+          f"{SHARD_TOL}), vs float64 oracle {errs[1]:.3e} (tol {CHAIN_TOL})")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    del ys, single, conv_ref
+    reset_counts()
+    yi = shd.sharded_interpolatef(x3, sinc, 1.5, 0.0, 10, mesh)
+    torch.cuda.synchronize()
+    m_k4 = rsc.resample_direct_cuda.launches
+    print(f"main path: sharded_interpolatef x1.5 of {CFG3_N} complex, mesh "
+          f"of 1, resample_direct_cuda launches: {m_k4}, other kernels: "
+          f"{other_launches() - m_k4}")
+    assert m_k4 == 1 and other_launches() == 1, "sharded x1.5: not one K4"
+    yi = yi.to_local()
+    assert yi.shape == (CFG3_N * 3 // 2,) and yi.dtype == torch.complex64
+    single = interp_ops.interpolatef(x3, sinc, 1.5, 0.0, 10, 1.0)
+    errs = (rel_err(yi, single),
+            rel_err(yi.to(torch.complex128),
+                    resample_oracle(x3, sinc, 3, 2, 10, CFG3_N * 3 // 2)))
+    print(f"sharded_interpolatef vs interpolatef {errs[0]:.3e} (tol "
+          f"{SHARD_TOL}), vs float64 oracle {errs[1]:.3e} (tol {CHAIN_TOL})")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    del yi, single
+    x5 = torch.complex(xr5, xi5)
+    y5, z5 = chan_oracle(xr5, xi5, chz._merged_tap_rows(proto5, CHAN_C),
+                         CHAN_C)
+    del y5
+    reset_counts()
+    angs = bt.sharded_channelize_and_demod(x5, proto5, CHAN_C, mesh)
+    torch.cuda.synchronize()
+    m_k6 = chc.channelize_demod_cuda.launches
+    print(f"main path: sharded_channelize_and_demod n={CHAN_N}, {CHAN_C} "
+          f"channels, mesh of 1, channelize_demod_cuda launches: {m_k6}, "
+          f"other kernels: {other_launches()}")
+    assert m_k6 == 1 and other_launches() == 0, "sharded config #5: not K6"
+    angs = angs.to_local()
+    assert angs.shape == (CHAN_C, S5) and angs.dtype == torch.float32
+    assert bool(torch.isfinite(angs).all())
+    errs = (angle_err(angs, ang5, z5.real, z5.imag),
+            angle_err(angs, torch.angle(z5), z5.real, z5.imag))
+    print(f"sharded_channelize_and_demod vs channelize_and_demod_planar "
+          f"{errs[0]:.3e} (tol {SHARD_TOL}), vs float64 oracle {errs[1]:.3e} "
+          f"(tol {CHAIN_TOL}; |z|-weighted angles)")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    del angs, z5
+    from basic_dsp_tpu_torch.ops import stats_ops as tst
+    x64 = x.to(torch.complex128)
+    abs_sum = float(x64.abs().sum())
+    sq_sum = float((x64.abs() ** 2).sum())
+    reset_counts()
+    ssum = shd.sharded_sum(x, mesh)
+    st = shd.sharded_statistics(x, mesh)
+    torch.cuda.synchronize()
+    assert other_launches() == 0 and chc.channelize_demod_cuda.launches == 0
+    single = tst.sum_(x)
+    st1 = tst.statistics(x, True)
+    errs = (abs(complex(ssum) - single) / abs_sum,
+            abs(complex(ssum) - complex(x64.sum())) / abs_sum)
+    print(f"sharded_sum vs sum_ {errs[0]:.3e} (tol {SHARD_TOL}), vs float64 "
+          f"{errs[1]:.3e} (tol {CHAIN_TOL}; relative to sum |x|)")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    sq = st.rms ** 2 * N
+    amax = int(x64.abs().argmax())
+    errs = (max(abs(st.sum - st1.sum) / abs_sum,
+                abs(sq - st1.rms ** 2 * N) / sq_sum),
+            max(abs(st.sum - complex(x64.sum())) / abs_sum,
+                abs(sq - complex((x64 * x64).sum())) / sq_sum,
+                abs(abs(st.max) - float(x64.abs().max()))
+                / float(x64.abs().max())))
+    print(f"sharded_statistics vs statistics {errs[0]:.3e} (tol {SHARD_TOL}), "
+          f"vs float64 {errs[1]:.3e} (tol {CHAIN_TOL}; sums relative to sum "
+          f"|x|, rms^2 n to sum |x|^2); min index {st.min_index} "
+          f"({st1.min_index}), max index {st.max_index} ({st1.max_index}, "
+          f"float64 {amax}), count {st.count}")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    assert (st.count, st.min_index, st.max_index, st.min, st.max) == (
+        N, st1.min_index, st1.max_index, st1.min, st1.max)
+    del x64
+
+    # 4. times (CUDA events, median of REPS after warm-up)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
                                                      CONV_FFT_LEN))
     print(f"overlap_save on torch.fft (same convolution, complex in and "
@@ -960,8 +1214,37 @@ def main():
         ("flagship: fourstep.dit_spectrum_mag, 2^22 (planes held)", N,
          lambda: fourstep.dit_spectrum_mag(xw)),
     ]
+    chunk_k = xk[:STREAM_CHUNK].contiguous()
+    state_k = fir.init_state(torch.complex64)
+    rs15, chunk15 = stream_rs["x1.5"]
+    rs_audio, chunk_audio = stream_rs["160/147"]
+    state15, state_audio = rs15.init_state(), rs_audio.init_state(
+        torch.float32)
+    paths += [
+        (f"k: StreamingFir.process, one chunk of {STREAM_CHUNK} complex, "
+         f"{CONV_TAPS} taps", STREAM_CHUNK,
+         lambda: fir.process(chunk_k, state_k)),
+        (f"l: StreamingResampler.process x1.5, one chunk of {STREAM_CHUNK} "
+         f"complex", STREAM_CHUNK * 3 // 2,
+         lambda: rs15.process(chunk15, state15)),
+        (f"l: StreamingResampler.process 160/147, one chunk of {AUDIO_CHUNK} "
+         f"real", AUDIO_CHUNK * 160 // 147,
+         lambda: rs_audio.process(chunk_audio, state_audio)),
+        (f"m: sharded_convolve_signal, 2^22, {CONV_TAPS} taps, mesh of 1", N,
+         lambda: shd.sharded_convolve_signal(x, h, mesh)),
+        ("m: sharded_interpolatef x1.5, 2^20 complex, mesh of 1",
+         CFG3_N * 3 // 2,
+         lambda: shd.sharded_interpolatef(x3, sinc, 1.5, 0.0, 10, mesh)),
+        ("m: sharded_channelize_and_demod, config #5, mesh of 1", CHAN_N,
+         lambda: bt.sharded_channelize_and_demod(x5, proto5, CHAN_C, mesh)),
+        ("m: sharded_sum, 2^22 complex, mesh of 1", N,
+         lambda: shd.sharded_sum(x, mesh)),
+        ("m: sharded_statistics, 2^22 complex, mesh of 1 (host fetch)", N,
+         lambda: shd.sharded_statistics(x, mesh)),
+    ]
+    path_ms = {}
     for name, outputs, fn in paths:
-        ms = median_ms(fn)
+        ms = path_ms[name] = median_ms(fn)
         print(f"{name}: {ms:.4f} ms/call, "
               f"{outputs / ms / 1e3:.1f} Msamples/s out on {smi}")
         dev_ms, per_kernel = device_ms_per_call(fn)
@@ -978,6 +1261,30 @@ def main():
         else:
             print(f"{name}: device time not measured (the profiler showed "
                   f"no device time)")
+    # k and l chunk by chunk as a stream runs them: the host's time to
+    # issue a chunk (perf_counter over the loop, no synchronize inside) and
+    # the wall time a chunk (to the synchronize after the last)
+    for name, proc, xin, chunk, st0 in (
+            ("k: StreamingFir", fir.process, xk, STREAM_CHUNK, state_k),
+            ("l: StreamingResampler x1.5", rs15.process, x3, STREAM_CHUNK,
+             state15),
+            ("l: StreamingResampler 160/147", rs_audio.process, xl_audio,
+             AUDIO_CHUNK, state_audio)):
+        nchunks = xin.shape[-1] // chunk
+        for _ in range(2):           # the second run is the one reported
+            state = st0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for k in range(nchunks):
+                _, state = proc(xin[k * chunk:(k + 1) * chunk], state)
+            t_host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter() - t0
+        print(f"{name}: {nchunks} chunks of {chunk}, host "
+              f"{t_host / nchunks * 1e6:.1f} us to issue a chunk, wall "
+              f"{t_wall / nchunks * 1e6:.1f} us a chunk "
+              f"({xin.shape[-1] / t_wall / 1e6:.1f} Msamples/s in) on {smi}")
+    dist.destroy_process_group()
     chains = in_turns("config #1 chain, 2^22, 128 taps",
                       {"unfused": lambda: chain(xr, xi),
                        "fused": lambda: chain_f(xr, xi)}, smi)
@@ -1050,7 +1357,7 @@ def main():
     W = sc.inner_twiddle(L2, n2, dev)
     C = torch.complex(Br, Bi)
     measure("rowfft_mag (128, 32768)", "basic_dsp_tpu_torch/csrc/rowfft_mag.cu",
-            "basic_dsp_tpu/kernels/spectrum_pallas.py:471", launches,
+            "basic_dsp_tpu/kernels/spectrum_pallas.py:471", k1_launches,
             abs_err_4m,
             {"plain": lambda: sc.rowfft_mag_plain(Br, Bi, True, T),
              "kernel": lambda: sc.rowfft_mag(Br, Bi, True, T, W),
@@ -1138,6 +1445,58 @@ def main():
              "library": lambda: torch.fft.ifft(Y5, dim=-1)},
             (xr5, xi5, ts5), (torch.empty(CHAN_C, S5, device=dev),),
             CHAN_N * (4 * (CHAN_TAPS + 1) + 5 * np.log2(CHAN_C) + 6 + 1))
+    # o. profiling: time_op and throughput against phase 4's median, and a
+    # trace on disk
+    chain_name = paths[0][0]
+    t_op = profiling.time_op(chain, xr, xi, iters=REPS)
+    t_put = profiling.throughput(chain, N, xr, xi, iters=REPS)
+    ratio = t_op["per_iter_s"] * 1e3 / path_ms[chain_name]
+    print(f"profiling.time_op FirFftChainPlanar: "
+          f"{t_op['per_iter_s'] * 1e3:.4f} ms/iter over {REPS}, {ratio:.3f} of phase 4's event median "
+          f"{path_ms[chain_name]:.4f} ms; throughput "
+          f"{t_put['msamples_per_s']:.1f} Msamples/s on {smi}")
+    assert 0.5 <= ratio <= 2.0, ratio
+    assert t_put["msamples_per_s"] > 0
+    trace_dir = os.path.join(work, "trace")
+    with profiling.trace(trace_dir):
+        chain(xr, xi)
+    traces = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    assert len(traces) == 1 and os.path.getsize(traces[0]) > 0, traces
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"][:40] for e in events
+                      if e.get("cat") == "kernel"})
+    print(f"profiling.trace: {os.path.getsize(traces[0])} bytes, "
+          f"{len(events)} events, device kernels {kernels}")
+
+    # n. autotune, last: calibrate with JAX's defaults, reload from the
+    # cache, a typed convolution under the tuned knobs, then the defaults
+    try:
+        entry = bt.autotune.calibrate()
+        print(smi)
+        bt.autotune.print_calibration()
+        bt.autotune._reset_for_tests()
+        loaded = bt.autotune.ensure_calibrated()
+        print(f"autotune: ensure_calibrated after a reset: source "
+              f"{loaded['source']!r}, fft_block_len "
+              f"{bt.default_config().fft_block_len}, direct_conv_max_imp_len "
+              f"{bt.default_config().direct_conv_max_imp_len}")
+        assert loaded["source"] == "cache"
+        assert (loaded["fft_block_len"], loaded["direct_conv_max_imp_len"]) \
+            == (entry["fft_block_len"], entry["direct_conv_max_imp_len"])
+        reset_counts()
+        yh = vh.convolve_signal(imp)
+        torch.cuda.synchronize()
+        err = rel_err(yh.array.to(torch.complex128),
+                      conv_oracle(xh.real, xh.imag, h))
+        print(f"typed convolve_signal under the tuned knobs vs float64 "
+              f"oracle: {err:.3e} (tol {CHAIN_TOL}), conv_blocks_cuda "
+              f"launches: {osc.conv_blocks_cuda.launches}")
+        assert err <= CHAIN_TOL, err
+    finally:
+        bt.set_default_config(default_cfg)
+        bt.autotune._reset_for_tests()
+    assert bt.default_config() == default_cfg
     print(f"peak device memory: "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
@@ -1148,4 +1507,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        sys.exit(main(tmp))
