@@ -49,9 +49,13 @@ first large convolution), ``profiling`` (``time_op``, ``throughput``,
 (the halo shifts as point-to-point sends between ring neighbours),
 ``parallel.sharded`` (``sharded_convolve_signal`` on K3,
 ``sharded_interpolatef`` on K4 and K5, ``sharded_sum``,
-``sharded_statistics``) and :func:`sharded_channelize_and_demod` (K6 with
-the left neighbour's halo as its look-back prefix).  A mesh runs on the
-card over NCCL unless the caller names ``device_type="cpu"`` (gloo).
+``sharded_statistics``), :func:`sharded_channelize_and_demod` (K6 with
+the left neighbour's halo as its look-back prefix), ``parallel.sharded_fft``
+(the four-step FFT over all-to-alls), ``parallel.sharded_convolve_mat``
+(the MIMO convolution over one reduce-scatter), the mesh-sharded vector
+constructors ``to_*_vec_par`` and ``StreamingFir`` over sharded chunks.
+A mesh runs on the card over NCCL unless the caller names
+``device_type="cpu"`` (gloo).
 """
 from .config import (DspConfig, default_config, make_mesh, matmul_precision,
                      set_default_config, set_matmul_precision)
@@ -96,8 +100,10 @@ from .vector import (ComplexFreqVector, ComplexTimeVector, DspVector,
                      GenDspVector, RealFreqVector, RealTimeVector,
                      interleave_to_complex_freq_vec,
                      interleave_to_complex_time_vec, to_complex_freq_vec,
-                     to_complex_time_vec, to_gen_dsp_vec, to_real_freq_vec,
-                     to_real_time_vec)
+                     to_complex_freq_vec_par, to_complex_time_vec,
+                     to_complex_time_vec_par, to_gen_dsp_vec,
+                     to_real_freq_vec, to_real_freq_vec_par,
+                     to_real_time_vec, to_real_time_vec_par)
 from .matrix import (ComplexFreqMatrix, ComplexTimeMatrix, DspMatrix,
                      GenDspMatrix, RealFreqMatrix, RealTimeMatrix, from_rows,
                      to_complex_freq_mat, to_complex_time_mat, to_gen_dsp_mat,
@@ -125,10 +131,11 @@ __all__ = [
     "interleave_to_complex_freq_vec", "interleave_to_complex_time_vec",
     "autotune", "io", "make_mesh", "merge_stats", "merge_stats_cols",
     "stats_ops",
-    "to_complex_freq_mat", "to_complex_freq_vec", "to_complex_time_mat",
-    "to_complex_time_vec", "to_gen_dsp_mat", "to_gen_dsp_vec", "to_mat",
-    "to_real_freq_mat", "to_real_freq_vec", "to_real_time_mat",
-    "to_real_time_vec",
+    "to_complex_freq_mat", "to_complex_freq_vec", "to_complex_freq_vec_par",
+    "to_complex_time_mat", "to_complex_time_vec", "to_complex_time_vec_par",
+    "to_gen_dsp_mat", "to_gen_dsp_vec", "to_mat", "to_real_freq_mat",
+    "to_real_freq_vec", "to_real_freq_vec_par", "to_real_time_mat",
+    "to_real_time_vec", "to_real_time_vec_par",
     "blocked_linear_conv_cuda", "blocked_linear_conv_plain",
     "channelize_and_demod", "channelize_and_demod_planar",
     "channelize_demod_cuda", "channelize_demod_plain",

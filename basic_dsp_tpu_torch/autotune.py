@@ -20,10 +20,19 @@ JSON cache: ``BDSP_AUTOTUNE_CACHE`` when set, else
 ``$XDG_CACHE_HOME/basic_dsp_tpu_torch/autotune.json`` (``~/.cache``
 without it), a file of its own so that the two packages never overwrite
 each other's entries.
+
+The JAX package runs one backend a process, so it holds one entry.  A
+process of the port can hold CPU and CUDA data at once, so it holds one
+entry a device kind (:func:`ensure_calibrated`), and a typed convolution
+runs the knobs of its own data's kind (:func:`config_for`).  Installing an
+entry also writes its knobs into the process-wide default config, as the
+JAX package does: with one kind in a process, ``default_config()`` carries
+that kind's knobs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -36,6 +45,8 @@ from . import config as _config
 
 # device_kind -> {"fft_block_len": int, "direct_conv_max_imp_len": int,
 #                 "timings": {...}}
+_entries: Dict[str, dict] = {}
+# the entry installed last (the one print_calibration reports)
 _state: Optional[dict] = None
 _results: Dict[str, List[Tuple]] = {}
 
@@ -54,8 +65,13 @@ def _device_kind(device=None) -> str:
     or "cpu"."""
     dev = _config.resolve_device(device)
     if dev.type == "cuda":
-        return torch.cuda.get_device_name(dev)
+        return _card_name(dev.index)
     return dev.type
+
+
+@functools.lru_cache(maxsize=None)
+def _card_name(index) -> str:
+    return torch.cuda.get_device_name(index)
 
 
 def _load_cache() -> dict:
@@ -76,35 +92,61 @@ def _save_cache(all_kinds: dict) -> None:
         pass  # read-only environments: calibration stays process-local
 
 
-def _install(entry: dict) -> None:
+def _with_knobs(cfg: _config.DspConfig, entry: dict) -> _config.DspConfig:
+    return _knobbed(cfg, int(entry.get("fft_block_len", 0)), int(entry.get(
+        "direct_conv_max_imp_len", cfg.direct_conv_max_imp_len)))
+
+
+@functools.lru_cache(maxsize=64)
+def _knobbed(cfg: _config.DspConfig, fft_block_len: int,
+             direct_conv_max_imp_len: int) -> _config.DspConfig:
+    """``cfg`` with the two knobs, built once for each (frozen) config and
+    pair of knobs: a typed convolution asks for it at every call."""
+    return dataclasses.replace(
+        cfg, direct_conv_max_imp_len=direct_conv_max_imp_len,
+        fft_block_len=fft_block_len)
+
+
+def _install(kind: str, entry: dict) -> None:
+    """Holds ``entry`` as ``kind``'s and writes its knobs into the
+    process-wide default config."""
     global _state
-    _state = entry
-    cfg = _config.default_config()
-    _config.set_default_config(dataclasses.replace(
-        cfg,
-        direct_conv_max_imp_len=int(entry.get(
-            "direct_conv_max_imp_len", cfg.direct_conv_max_imp_len)),
-        fft_block_len=int(entry.get("fft_block_len", 0)),
-    ))
+    _entries[kind] = _state = entry
+    _config.set_default_config(_with_knobs(_config.default_config(), entry))
 
 
 def ensure_calibrated(device=None) -> dict:
-    """Lazy one-time calibration (threading.rs:190-193 analog): loads the
-    cache entry of ``device``'s kind (the card when None) if present,
-    otherwise times the sweeps on ``device`` and persists them.  Returns
-    the installed entry."""
-    global _state
-    if _state is not None:
-        return _state
+    """Lazy one-time calibration (threading.rs:190-193 analog), once a
+    device kind: returns the entry of ``device``'s kind (the card when
+    None) if this process holds one, else loads it from the cache if
+    present, else times the sweeps on ``device`` and persists them.
+    Never returns another kind's entry."""
     kind = _device_kind(device)
+    if kind in _entries:
+        return _entries[kind]
     cache = _load_cache()
     if kind in cache:
-        _install(cache[kind])
-        _state["source"] = "cache"
-        return _state
+        _install(kind, cache[kind])
+        _entries[kind]["source"] = "cache"
+        return _entries[kind]
     entry = calibrate(device=device)
     entry["source"] = "measured"
     return entry
+
+
+def config_for(device, calibrate: bool = True) -> _config.DspConfig:
+    """The process default config with the knobs of ``device``'s kind:
+    what a typed convolution without a ``cfg`` runs, whichever kind's
+    entry was installed last.  ``calibrate`` loads or measures that kind's
+    entry first; without it a kind that has no entry runs the untuned
+    knobs of ``DspConfig()`` once another kind's are installed."""
+    cfg = _config.default_config()
+    if calibrate:
+        return _with_knobs(cfg, ensure_calibrated(device))
+    entry = _entries.get(_device_kind(device))
+    if entry is None and _entries:
+        entry = dataclasses.asdict(_config.DspConfig())
+    return cfg if entry is None else _with_knobs(cfg, entry)
 
 
 def _time_fn(f, device: torch.device, iters: int) -> float:
@@ -205,7 +247,7 @@ def calibrate(n: int = 1 << 19,
     cache = _load_cache()
     cache[entry["device_kind"]] = entry
     _save_cache(cache)
-    _install(entry)
+    _install(entry["device_kind"], entry)
     return entry
 
 
@@ -236,7 +278,9 @@ def print_calibration() -> str:
 
 
 def _reset_for_tests() -> None:
-    """Clears process-local state so tests can exercise the lazy path."""
+    """Clears process-local state (every kind's entry) so tests can
+    exercise the lazy path."""
     global _state
     _state = None
+    _entries.clear()
     _results.clear()

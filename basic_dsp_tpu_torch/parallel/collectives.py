@@ -24,6 +24,11 @@ Communication:
 * reductions (``sharded.sharded_sum``, ``sharded.sharded_statistics``)
   all-reduce or all-gather over the innermost axis's group first, then
   the outer ones.
+* :func:`all_to_all` (the distributed FFT's transposes) and
+  :func:`reduce_scatter` (the MIMO convolution's channel mix) run over one
+  process group of the flattened axes (:func:`_flat_group`), in
+  host-major order: JAX's tiled ``all_to_all`` and ``psum_scatter`` over
+  the same axes.
 """
 from __future__ import annotations
 
@@ -231,4 +236,77 @@ def all_gather(t: torch.Tensor, axes: AxisNames) -> torch.Tensor:
             dist.all_gather([_wire(p) for p in parts], _wire(out),
                             group=group)
             out = torch.cat(parts)
+    return out
+
+
+# mesh -> {axes: group}: one process group over the flattened axes,
+# created once, collectively, on every rank of the ring.
+_GROUPS = weakref.WeakKeyDictionary()
+
+
+def _flat_group(mesh, axes: Tuple[str, ...]):
+    """A process group over the ranks of this rank's ring over ``axes``
+    whose group rank p is flat (host-major) position p.  One axis is the
+    mesh's own group of that dimension; several are one new group a ring,
+    created at the first call on every rank of the ring
+    (``use_local_synchronization``: the other rings' ranks take no part)
+    and cached per mesh and axes, as the rings are."""
+    groups = _GROUPS.setdefault(mesh, {})
+    group = groups.get(axes)
+    if group is None:
+        import torch.distributed as dist
+        ranks, _ = _ring(mesh, axes)
+        if len(axes) == 1:
+            group = mesh.get_group(_dim(mesh, axes[0]))
+        else:
+            group = dist.new_group(ranks, use_local_synchronization=True)
+        if [dist.get_group_rank(group, r) for r in ranks] != list(
+                range(len(ranks))):
+            raise ValueError("collectives: the mesh's ranks must increase "
+                             "in host-major order, as make_mesh lays them")
+        groups[axes] = group
+    return group
+
+
+def all_to_all(t: torch.Tensor, axes: AxisNames) -> torch.Tensor:
+    """JAX's tiled ``all_to_all(split_axis=1, concat_axis=0)`` of the 2-D
+    ``t`` (r, c) over the flattened axes (inside :func:`on_mesh`): column
+    block j (c/d wide) goes to flat position j, and the blocks received
+    stack along the rows in flat order, (d*r, c/d).  ``all_to_all_single``
+    splits dim 0, so the column blocks are sent as the rows of
+    ``t.reshape(r, d, c/d).permute(1, 0, 2)``.  At size 1 it sends
+    nothing."""
+    import torch.distributed as dist
+
+    mesh, axes = _current_mesh(), norm_axes(axes)
+    d = mesh_size(mesh, axes)
+    if d == 1:
+        return t
+    r, c = t.shape
+    send = t.reshape(r, d, c // d).permute(1, 0, 2).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(_wire(recv), _wire(send),
+                           group=_flat_group(mesh, axes))
+    return recv.reshape(d * r, c // d)
+
+
+def reduce_scatter(t: torch.Tensor, axes: AxisNames) -> torch.Tensor:
+    """JAX's tiled ``psum_scatter(scatter_dimension=0)`` over the
+    flattened axes (inside :func:`on_mesh`): the sum of ``t`` over their
+    ranks, of which flat position i keeps row block i, (rows/d, ...).  At
+    size 1 it is ``t``."""
+    import torch.distributed as dist
+
+    mesh, axes = _current_mesh(), norm_axes(axes)
+    d = mesh_size(mesh, axes)
+    if d == 1:
+        return t
+    out = torch.empty((t.shape[0] // d,) + tuple(t.shape[1:]),
+                      dtype=t.dtype, device=t.device)
+    # torch 2.13 deprecates reduce_scatter_tensor in favour of
+    # reduce_scatter_single (same arguments); earlier releases have only
+    # the former.
+    fn = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    fn(_wire(out), _wire(t), group=_flat_group(mesh, axes))
     return out

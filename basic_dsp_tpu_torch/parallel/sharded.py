@@ -31,10 +31,11 @@ _DIVISIBILITY = ("signal length {n} not divisible by mesh size {d}; sharded "
                  "or pick a submesh (docs/API.md, divisibility contract)")
 
 
-def _placements(mesh, axes, ndim: int):
-    """Shard on the last axis over ``axes``, replicated over the rest."""
+def _placements(mesh, axes, ndim: int, dim: int = -1):
+    """Shard axis ``dim`` (the last by default) over ``axes``, replicated
+    over the rest."""
     from torch.distributed.tensor import Replicate, Shard
-    return [Shard(ndim - 1) if a in axes else Replicate()
+    return [Shard(dim % ndim) if a in axes else Replicate()
             for a in mesh.mesh_dim_names]
 
 
@@ -53,48 +54,51 @@ def shard_time_axis(x: torch.Tensor, mesh, axis_name=None):
     return _wrap(_slice(x, mesh, axes), mesh, axes, tuple(x.shape))
 
 
-def _slice(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """This rank's slice of the time axis of ``x`` (replicated on every
-    rank), contiguous on the mesh's device, after the n % d check."""
+def _slice(x: torch.Tensor, mesh, axes, dim: int = -1) -> torch.Tensor:
+    """This rank's slice of axis ``dim`` (the time axis by default) of
+    ``x`` (replicated on every rank), contiguous on the mesh's device,
+    after the divisibility check."""
     d = collectives.mesh_size(mesh, axes)
-    n = x.shape[-1]
+    n = x.shape[dim]
     if n % d != 0:
         raise ValueError(_DIVISIBILITY.format(n=n, d=d))
     ln = n // d
     with collectives.on_mesh(mesh):
         i = collectives.flat_index(axes)
-    return x[..., i * ln:(i + 1) * ln].to(_mesh_device(mesh)).contiguous()
+    return x.narrow(dim, i * ln, ln).to(_mesh_device(mesh)).contiguous()
 
 
-def _wrap(local: torch.Tensor, mesh, axes, shape):
-    """The ``DTensor`` of the local shards (each ``local``), global
-    ``shape``, contiguous."""
+def _wrap(local: torch.Tensor, mesh, axes, shape, dim: int = -1):
+    """The ``DTensor`` of the local shards (each ``local``) of axis ``dim``
+    over ``axes``, global ``shape``, contiguous."""
     from torch.distributed.tensor import DTensor
     stride, acc = [], 1
     for s in reversed(shape):
         stride.insert(0, acc)
         acc *= s
-    return DTensor.from_local(local, mesh, _placements(mesh, axes, len(shape)),
+    return DTensor.from_local(local, mesh,
+                              _placements(mesh, axes, len(shape), dim),
                               run_check=False, shape=torch.Size(shape),
                               stride=tuple(stride))
 
 
-def _local(x, mesh, axes):
-    """(local shard, global length) of ``x``: a ``DTensor`` sharded on the
-    time axis over ``axes``, or a tensor replicated on every rank, which is
-    sliced.  Checks n % d first, with the JAX package's message."""
+def _local(x, mesh, axes, dim: int = -1):
+    """(local shard, global length) of axis ``dim`` (the time axis by
+    default) of ``x``: a ``DTensor`` sharded on that axis over ``axes``,
+    or a tensor replicated on every rank, which is sliced.  Checks the
+    divisibility first, with the JAX package's message."""
     from torch.distributed.tensor import DTensor
-    n = x.shape[-1]
+    n = x.shape[dim]
     if not isinstance(x, DTensor):
-        return _slice(x, mesh, axes), n
+        return _slice(x, mesh, axes, dim), n
     d = collectives.mesh_size(mesh, axes)
     if n % d != 0:
         raise ValueError(_DIVISIBILITY.format(n=n, d=d))
     if x.device_mesh != mesh:
         raise ValueError("the DTensor lies on another mesh")
-    want = _placements(mesh, axes, x.ndim)
+    want = _placements(mesh, axes, x.ndim, dim)
     if [_norm(p, x.ndim) for p in x.placements] != want:
-        raise ValueError(f"expected a DTensor placed {want} (the time axis "
+        raise ValueError(f"expected a DTensor placed {want} (axis {dim} "
                          f"sharded over {axes}), got {list(x.placements)}")
     return x.to_local(), n
 
@@ -105,6 +109,19 @@ def _norm(placement, ndim: int):
     if placement.is_shard() and placement.dim < 0:
         return Shard(placement.dim % ndim)
     return placement
+
+
+def time_axes(x) -> tuple:
+    """The mesh axes over which the ``DTensor`` ``x`` shards its last
+    (time) axis, in mesh order; raises for any other placement (a shard
+    of another axis, a partial sum)."""
+    axes = tuple(a for a, p in zip(x.device_mesh.mesh_dim_names,
+                                   x.placements) if p.is_shard())
+    if not axes or [_norm(p, x.ndim) for p in x.placements] != _placements(
+            x.device_mesh, axes, x.ndim):
+        raise ValueError(f"expected a DTensor sharded on its last axis, got "
+                         f"{list(x.placements)}")
+    return axes
 
 
 def _conv_lin(ext: torch.Tensor, h_eff: torch.Tensor, fft_len: int):
@@ -233,6 +250,23 @@ def sharded_interpolatef(x, fun, interpolation_factor: float, delay: float,
                                           interp_ops._choose_c(P, Q))
     shape = tuple(x.shape[:-1]) + (n * P // Q,)
     return _wrap(out.contiguous(), mesh, axis_name, shape)
+
+
+def interpolatef_shardable(n: int, d: int, interpolation_factor: float,
+                           conv_len: int, new_points: int) -> bool:
+    """Whether :func:`sharded_interpolatef` takes this geometry (``n``
+    samples on ``d`` ranks) and gives ``new_points`` samples, as
+    ``interp_ops.interpolatef`` does: an exact rational factor, a shard
+    that holds the window and the halos and that ``128*Q`` divides."""
+    from fractions import Fraction
+    frac = Fraction(float(interpolation_factor)).limit_denominator(64)
+    if float(frac) != float(interpolation_factor) or frac <= 0 or n % d:
+        return False
+    P, Q, ln, L = frac.numerator, frac.denominator, n // d, min(conv_len,
+                                                                 n // 2)
+    halo_r = max(0, interp_ops._band_W(P, Q, L, 128) - 128 - L)
+    return (2 * L + 1 <= ln and ln % (128 * Q) == 0 and halo_r <= ln
+            and new_points == n * P // Q)
 
 
 def sharded_sum(x, mesh, axis_name=None) -> torch.Tensor:

@@ -117,7 +117,19 @@ class StreamingFir:
     def process(self, chunk: torch.Tensor,
                 state: FirState) -> Tuple[torch.Tensor, FirState]:
         """Processes one chunk; returns (out, new_state) with
-        ``len(out) == len(chunk)``.  A real chunk gives a real output."""
+        ``len(out) == len(chunk)``.  A real chunk gives a real output.
+
+        A chunk sharded on time over a mesh (a ``Shard(-1)`` ``DTensor``,
+        the state the same on every rank) gives a ``Shard(-1)`` output:
+        each rank extends its shard with the m-1 samples before it, from
+        its left neighbour (``collectives.shift_from_left``) or, on the
+        first rank, from the state's tail, and runs the same step; the new
+        state, the chunk's last m-1 samples, reaches every rank in one
+        all-gather.  A chunk whose shards are shorter than m-1 is gathered
+        and its output sharded again."""
+        from .vector import _sharded
+        if _sharded(chunk):
+            return self._process_sharded(chunk, state)
         tail = state.tail
         ext = torch.cat([tail.to(chunk.dtype), chunk])
         out = self._fir(ext, chunk.shape[-1])
@@ -128,6 +140,32 @@ class StreamingFir:
         if not chunk.is_complex():
             out = out.real
         return out.to(chunk.dtype), FirState(tail=new_tail)
+
+    def _process_sharded(self, chunk, state: FirState):
+        from .parallel import collectives, sharded
+        mesh, axes = chunk.device_mesh, sharded.time_axes(chunk)
+        halo = self.m - 1
+        local = chunk.to_local()
+        if local.shape[-1] < halo:
+            out, state = self.process(chunk.full_tensor(), state)
+            return sharded.shard_time_axis(out, mesh, axes), state
+        tail = state.tail
+        with collectives.on_mesh(mesh):
+            if halo:
+                left = collectives.shift_from_left(local[-halo:], axes,
+                                                   wrap=False)
+                if collectives.flat_index(axes) == 0:
+                    left = tail
+                last = collectives.all_gather(local[-halo:], axes)[-1]
+            else:
+                left = last = local[:0]
+        ext = torch.cat([left.to(local.dtype), local])
+        out = self._fir(ext, local.shape[-1])
+        if not local.is_complex():
+            out = out.real
+        return (sharded._wrap(out.to(local.dtype).contiguous(), mesh, axes,
+                              tuple(chunk.shape)),
+                FirState(tail=last.to(tail.dtype, copy=True)))
 
 
 def stream_chunks(fir: StreamingFir, x: torch.Tensor,

@@ -26,10 +26,26 @@ rededicate, views such as ``to_real``).  Vectors behave as values all the
 same: ``v[i] = x`` copies the data on its first write unless the vector
 holds the only reference to it, so no other vector, and no tensor a
 caller got from ``array``, sees the change.
+
+The ``*_par`` constructors shard the data over a device mesh
+(``config.make_mesh``): the vector, of a par flavor (``Par`` and the
+flavor's name, a subclass of it), holds a ``Shard(-1)`` ``DTensor``,
+host-major as ``parallel.sharded.shard_time_axis`` places it.  The JAX
+package leaves the sharding of later ops to GSPMD; torch has no such
+propagation, so a par vector routes every method itself, in one of three
+ways its docstring names: a sharded counterpart (``sum``, ``statistics``,
+``convolve_signal``, ``interpolatef``, ``plain_fft``, each a branch of the
+method on a ``DTensor``), each rank's local shard for the pointwise
+methods (the placements kept), or the gathered data (``full_tensor()``)
+for every other method, whose result is then an unsharded vector of the
+plain flavor.  The plain flavors' methods do not route.
 """
 from __future__ import annotations
 
+import copy
+import functools
 import math
+import sys
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +64,8 @@ __all__ = [
     "to_real_time_vec", "to_real_freq_vec", "to_complex_time_vec",
     "to_complex_freq_vec", "to_gen_dsp_vec",
     "interleave_to_complex_time_vec", "interleave_to_complex_freq_vec",
+    "to_real_time_vec_par", "to_complex_time_vec_par",
+    "to_real_freq_vec_par", "to_complex_freq_vec_par",
 ]
 
 
@@ -581,6 +599,13 @@ class DspVector:
     # precise_stats.rs, dot_products.rs)
     # ------------------------------------------------------------------
     def statistics(self) -> stats_ops.Statistics:
+        """Single-pass statistics.  On a mesh-sharded vector: its sharded
+        counterpart, ``parallel.sharded.sharded_statistics``."""
+        if _sharded(self._data):
+            from .parallel import sharded
+            x = self._data
+            return sharded.sharded_statistics(
+                x, x.device_mesh, sharded.time_axes(x), self.is_complex())
         return stats_ops.statistics(self._data, self.is_complex())
 
     def statistics_split(self, length: int):
@@ -599,6 +624,13 @@ class DspVector:
                                                self.is_complex())
 
     def sum(self):
+        """The sum of the samples.  On a mesh-sharded vector: its sharded
+        counterpart, ``parallel.sharded.sharded_sum``."""
+        if _sharded(self._data):
+            from .parallel import sharded
+            x = self._data
+            return stats_ops._np_scalar(stats_ops._host(sharded.sharded_sum(
+                x, x.device_mesh, sharded.time_axes(x))))
         return stats_ops.sum_(self._data)
 
     def sum_sq(self):
@@ -730,12 +762,20 @@ class DspVector:
 
     def plain_fft(self) -> "DspVector":
         """Unscaled, unshifted FFT (reference time_to_freq.rs:136-156);
-        real input is promoted to complex first."""
+        real input is promoted to complex first.  On a mesh-sharded
+        vector: its sharded counterpart, ``parallel.sharded_fft`` (a
+        sharded spectrum), where the mesh size squared divides the length;
+        the gathered data otherwise."""
         bad = self._check(domain=DataDomain.TIME)
         if bad is not None:
             return bad._retag(NumberSpace.COMPLEX, DataDomain.FREQUENCY) \
                 if bad._is_gen() else bad
         work = self if self.is_complex() else self.to_complex()
+        if _sharded(work._data):
+            return self._make(_par_fft(work._data),
+                              delta=work._fft_delta(),
+                              domain=DataDomain.FREQUENCY,
+                              space=NumberSpace.COMPLEX)
         return self._make(fft_ops.plain_fft(work._data),
                           delta=work._fft_delta(),
                           domain=DataDomain.FREQUENCY,
@@ -888,9 +928,14 @@ class DspVector:
     def convolve_signal(self, impulse_response: "DspVector",
                         cfg: Optional[_config.DspConfig] = None) -> "DspVector":
         """Circular centered convolution (``ops.conv_ops.convolve_signal``;
-        its dispatch thresholds from ``cfg``, or the process default,
-        ``config.default_config()``, which ``autotune`` calibrates at the
-        first convolution longer than ``overlap_save_min_len``)."""
+        its dispatch thresholds from ``cfg``, or without one the process
+        default, ``config.default_config()``, with the knobs of the data's
+        device kind, ``autotune.config_for``: calibrated at the first
+        convolution longer than ``overlap_save_min_len``).  On a
+        mesh-sharded vector: its sharded counterpart,
+        ``parallel.sharded.sharded_convolve_signal`` at the config's block
+        length (the taps gathered first if they are sharded), where a
+        shard holds the kernel; the gathered data otherwise."""
         bad = (self._binary_check(impulse_response, same_size=False)
                or self._check(domain=DataDomain.TIME)
                or self._check_delta(impulse_response))
@@ -898,16 +943,20 @@ class DspVector:
             return bad
         if self.points() < impulse_response.points():
             return self._invalid(ErrorReason.INVALID_ARGUMENT_LENGTH)
-        if cfg is None and (self.points()
-                            > _config.default_config().overlap_save_min_len):
+        if cfg is None:
             # Lazy one-time calibration on the first large convolution
-            # (reference threading.rs:190-193), for the data's device: loads
-            # the cache entry of its kind or measures and persists one.
+            # (reference threading.rs:190-193), for the data's device kind:
+            # loads the cache entry of that kind or measures and persists
+            # one; every convolution runs its own kind's knobs.
             from . import autotune
-            autotune.ensure_calibrated(self._data.device)
+            cfg = autotune.config_for(
+                self._data.device, calibrate=self.points()
+                > _config.default_config().overlap_save_min_len)
+        if _sharded(self._data) or _sharded(impulse_response._data):
+            return self._make(_par_convolve(
+                self._data, impulse_response._data, self.is_complex(), cfg))
         return self._make(conv_ops.convolve_signal(
-            self._data, impulse_response._data, self.is_complex(),
-            cfg or _config.default_config()))
+            self._data, impulse_response._data, self.is_complex(), cfg))
 
     def overlap_discard(self, impulse_response: "DspVector",
                         fft_len: int = 0) -> "DspVector":
@@ -984,6 +1033,16 @@ class DspVector:
     # ------------------------------------------------------------------
     def interpolatef(self, function, interpolation_factor: float,
                      delay: float, conv_len: int) -> "DspVector":
+        """Fractional resampling (``ops.interp_ops.interpolatef``).  On a
+        mesh-sharded vector: its sharded counterpart,
+        ``parallel.sharded.sharded_interpolatef``, for a real impulse
+        response at a geometry it takes
+        (``sharded.interpolatef_shardable``); the gathered data
+        otherwise."""
+        if _sharded(self._data):
+            return self._make(_par_interpolatef(
+                self._data, function, float(interpolation_factor),
+                float(delay), int(conv_len), self._delta))
         return self._make(interp_ops.interpolatef(
             self._data, function, float(interpolation_factor), float(delay),
             int(conv_len), self._delta))
@@ -1127,3 +1186,262 @@ def interleave_to_complex_freq_vec(real, imag, delta: float = 1.0,
                                    device=None) -> ComplexFreqVector:
     v = interleave_to_complex_time_vec(real, imag, delta, device)
     return ComplexFreqVector(v._data, delta)
+
+
+# ----------------------------------------------------------------------
+# Mesh-sharded vectors (reference support_std_par.rs:19-65): the par
+# flavors, whose data is a ``Shard(-1)`` ``DTensor`` over a mesh, route
+# each method (module docstring); the plain flavors are untouched.
+# ----------------------------------------------------------------------
+def _sharded(t) -> bool:
+    """Whether ``t`` is a ``DTensor``, a par vector's data.  None exists
+    before ``torch.distributed.tensor`` is imported, so the check imports
+    nothing."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def _as_plain(v: DspVector, data) -> DspVector:
+    """A copy of ``v`` holding ``data``, of ``v``'s plain flavor."""
+    out = copy.copy(v)
+    out.__class__ = getattr(v, "_PLAIN", type(v))
+    out._data = data
+    return out
+
+
+def _gathered(v: DspVector) -> DspVector:
+    return _as_plain(v, v._data.full_tensor()) if _sharded(v._data) else v
+
+
+def _map_vectors(args, fn):
+    """``args`` with each vector (also inside a list or tuple) as
+    ``fn(vector)``."""
+    def one(a):
+        if isinstance(a, DspVector):
+            return fn(a)
+        if isinstance(a, (list, tuple)) and any(isinstance(b, DspVector)
+                                                for b in a):
+            return type(a)(one(b) for b in a)
+        return a
+    return tuple(one(a) for a in args)
+
+
+def _layout(t):
+    return t.device_mesh, tuple(t.placements), tuple(t.shape)
+
+
+def _rewrap(out, like):
+    """A result of the local shards (a vector, or a tuple of them) as a
+    par vector laid out as the ``DTensor`` ``like``; an erroneous result
+    (no points) stays as it is."""
+    if isinstance(out, tuple):
+        return tuple(_rewrap(o, like) for o in out)
+    if not isinstance(out, DspVector) or out.points() == 0:
+        return out
+    from .parallel import sharded
+    out.__class__ = _PAR_FLAVORS[type(out)]
+    out._data = sharded._wrap(out._data.contiguous(), like.device_mesh,
+                              sharded.time_axes(like), tuple(like.shape))
+    return out
+
+
+_NOTE_LOCAL = ("On a mesh-sharded vector: each rank's local shard, the "
+               "placements kept (the gathered data where a vector argument "
+               "is laid out otherwise).")
+_NOTE_GATHER = ("On a mesh-sharded vector: the gathered data "
+                "(``full_tensor()``); the result is unsharded.")
+
+
+def _routed(method, note, run):
+    run = functools.wraps(method)(run)
+    run.__doc__ = ((method.__doc__ + "\n\n        ") if method.__doc__
+                   else "") + note
+    return run
+
+
+def _local_route(method):
+    """``method`` on each rank's local shard, the placements kept; where a
+    vector argument is not laid out as ``self``, on the gathered data."""
+    def run(self, *args, **kwargs):
+        like, vecs = self._data, []
+        _map_vectors(args, vecs.append)
+        if not all(_sharded(v._data) and _layout(v._data) == _layout(like)
+                   for v in vecs):
+            return method(_gathered(self), *_map_vectors(args, _gathered),
+                          **kwargs)
+
+        def local(v):
+            return _as_plain(v, v._data.to_local())
+        return _rewrap(method(local(self), *_map_vectors(args, local),
+                              **kwargs), like)
+    return _routed(method, _NOTE_LOCAL, run)
+
+
+def _gather_route(method):
+    def run(self, *args, **kwargs):
+        return method(_gathered(self), *_map_vectors(args, _gathered),
+                      **kwargs)
+    return _routed(method, _NOTE_GATHER, run)
+
+
+def _par_fft(x):
+    """``plain_fft`` of the par data ``x``: ``sharded_fft`` where d^2
+    divides the length, else ``fft_ops.plain_fft`` of the gathered
+    data."""
+    from .parallel import collectives, sharded, sharded_fft
+    axes = sharded.time_axes(x)
+    d = collectives.mesh_size(x.device_mesh, axes)
+    if x.shape[-1] % (d * d):
+        return fft_ops.plain_fft(x.full_tensor())
+    return sharded_fft.sharded_fft(x, x.device_mesh, axes)
+
+
+def _par_convolve(x, h, is_complex: bool, cfg):
+    """``convolve_signal`` with par data ``x`` or taps ``h``: the taps
+    gathered, then ``sharded_convolve_signal`` where a shard holds the
+    clipped kernel, else the single-device convolution of the gathered
+    data."""
+    if _sharded(h):
+        h = h.full_tensor()
+    if _sharded(x):
+        from .parallel import collectives, sharded
+        axes = sharded.time_axes(x)
+        n, d = x.shape[-1], collectives.mesh_size(x.device_mesh, axes)
+        if n // d >= conv_ops._clip_kernel(n, h.shape[-1])[1]:
+            return sharded.sharded_convolve_signal(
+                x, h, x.device_mesh, axes, fft_len=cfg.fft_block_len)
+        x = x.full_tensor()
+    return conv_ops.convolve_signal(x, h, is_complex, cfg)
+
+
+def _par_interpolatef(x, function, factor: float, delay: float,
+                      conv_len: int, delta: float):
+    """``interpolatef`` of the par data ``x``: ``sharded_interpolatef``
+    for a real impulse response at a geometry it takes, else
+    ``interp_ops.interpolatef`` of the gathered data."""
+    from .conv_types import ComplexImpulseResponse
+    from .parallel import collectives, sharded
+    axes = sharded.time_axes(x)
+    n, d = x.shape[-1], collectives.mesh_size(x.device_mesh, axes)
+    new_len = int(round(n * (2 if x.is_complex() else 1) * factor))
+    new_len += new_len % 2
+    new_points = new_len // 2 if x.is_complex() else new_len
+    if (not isinstance(function, ComplexImpulseResponse)
+            and sharded.interpolatef_shardable(n, d, factor, conv_len,
+                                               new_points)):
+        return sharded.sharded_interpolatef(x, function, factor, delay,
+                                            conv_len, x.device_mesh, axes,
+                                            delta)
+    return interp_ops.interpolatef(x.full_tensor(), function, factor, delay,
+                                   conv_len, delta)
+
+
+# Every public method but the metadata accessors (array, delta, domain,
+# is_complex, points, is_erroneous, get_meta_data), by route.  sum,
+# statistics, convolve_signal, interpolatef and plain_fft branch to their
+# sharded counterparts themselves, on the par data.
+_LOCAL_METHODS = (
+    "with_delta", "set_delta", "add", "sub", "mul", "div", "scale",
+    "offset", "sin", "cos", "tan", "asin", "acos", "atan", "sinh", "cosh",
+    "tanh", "asinh", "acosh", "atanh", "sqrt", "square", "ln", "exp",
+    "root", "powf", "log", "expf", "ln_approx", "exp_approx",
+    "sin_approx", "cos_approx", "log_approx", "expf_approx",
+    "powf_approx", "abs", "wrap", "conj", "magnitude", "magnitude_squared",
+    "to_real", "to_imag", "phase", "get_real", "get_imag",
+    "get_magnitude", "get_magnitude_squared", "get_phase",
+    "get_real_imag", "get_mag_phase", "set_real_imag", "set_mag_phase",
+    "to_complex", "magnitude_b", "magnitude_squared_b", "to_real_b",
+    "to_imag_b", "phase_b", "to_complex_b")
+_GATHER_METHODS = (
+    "to_numpy", "__getitem__", "interleaved", "add_smaller", "sub_smaller",
+    "mul_smaller", "div_smaller", "unwrap", "multiply_complex_exponential",
+    "reverse", "swap_halves", "zero_pad", "zero_interleave", "split_into",
+    "merge", "resize", "diff", "diff_with_start", "cum_sum",
+    "statistics_split", "statistics_prec", "statistics_split_prec",
+    "sum_sq", "sum_prec", "sum_sq_prec", "dot_product", "dot_product_prec",
+    "map_inplace", "map_aggregate", "rededicate_to", "rededicate",
+    "zero_pad_b", "zero_interleave_b", "resize_b", "swap_halves_b",
+    "apply_linear_phase", "fft", "windowed_fft", "plain_sfft", "sfft",
+    "windowed_sfft", "plain_ifft", "ifft", "windowed_ifft", "plain_sifft",
+    "sifft", "windowed_sifft", "mirror", "fft_shift", "ifft_shift",
+    "apply_window", "unapply_window", "overlap_discard", "convolve",
+    "multiply_frequency_response", "prepare_argument",
+    "prepare_argument_padded", "correlate", "interpolatei", "interpolate",
+    "interpft", "decimatei", "interpolate_lin", "interpolate_hermite")
+_SHARDED_METHODS = ("sum", "statistics", "convolve_signal", "interpolatef",
+                    "plain_fft")
+
+
+class _ParVector:
+    """The mesh-sharded side of a flavor (mixed in before it): results
+    of the par data stay par flavors, every method routes (the module
+    docstring), and a result whose data is not sharded is of the plain
+    flavor."""
+
+    _PLAIN: type = None
+
+    @classmethod
+    def _flavor_class(cls, space: NumberSpace, domain: DataDomain):
+        return _PAR_FLAVORS[_FLAVORS[(space, domain)]]
+
+    def _make(self, data, delta=None, domain=None, space=None):
+        out = DspVector._make(self, data, delta, domain, space)
+        if not _sharded(data):
+            out.__class__ = out._PLAIN
+        return out
+
+    def __setitem__(self, idx, value):
+        """Writes into the gathered data, which is then sharded again
+        over the same axes."""
+        from .parallel import sharded
+        like, full = self._data, _gathered(self)
+        full[idx] = value
+        self._data = sharded.shard_time_axis(full._data, like.device_mesh,
+                                             sharded.time_axes(like))
+
+
+for _name in _LOCAL_METHODS:
+    setattr(_ParVector, _name, _local_route(getattr(DspVector, _name)))
+for _name in _GATHER_METHODS:
+    setattr(_ParVector, _name, _gather_route(getattr(DspVector, _name)))
+del _name
+
+_PAR_FLAVORS = {
+    plain: type(f"Par{plain.__name__}", (_ParVector, plain),
+                {"_PLAIN": plain, "__module__": __name__,
+                 "__doc__": f"A mesh-sharded :class:`{plain.__name__}`."})
+    for plain in _FLAVORS.values()}
+
+
+def _par(make, data, mesh, delta: float) -> DspVector:
+    """The vector ``make(data, delta)`` on the mesh's device, its data
+    sharded on time over every mesh axis, of the par flavor."""
+    from .parallel import sharded
+    v = make(data, delta, sharded._mesh_device(mesh))
+    out = _as_plain(v, sharded.shard_time_axis(v._data, mesh))
+    out.__class__ = _PAR_FLAVORS[type(v)]
+    return out
+
+
+def to_real_time_vec_par(data, mesh, delta: float = 1.0) -> RealTimeVector:
+    """Mesh-sharded constructor, the analog of the reference's ``*_par``
+    constructors (support_std_par.rs:19-65): ``data``, the same on every
+    rank, lands on the mesh's device sharded on time over every mesh axis
+    (``parallel.sharded.shard_time_axis``; the mesh size must divide the
+    length).  The result is a :class:`RealTimeVector` whose methods route
+    as the module docstring says."""
+    return _par(to_real_time_vec, data, mesh, delta)
+
+
+def to_complex_time_vec_par(data, mesh,
+                            delta: float = 1.0) -> ComplexTimeVector:
+    return _par(to_complex_time_vec, data, mesh, delta)
+
+
+def to_real_freq_vec_par(data, mesh, delta: float = 1.0) -> RealFreqVector:
+    return _par(to_real_freq_vec, data, mesh, delta)
+
+
+def to_complex_freq_vec_par(data, mesh,
+                            delta: float = 1.0) -> ComplexFreqVector:
+    return _par(to_complex_freq_vec, data, mesh, delta)

@@ -106,6 +106,27 @@ Phases (any failure raises and exits non-zero):
       kernel); each against its single-device function (<= 1e-6) and the
       float64 oracle (<= 5e-6; sums relative to sum |x|, sums of squares to
       sum |x|^2); the process group ends after phase 4;
+   p. the rest of the multi-device layer on the same mesh:
+      ``sharded_fft`` of 2^22 complex64 and of 2^22 real float32 samples,
+      natural order and not ((n1, n2) sharded over rows),
+      ``sharded_fft_planar``, ``four_step_fft`` and ``four_step_ifft`` at
+      2^22, each against ``torch.fft.fft`` (<= 1e-6 of max |X|) and the
+      float64 numpy FFT (<= 2e-6); ``sharded_convolve_mat`` of (8, 2^19)
+      complex64 and float32 with an (8, 8, 64) grid (no kernel) against
+      ``matrix._convolve_mat`` (<= 1e-6) and a float64 einsum (<= 5e-6);
+      ``to_complex_time_vec_par`` of the 2^22 signal: ``sum``, ``scale``,
+      ``magnitude`` (no kernel), ``convolve_signal`` with 384
+      raised-cosine taps (one K3 launch), ``plain_fft`` (no kernel) and
+      the gathering ``fft``, each against the plain vector's (<= 1e-6) and
+      the convolution and the FFT against float64 (<= 5e-6); config #3's
+      x1.5 through ``to_complex_time_vec_par(...).interpolatef`` (one K4
+      launch); ``StreamingFir`` with cell 2's 384 taps over 16 sharded
+      chunks of 2^16 (16 K3 launches) against the plain-chunk stream (<=
+      1e-6) and the float64 linear convolution (<= 5e-6); then each of
+      ``sharded_fft``, ``sharded_convolve_mat`` and the par vector's
+      ``convolve_signal`` timed in turns against its single-device
+      counterpart, with its device time and idle share.  K3's and K4's
+      launch counts in the ``kernels`` line include phase p's;
 4. times with CUDA events (median of 20 after warm-up): every path (the
    DIT spectrum among them, its planes held on the card after its first
    call; k, l and m by chunk or call, and k and l's host time a chunk),
@@ -173,6 +194,10 @@ OS_GEOMETRIES = [(4096, 33, 1024), (8192, 129, 2048), (5000, 63, 1024),
                  (N + CONV_TAPS - 1, CONV_TAPS, CONV_FFT_LEN)]
 KERNEL_TOL = 2e-6
 SHARD_TOL = 1e-6       # a sharded function against its single-device one
+FFT_TOL = 1e-6         # an FFT against torch.fft.fft, of max |X|
+FFT64_TOL = 2e-6       # an FFT against the float64 numpy FFT, of max |X|
+MIMO_TAPS = 64
+PAR_CHUNKS = 16
 CHAIN_TOL = 5e-6
 STATS_TOL = 1e-5
 PREC_TOL = 1e-12
@@ -1186,6 +1211,250 @@ def main(work):
     assert (st.count, st.min_index, st.max_index, st.min, st.max) == (
         N, st1.min_index, st1.max_index, st1.min, st1.max)
     del x64
+
+    # 3p. the rest of the multi-device layer on the same one-rank NCCL
+    # mesh: the distributed FFT, the MIMO convolution, the mesh-sharded
+    # vectors and StreamingFir over sharded chunks
+    from basic_dsp_tpu_torch import matrix as tmatrix
+    from basic_dsp_tpu_torch.parallel import sharded_fft as sfft
+    X = torch.fft.fft(x)
+    X64 = np.fft.fft(x.cpu().numpy().astype(np.complex128))
+    Xr = torch.fft.fft(xr)
+    Xr64 = np.fft.fft(xr.cpu().numpy().astype(np.float64))
+    n1, n2 = sfft._split_factors(N)
+
+    def spectrum_errs(name, got, ref, ref64):
+        """``got`` against torch.fft.fft (FFT_TOL of max |X|) and the
+        float64 numpy oracle (FFT64_TOL)."""
+        assert bool(torch.isfinite(torch.view_as_real(got)).all()), name
+        ref64 = torch.from_numpy(ref64).to(dev)
+        errs = (rel_err(got, ref), rel_err(got.to(torch.complex128), ref64))
+        print(f"{name}: vs torch.fft.fft {errs[0]:.3e} (tol {FFT_TOL}), vs "
+              f"float64 numpy {errs[1]:.3e} (tol {FFT64_TOL}) of max |X|")
+        assert errs[0] <= FFT_TOL and errs[1] <= FFT64_TOL, (name, errs)
+
+    reset_counts()
+    for name, sig, ref, ref64 in (("complex64", x, X, X64),
+                                  ("float32", xr, Xr, Xr64)):
+        for natural in (True, False):
+            ys = sfft.sharded_fft(sig, mesh, natural_order=natural)
+            assert isinstance(ys, DTensor) and ys.dtype == torch.complex64
+            ys = ys.to_local()
+            if natural:
+                assert ys.shape == (N,)
+                spectrum_errs(f"sharded_fft {name} 2^22, mesh of 1", ys,
+                              ref, ref64)
+            else:
+                assert ys.shape == (n1, n2)
+                spectrum_errs(f"sharded_fft {name} 2^22 natural_order=False "
+                              f"({n1}, {n2})", ys,
+                              ref.reshape(n2, n1).T,
+                              ref64.reshape(n2, n1).T)
+    pr, pi = sfft.sharded_fft_planar(xr, xi, mesh)
+    spectrum_errs("sharded_fft_planar 2^22, mesh of 1",
+                  torch.complex(pr.to_local(), pi.to_local()), X, X64)
+    spectrum_errs("four_step_fft 2^22", sfft.four_step_fft(x), X, X64)
+    spectrum_errs("four_step_ifft 2^22 (n * ifft)", sfft.four_step_ifft(x),
+                  torch.fft.ifft(x) * N,
+                  np.fft.ifft(x.cpu().numpy().astype(np.complex128)) * N)
+    del pr, pi, ys, Xr, Xr64
+    torch.cuda.synchronize()
+    assert other_launches() == 0 and chc.channelize_demod_cuda.launches == 0
+
+    rngp = np.random.default_rng(1)
+    xm_c = torch.from_numpy((rngp.standard_normal((MAT_ROWS, MAT_N))
+                             + 1j * rngp.standard_normal((MAT_ROWS, MAT_N)))
+                            .astype(np.complex64)).to(dev)
+    grid_c = (rngp.standard_normal((MAT_ROWS, MAT_ROWS, MIMO_TAPS))
+              + 1j * rngp.standard_normal((MAT_ROWS, MAT_ROWS, MIMO_TAPS))
+              ).astype(np.complex64)
+    xm_r = torch.from_numpy(rngp.standard_normal((MAT_ROWS, MAT_N)).astype(
+        np.float32)).to(dev)
+    grid_r = rngp.standard_normal((MAT_ROWS, MAT_ROWS, MIMO_TAPS)).astype(
+        np.float32)
+    for name, xm, grid, cplx in (("complex64", xm_c, grid_c, True),
+                                 ("float32", xm_r, grid_r, False)):
+        reset_counts()
+        ym = bt.parallel.sharded_convolve_mat(xm, grid, mesh)
+        torch.cuda.synchronize()
+        assert other_launches() == 0
+        assert isinstance(ym, DTensor) and ym.shape == (MAT_ROWS, MAT_N)
+        ym = ym.to_local()
+        assert ym.dtype == xm.dtype
+        assert bool(torch.isfinite(torch.view_as_real(ym) if cplx
+                                   else ym).all())
+        single = tmatrix._convolve_mat(xm, torch.from_numpy(grid).to(dev),
+                                       cplx)
+        g64 = torch.from_numpy(grid).to(dev, torch.complex128)
+        ref = torch.fft.ifft(torch.einsum(
+            "crn,rn->cn", torch.fft.fft(conv_ops.kernel_layout(g64, MAT_N)),
+            torch.fft.fft(xm.to(torch.complex128), dim=-1)), dim=-1)
+        if not cplx:
+            ref = ref.real
+        errs = (rel_err(ym, single),
+                rel_err(ym.to(ref.dtype), ref))
+        print(f"main path: sharded_convolve_mat {name} ({MAT_ROWS}, {MAT_N}) "
+              f"with a ({MAT_ROWS}, {MAT_ROWS}, {MIMO_TAPS}) grid, mesh of 1: "
+              f"vs matrix._convolve_mat {errs[0]:.3e} (tol {SHARD_TOL}), vs "
+              f"float64 oracle {errs[1]:.3e} (tol {CHAIN_TOL}); no kernel")
+        assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, (name, errs)
+    del ym, single, g64, ref, xm_r
+
+    vp = bt.to_complex_time_vec_par(xh_np, mesh)
+    assert isinstance(vp.array, DTensor) and vp.points() == N
+    assert vp.array.to_local().device.type == "cuda"
+    xh64 = xh.to(torch.complex128)
+    reset_counts()
+    got = vp.sum()
+    err = abs(got - vh.sum()) / float(xh64.abs().sum())
+    print(f"par vector sum() (sharded_sum) vs the plain vector's: {err:.3e} "
+          f"relative to sum |x| (tol {SHARD_TOL})")
+    assert err <= SHARD_TOL, err
+    for name, par, plain in (
+            ("scale(2 - 1j)", vp.scale(2.0 - 1.0j), vh.scale(2.0 - 1.0j)),
+            ("magnitude()", vp.magnitude(), vh.magnitude())):
+        assert isinstance(par.array, DTensor), name
+        err = rel_err(par.array.to_local(), plain.array)
+        print(f"par vector {name} (local shards) vs the plain vector's: "
+              f"{err:.3e} (tol {SHARD_TOL})")
+        assert err <= SHARD_TOL, (name, err)
+    torch.cuda.synchronize()
+    assert other_launches() == 0
+    imp_rc = bt.to_complex_time_vec(rc_taps(CONV_TAPS, dev).to(
+        torch.complex64))
+    reset_counts()
+    yp = vp.convolve_signal(imp_rc)
+    torch.cuda.synchronize()
+    p_conv = osc.conv_blocks_cuda.launches
+    print(f"main path: par ComplexTimeVector.convolve_signal n={N}, "
+          f"{CONV_TAPS} raised-cosine taps, mesh of 1, conv_blocks_cuda "
+          f"launches: {p_conv}, other kernels: {other_launches() - p_conv}")
+    assert p_conv == 1 and other_launches() == 1, "par conv: not one K3"
+    assert isinstance(yp.array, DTensor)
+    yp = yp.array.to_local()
+    errs = (rel_err(yp, vh.convolve_signal(imp_rc).array),
+            rel_err(yp.to(torch.complex128),
+                    conv_oracle(xh.real, xh.imag, imp_rc.array)))
+    print(f"par convolve_signal vs the plain vector's {errs[0]:.3e} (tol "
+          f"{SHARD_TOL}), vs float64 oracle {errs[1]:.3e} (tol {CHAIN_TOL})")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    del yp
+    reset_counts()
+    fp = vp.plain_fft()
+    torch.cuda.synchronize()
+    assert other_launches() == 0
+    assert isinstance(fp, bt.ComplexFreqVector)
+    assert isinstance(fp.array, DTensor)
+    fp = fp.array.to_local()
+    errs = (rel_err(fp, vh.plain_fft().array),
+            rel_err(fp.to(torch.complex128), torch.from_numpy(
+                np.fft.fft(xh_np.astype(np.complex128))).to(dev)))
+    print(f"par plain_fft (sharded_fft) vs the plain vector's {errs[0]:.3e} "
+          f"(tol {SHARD_TOL}), vs float64 numpy {errs[1]:.3e} (tol "
+          f"{CHAIN_TOL})")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    del fp
+    gathered = vp.fft()
+    assert not isinstance(gathered.array, DTensor)
+    err = rel_err(gathered.array, vh.fft().array)
+    print(f"par fft() (gathered: sharded to_complex, then fft on the whole) "
+          f"vs the plain vector's: {err:.3e} (tol {SHARD_TOL})")
+    assert err <= SHARD_TOL, err
+    del gathered, vp, xh64
+    reset_counts()
+    y4p = bt.to_complex_time_vec_par(x3, mesh).interpolatef(sinc, 1.5, 0.0,
+                                                            10)
+    torch.cuda.synchronize()
+    p_k4 = rsc.resample_direct_cuda.launches
+    print(f"main path: par ComplexTimeVector.interpolatef x1.5 of {CFG3_N}, "
+          f"mesh of 1, resample_direct_cuda launches: {p_k4}, other kernels: "
+          f"{other_launches() - p_k4}")
+    assert p_k4 == 1 and other_launches() == 1, "par x1.5: not one K4"
+    assert isinstance(y4p.array, DTensor)
+    y4p = y4p.array.to_local()
+    errs = (rel_err(y4p, bt.to_complex_time_vec(x3).interpolatef(
+                sinc, 1.5, 0.0, 10).array),
+            rel_err(y4p.to(torch.complex128),
+                    resample_oracle(x3, sinc, 3, 2, 10, CFG3_N * 3 // 2)))
+    print(f"par interpolatef vs the plain vector's {errs[0]:.3e} (tol "
+          f"{SHARD_TOL}), vs float64 oracle {errs[1]:.3e} (tol {CHAIN_TOL})")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    del y4p
+
+    fir_p = streaming.StreamingFir(h)
+    state, state1 = fir_p.init_state(torch.complex64), fir.init_state(
+        torch.complex64)
+    outs, outs1 = [], []
+    reset_counts()
+    for k in range(PAR_CHUNKS):
+        chunk = shd.shard_time_axis(
+            xk[k * STREAM_CHUNK:(k + 1) * STREAM_CHUNK], mesh)
+        out, state = fir_p.process(chunk, state)
+        outs.append(out)
+    torch.cuda.synchronize()
+    p_stream = osc.conv_blocks_cuda.launches
+    print(f"main path: StreamingFir.process over {PAR_CHUNKS} sharded chunks "
+          f"of {STREAM_CHUNK}, {CONV_TAPS} taps, mesh of 1, conv_blocks_cuda "
+          f"launches: {p_stream}, other kernels: "
+          f"{other_launches() - p_stream}")
+    assert p_stream == PAR_CHUNKS and other_launches() == PAR_CHUNKS, \
+        "sharded stream: not one K3 a chunk"
+    assert all(isinstance(o, DTensor) for o in outs)
+    yk = torch.cat([o.to_local() for o in outs])
+    for k in range(PAR_CHUNKS):
+        out, state1 = fir.process(xk[k * STREAM_CHUNK:(k + 1) * STREAM_CHUNK],
+                                  state1)
+        outs1.append(out)
+    n_p = PAR_CHUNKS * STREAM_CHUNK
+    lin = torch.fft.ifft(torch.fft.fft(xk[:n_p].to(torch.complex128),
+                                       n=2 * n_p)
+                         * torch.fft.fft(h.to(torch.complex128),
+                                         n=2 * n_p))[:n_p]
+    errs = (rel_err(yk, torch.cat(outs1)), rel_err(yk.to(torch.complex128),
+                                                   lin))
+    print(f"StreamingFir over sharded chunks vs over plain chunks "
+          f"{errs[0]:.3e} (tol {SHARD_TOL}), vs float64 linear convolution "
+          f"{errs[1]:.3e} (tol {CHAIN_TOL})")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    assert torch.equal(state.tail, state1.tail)
+    del outs, outs1, yk, lin
+    os_launches += p_conv + p_stream
+    cfg3_launches += p_k4
+
+    # phase p's times: each new function in turns against its
+    # single-device counterpart, CUDA-event medians and profiler device
+    # time with the idle share
+    vp = bt.to_complex_time_vec_par(xh_np, mesh)
+    for name, fns in (
+            ("p: sharded_fft 2^22 complex64, mesh of 1",
+             {"single": lambda: torch.fft.fft(x),
+              "sharded": lambda: sfft.sharded_fft(x, mesh)}),
+            (f"p: sharded_convolve_mat ({MAT_ROWS}, {MAT_N}) complex64, "
+             f"({MAT_ROWS}, {MAT_ROWS}, {MIMO_TAPS}) grid, mesh of 1",
+             {"single": lambda: tmatrix._convolve_mat(
+                 xm_c, torch.from_numpy(grid_c).to(dev), True),
+              "sharded": lambda: bt.parallel.sharded_convolve_mat(
+                  xm_c, grid_c, mesh)}),
+            (f"p: convolve_signal 2^22, {CONV_TAPS} raised-cosine taps, par "
+             f"vector (mesh of 1) vs plain vector",
+             {"single": lambda: vh.convolve_signal(imp_rc),
+              "sharded": lambda: vp.convolve_signal(imp_rc)})):
+        med = in_turns(name, fns, smi)
+        for label, fn in fns.items():
+            dev_ms, per_kernel = device_ms_per_call(fn)
+            if dev_ms > 0:
+                print(f"{name}, {label}: device {dev_ms:.4f} ms/call "
+                      f"(torch.profiler, 10 calls), idle share "
+                      f"{1 - dev_ms / med[label]:.3f} of the "
+                      f"{med[label]:.4f} ms event median; kernels "
+                      + ", ".join(f"{k[:48]} {v * 1e3:.1f} us" for k, v in
+                                  sorted(per_kernel.items(),
+                                         key=lambda kv: -kv[1])[:6])
+                      + f" on {smi}")
+            else:
+                print(f"{name}, {label}: device time not measured (the "
+                      f"profiler showed no device time)")
+    del vp, xm_c, X, X64
 
     # 4. times (CUDA events, median of REPS after warm-up)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,

@@ -171,3 +171,52 @@ def test_default_device_is_the_card():
         tat._device_kind()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tat.calibrate(n=1 << 10)
+
+
+@pytest.mark.parametrize("order", [("kind-a", "kind-b"), ("kind-b", "kind-a")])
+def test_each_device_kind_runs_its_own_entry(fresh_cache, monkeypatch, order):
+    """Two device kinds in one process, each with a cache entry of other
+    knobs: a typed convolution of each kind, large (which calibrates from
+    the cache) or small, runs its own kind's knobs in either order;
+    ensure_calibrated returns each kind's entry, the default config
+    carries the knobs installed last (the JAX package's one-kind
+    behaviour), a small convolution of a third kind with no entry runs
+    the untuned knobs, and _reset_for_tests clears every entry."""
+    entries = {"kind-a": {"device_kind": "kind-a", "fft_block_len": 2048,
+                          "direct_conv_max_imp_len": 202},
+               "kind-b": {"device_kind": "kind-b", "fft_block_len": 8192,
+                          "direct_conv_max_imp_len": 320}}
+    fresh_cache.write_text(json.dumps(entries))
+    kind = {"now": None}
+    monkeypatch.setattr(tat, "_device_kind", lambda device=None: kind["now"])
+    seen = []
+    convolve = bt.conv_ops.convolve_signal
+
+    def spy(x, h, is_complex, cfg=None):
+        seen.append(_knobs(cfg))
+        return convolve(x, h, is_complex, cfg)
+
+    monkeypatch.setattr(bt.conv_ops, "convolve_signal", spy)
+    n = tcfg.default_config().overlap_save_min_len + 24
+    h = bt.to_complex_time_vec(_data(2, 17), device="cpu")
+    large = bt.to_complex_time_vec(_data(1, n), device="cpu")
+    small = bt.to_complex_time_vec(_data(3, 256), device="cpu")
+    want = {k: _knobs(tcfg.DspConfig(**{f: e[f] for f in KNOBS}))
+            for k, e in entries.items()}
+    for k in order:
+        kind["now"] = k
+        large.convolve_signal(h)
+        assert seen[-1] == want[k]
+        assert _knobs(tcfg.default_config()) == want[k]
+    for k in order:
+        kind["now"] = k
+        small.convolve_signal(h)
+        assert seen[-1] == want[k]
+        assert tat.ensure_calibrated()["device_kind"] == k
+    assert set(tat._entries) == set(entries)
+    kind["now"] = "kind-c"      # no entry: the untuned knobs, no timing
+    small.convolve_signal(h)
+    assert seen[-1] == _knobs(tcfg.DspConfig())
+    assert set(tat._entries) == set(entries)
+    tat._reset_for_tests()
+    assert tat._entries == {} and tat._state is None

@@ -531,20 +531,26 @@ def test_dc_gate_of_plain_sifft_matches_jax():
 def test_public_names_match_jax_except_the_deferred():
     """Every public name of basic_dsp_tpu (its __init__ has no __all__:
     ``dir()`` without underscores and submodules) has a counterpart in the
-    port except the deferred ones: the four mesh-sharded constructors
-    ``to_*_vec_par`` (the next multi-device slice) and ``enable_x64``
-    (torch has native f64); ``make_mesh`` is ported.  Every module its
-    __init__ imports by name (``from . import ...``; other submodules
-    appear in ``dir()`` once any test has imported them) is a module of
-    the port too: ``autotune`` and ``io``."""
+    port except ``enable_x64`` (torch has native f64); ``make_mesh`` and
+    the four mesh-sharded constructors ``to_*_vec_par`` are ported.
+    ``basic_dsp_tpu_torch.parallel`` exports every name of
+    ``basic_dsp_tpu.parallel``, its submodules among them.  Every module
+    the package's __init__ imports by name (``from . import ...``; other
+    submodules appear in ``dir()`` once any test has imported them) is a
+    module of the port too: ``autotune`` and ``io``."""
+    import basic_dsp_tpu.parallel as jpar
+    import basic_dsp_tpu.parallel.sharded_fft  # noqa: F401  (into dir())
+
     def names(pkg):
         return {n for n in dir(pkg) if not n.startswith("_")
                 and not isinstance(getattr(pkg, n), types.ModuleType)}
 
-    assert names(bd) - names(bt) == {
-        "to_real_time_vec_par", "to_complex_time_vec_par",
-        "to_real_freq_vec_par", "to_complex_freq_vec_par", "enable_x64"}
-    assert "make_mesh" in names(bt)
+    assert names(bd) - names(bt) == {"enable_x64"}
+    assert {"make_mesh", "to_real_time_vec_par", "to_complex_time_vec_par",
+            "to_real_freq_vec_par", "to_complex_freq_vec_par"} <= names(bt)
+    assert {n for n in dir(jpar) if not n.startswith("_")} - set(
+        dir(bt.parallel)) == set()
+    assert isinstance(bt.parallel.sharded_fft, types.ModuleType)
     init = ast.parse(inspect.getsource(bd))
     jmods = {a.name for node in ast.walk(init)
              if isinstance(node, ast.ImportFrom) and node.module is None

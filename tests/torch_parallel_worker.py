@@ -18,6 +18,15 @@ import torch
 N = 4096          # signal length of the convolution, sum and stats cases
 CHAN_C, CHAN_T, CHAN_S = 16, 2, 64
 CONV_TAPS = (63, 257)   # the Toeplitz region (<= 202) and K3 (> 202)
+FFT_N, FFT_REAL_N = 1 << 14, 1 << 12
+MIMO_C, MIMO_N, MIMO_TAPS = 16, 1024, 9
+STREAM_TAPS = 33
+
+
+def stream_chunks(d: int):
+    """The streaming cases' chunk lengths over N samples: chunks of 1024
+    (the JAX test's), and one of 16 samples a rank, shorter than m - 1."""
+    return [1024, 1024, 16 * d, 1024, 1024 - 16 * d]
 
 
 def world_of(shape) -> int:
@@ -44,7 +53,17 @@ def inputs(d: int) -> dict:
         "chan_proto": (np.hamming(CHAN_C * (CHAN_T + 1))[:CHAN_C * CHAN_T]
                        / CHAN_C).astype(np.float32),
         "ramp": np.arange(8.0 * d, dtype=np.float32),
+        "fft_c128": _c(rng, FFT_N, np.complex128),
+        "fft_r": rng.normal(size=FFT_REAL_N).astype(np.float32),
+        "mimo_c": _c(rng, MIMO_C * MIMO_N).reshape(MIMO_C, MIMO_N),
+        "mimo_imp_c": _c(rng, MIMO_C * MIMO_C * MIMO_TAPS).reshape(
+            MIMO_C, MIMO_C, MIMO_TAPS),
+        "mimo_r": rng.normal(size=(MIMO_C, MIMO_N)).astype(np.float32),
+        "mimo_imp_r": rng.normal(size=(MIMO_C, MIMO_C, MIMO_TAPS)).astype(
+            np.float32),
+        "stream_taps": _c(rng, STREAM_TAPS),
     }
+    x["fft_c64"] = x["fft_c128"].astype(np.complex64)
     x["x_c"][1234] = 9.0 + 9.0j        # one extremum far from rank 0
     x["x_r"][N - 5] = -7.5
     x["x_r"][17] = 7.5
@@ -137,7 +156,106 @@ def _cases():
             torch.from_numpy(x["chan_x"]), torch.from_numpy(x["chan_proto"]),
             CHAN_C, mesh))
 
+    def fft(key, natural_order=True):
+        def case(mesh, x):
+            out = bt.parallel.sharded_fft.sharded_fft(
+                torch.from_numpy(x[key]), mesh, natural_order=natural_order)
+            return {"local": _local(out), "shape": tuple(out.shape),
+                    "placements": [str(p) for p in out.placements]}
+        return case
+
+    def fft_planar(mesh, x):
+        re, im = (sharded.shard_time_axis(torch.from_numpy(p.copy()), mesh)
+                  for p in (x["fft_c64"].real, x["fft_c64"].imag))
+        gr, gi = bt.parallel.sharded_fft.sharded_fft_planar(re, im, mesh)
+        return _local(gr) + 1j * _local(gi)
+
+    def fft_error(mesh, x):
+        d = collectives.mesh_size(mesh, collectives.mesh_axes(mesh))
+        try:
+            bt.parallel.sharded_fft.sharded_fft(
+                torch.zeros(1023 * d, dtype=torch.complex64), mesh)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def mimo(kind):
+        def case(mesh, x):
+            out = bt.parallel.sharded_convolve_mat(
+                torch.from_numpy(x[f"mimo_{kind}"]), x[f"mimo_imp_{kind}"],
+                mesh)
+            return {"local": _local(out),
+                    "placements": [str(p) for p in out.placements]}
+        return case
+
+    def mimo_error(mesh, x):
+        d = collectives.mesh_size(mesh, collectives.mesh_axes(mesh))
+        try:
+            bt.parallel.sharded_convolve_mat(
+                torch.zeros((d + 1, 256)), np.zeros((d + 1, d + 1, 5),
+                                                    np.float32), mesh)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def par(mesh, x):
+        """The par vector's methods, one of each route: a sharded result
+        as its local shard, every other one whole."""
+        from torch.distributed.tensor import DTensor
+        v = bt.to_complex_time_vec_par(x["x_c"], mesh)
+        vr = bt.to_real_time_vec_par(x["x_r"], mesh)
+        out = {"points": v.points(), "sum": v.sum(), "sum_r": vr.sum(),
+               "statistics": dict(vars(v.statistics()))}
+
+        def keep(name, w):
+            """(data, sharded, its plain flavor's name); a sharded result is
+            of the par flavor, a subclass of the plain one."""
+            data, sharded_ = w.array, isinstance(w.array, DTensor)
+            assert sharded_ is hasattr(type(w), "_PLAIN"), type(w)
+            out[name] = (_local(data) if sharded_ else data.numpy().copy(),
+                         sharded_,
+                         (w._PLAIN if sharded_ else type(w)).__name__)
+        keep("array", v)
+        keep("scale", v.scale(2.0 - 1.0j))
+        keep("magnitude", v.magnitude())
+        keep("add", v.add(bt.to_complex_time_vec_par(x["x_c"][::-1].copy(),
+                                                     mesh)))
+        keep("abs_r", vr.abs())
+        for m, key in zip(CONV_TAPS, ("h_short_c", "h_long_c")):
+            keep(f"conv_{m}", v.convolve_signal(
+                bt.to_complex_time_vec(x[key], device="cpu")))
+        keep("interp", bt.to_complex_time_vec_par(x["interp_c"], mesh)
+             .interpolatef(bt.SincFunction(), 1.5, 0.25, 10))
+        keep("plain_fft", v.plain_fft())
+        keep("plain_fft_r", vr.plain_fft())
+        keep("reverse", v.reverse())
+        out["to_numpy"] = v.to_numpy()
+        return out
+
+    def stream(mesh, x):
+        from basic_dsp_tpu_torch import streaming
+        fir = streaming.StreamingFir(torch.from_numpy(x["stream_taps"]))
+        st = fir.init_state()
+        outs, tails, kinds = [], [], []
+        i = 0
+        d = collectives.mesh_size(mesh, collectives.mesh_axes(mesh))
+        for c in stream_chunks(d):
+            dt = sharded.shard_time_axis(
+                torch.from_numpy(x["x_c"][i:i + c]), mesh)
+            y, st = fir.process(dt, st)
+            outs.append(_local(y))
+            kinds.append([str(p) for p in y.placements])
+            tails.append(st.tail.numpy().copy())
+            i += c
+        return {"outs": outs, "tails": tails, "placements": kinds}
+
     cases = {"shifts": shifts, "shard": shard, "conv_dtensor": conv_dtensor,
+             "fft_c128": fft("fft_c128"), "fft_c64": fft("fft_c64"),
+             "fft_r": fft("fft_r"),
+             "fft_c128_rows": fft("fft_c128", natural_order=False),
+             "fft_planar": fft_planar, "fft_error": fft_error,
+             "mimo_c": mimo("c"), "mimo_r": mimo("r"),
+             "mimo_error": mimo_error, "par": par, "stream": stream,
              "interp_c_1.5": interp("interp_c", 1.5),
              "interp_r_2.0": interp("interp_r", 2.0),
              **{f"interp_err_{kind}": interp_error(kind)
