@@ -56,6 +56,10 @@ the left neighbour's halo as its look-back prefix), ``parallel.sharded_fft``
 constructors ``to_*_vec_par`` and ``StreamingFir`` over sharded chunks.
 A mesh runs on the card over NCCL unless the caller names
 ``device_type="cpu"`` (gloo).
+And the C ABI: ``_interop_support`` with its own native library
+``libbasic_dsp_tpu_torch.so`` (``csrc/interop/``, built at first use by
+``kernels._build.interop_library``), the repository's C header with the
+JAX library's exports, whose 32-bit calls reach K3 and K4 on the card.
 """
 from .config import (DspConfig, default_config, make_mesh, matmul_precision,
                      set_default_config, set_matmul_precision)

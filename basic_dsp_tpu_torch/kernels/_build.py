@@ -1,12 +1,17 @@
-"""Build-and-load for the hand-written CUDA kernels.
+"""Build-and-load for the hand-written CUDA kernels and the C ABI library.
 
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``basic_dsp_tpu_torch/_build/`` (git-ignored) and loaded with ``ctypes``.
 The library's file name carries a hash of the source and of every header
 ``csrc/*.cuh`` (the shared FFT core lives in one), so an edited source or
-header is rebuilt and a stale library is never loaded.  Nothing is built
-when the package is imported.
+header is rebuilt and a stale library is never loaded.
+
+The C ABI library, ``libbasic_dsp_tpu_torch.so``, is compiled from
+``csrc/interop/*.cpp`` with the host C++ compiler against the repository's
+C header (``interop/include/basic_dsp_tpu.h``) and the running Python's
+libpython (:func:`interop_library`), into a directory of ``_build/`` keyed
+the same way.  Nothing is built when the package is imported.
 """
 from __future__ import annotations
 
@@ -14,15 +19,23 @@ import ctypes
 import functools
 import hashlib
 import os
+import shlex
 import shutil
+import site
 import subprocess
+import sys
+import sysconfig
 from pathlib import Path
+from typing import List, Tuple
 
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+
+INTEROP_INCLUDE = _PKG.parent / "interop" / "include"
+INTEROP_LIB = "libbasic_dsp_tpu_torch.so"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -64,6 +77,69 @@ def load(name: str) -> ctypes.CDLL:
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
     return ctypes.CDLL(str(so))
+
+
+def _interop_flags() -> Tuple[List[str], List[str]]:
+    """The host compiler's command for the C ABI library (compiler and
+    compile flags) and its link flags.  Raises for a Python without a shared
+    libpython: a C program that links the library hosts the interpreter
+    through it."""
+    cfg = sysconfig.get_config_vars()
+    ldlib = cfg.get("LDLIBRARY") or ""
+    if not cfg.get("Py_ENABLE_SHARED") or not ldlib.endswith(".so"):
+        raise RuntimeError(
+            f"this Python ({sys.executable}) has no shared libpython "
+            f"(Py_ENABLE_SHARED {cfg.get('Py_ENABLE_SHARED')!r}, LDLIBRARY "
+            f"{ldlib!r}): the C ABI library links libpython so that a C "
+            f"program can host the interpreter, and cannot be built for it")
+    cxx = shlex.split(cfg.get("CXX") or "")
+    if not cxx or shutil.which(cxx[0]) is None:
+        cxx = ["c++"]
+    compile_flags = [
+        *cxx, "-std=c++17", "-O2", "-shared", "-fPIC",
+        f"-I{sysconfig.get_paths()['include']}", f"-I{INTEROP_INCLUDE}",
+        f'-DBDSP_REPO_ROOT="{_PKG.parent}"',
+        f'-DBDSP_SITE_PACKAGES="{":".join(site.getsitepackages())}"']
+    libdir = cfg["LIBDIR"]
+    link_flags = [f"-L{libdir}", f"-l{ldlib[3:-3]}", f"-Wl,-rpath,{libdir}"]
+    return compile_flags, link_flags
+
+
+@functools.cache
+def interop_library() -> Path:
+    """Builds ``libbasic_dsp_tpu_torch.so``, the port's C ABI, from
+    ``csrc/interop/*.cpp`` if it is missing, and returns its path: under
+    ``_build/``, in a directory keyed by the sources, the C header, the
+    flags (the repository root and site-packages baked in among them) and
+    the Python version.  A failed build raises with the compiler's
+    output."""
+    compile_flags, link_flags = _interop_flags()
+    sources = sorted((CSRC / "interop").glob("*.cpp"))
+    h = hashlib.sha256()
+    for path in [*sources, INTEROP_INCLUDE / "basic_dsp_tpu.h"]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update("\0".join([*compile_flags, *link_flags, sys.version]).encode())
+    so = BUILD_DIR / f"interop_{h.hexdigest()[:16]}" / INTEROP_LIB
+    if not so.exists():
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [*compile_flags, "-o", str(tmp), *map(str, sources), *link_flags],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the C ABI library failed to build:\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)   # atomic: a concurrent loader sees all or none
+    return so
+
+
+def interop_c_flags() -> List[str]:
+    """What a C program needs to compile and link against the C ABI
+    library (building it first): the header's directory, the library and
+    an rpath to it."""
+    lib_dir = interop_library().parent
+    return [f"-I{INTEROP_INCLUDE}", f"-L{lib_dir}", "-lbasic_dsp_tpu_torch",
+            f"-Wl,-rpath,{lib_dir}"]
 
 
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)

@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero):
 0. device: requires CUDA, prints the card's name and power limit;
 1. build: compiles and loads the four CUDA libraries (rowfft_mag, which
    holds K1 and K2, overlap_save, resample, channelizer), one nvcc each,
-   started together;
+   and the C ABI library (``libbasic_dsp_tpu_torch.so``, the host C++
+   compiler), all started together;
 2. kernels vs plain, on the card, <= 2e-6 relative to the maximum:
    ``rowfft_mag`` (K1) against ``rowfft_mag_plain`` at five geometries,
    ``fourstep_mag_fused`` (K2) against ``fourstep_mag_fused_plain`` at
@@ -127,6 +128,23 @@ Phases (any failure raises and exits non-zero):
       ``convolve_signal`` timed in turns against its single-device
       counterpart, with its device time and idle share.  K3's and K4's
       launch counts in the ``kernels`` line include phase p's;
+   q. the C ABI: ``libbasic_dsp_tpu_torch.so`` loaded with ctypes and
+      initialised with ``BDSP_PLATFORM`` unset (every vector on the card;
+      the knobs from the temporary autotune cache): ``from_data32`` of
+      h's 2^22 complex64 signal and 384 taps, ``convolve_signal32`` (one
+      K3 launch), ``get_data32`` against the typed call (<= 1e-6) and the
+      float64 oracle (<= 5e-6); ``interpolatef32`` x1.5 of config #3 (one
+      K4 launch), checked the same two ways; ``interpolatef32`` of the
+      audio signal at float32(160/147) and 129/128, the factors the 32-bit
+      facade can pass for K5, which take the per-sample gather (no kernel),
+      against the typed call with the same factor (<= 1e-6);
+      ``windowed_fft32`` (Hamming), ``magnitude32`` and
+      ``real_statistics32`` at 2^22 (no kernel) against float64;
+      ``map_inplace_real32`` and ``apply_custom_window32`` with ctypes C
+      callbacks at 4096 samples; then ``examples/c_example.c`` compiled
+      with ``cc`` against the library and run without ``BDSP_PLATFORM``
+      (exit 0, ``vec[0] = 25``, ``ok``).  K3's and K4's launch counts in
+      the ``kernels`` line include phase q's;
 4. times with CUDA events (median of 20 after warm-up): every path (the
    DIT spectrum among them, its planes held on the card after its first
    call; k, l and m by chunk or call, and k and l's host time a chunk),
@@ -140,6 +158,10 @@ Phases (any failure raises and exits non-zero):
    yardstick before its library call became the whole-signal
    ``ifft(fft(x) * Hn)``); the typed path of h against the same ops
    called as functions, in turns (the typed layer's host overhead);
+   ``convolve_signal32`` through the C ABI against the typed call, in
+   turns, with device time and idle share, and the wall time of
+   ``from_data32`` and ``get_data32`` at 2^22 complex beside the typed
+   constructor and ``to_numpy``;
    ``budget="high"`` against None, unfused and fused, in turns; and each
    kernel's bound, the
    larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
@@ -158,6 +180,7 @@ The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
+import ctypes
 import glob
 import json
 import math
@@ -397,6 +420,59 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+class CVectorResult(ctypes.Structure):
+    _fields_ = [("result_code", ctypes.c_int32), ("vector", ctypes.c_void_p)]
+
+
+class CRealStatistics(ctypes.Structure):
+    _fields_ = [("sum", ctypes.c_double), ("count", ctypes.c_uint64),
+                ("average", ctypes.c_double), ("rms", ctypes.c_double),
+                ("min", ctypes.c_double), ("min_index", ctypes.c_uint64),
+                ("max", ctypes.c_double), ("max_index", ctypes.c_uint64)]
+
+
+C_MAP = ctypes.CFUNCTYPE(ctypes.c_double, ctypes.c_double, ctypes.c_size_t,
+                         ctypes.c_void_p)
+C_WINDOW = ctypes.CFUNCTYPE(ctypes.c_double, ctypes.c_void_p,
+                            ctypes.c_size_t, ctypes.c_size_t)
+
+
+def c_abi(lib):
+    """Argument and result types of the C ABI calls phase q makes
+    (interop/include/basic_dsp_tpu.h)."""
+    handle, f32, size = ctypes.c_void_p, ctypes.c_float, ctypes.c_size_t
+    i32 = ctypes.c_int32
+    for name, restype, argtypes in (
+            ("bdsp_init", i32, []),
+            ("bdsp_last_error", ctypes.c_char_p, []),
+            ("from_data32", handle, [i32, i32, f32, ctypes.POINTER(f32),
+                                     size]),
+            ("get_data32", i32, [handle, ctypes.POINTER(f32), size]),
+            ("get_len32", size, [handle]),
+            ("clone32", handle, [handle]),
+            ("delete_vector32", None, [handle]),
+            ("convolve_signal32", CVectorResult, [handle, handle]),
+            ("interpolatef32", CVectorResult, [handle, i32, f32, f32, f32,
+                                               size]),
+            ("windowed_fft32", CVectorResult, [handle, i32]),
+            ("magnitude32", CVectorResult, [handle]),
+            ("real_statistics32", i32, [handle,
+                                        ctypes.POINTER(CRealStatistics)]),
+            ("map_inplace_real32", CVectorResult, [handle, C_MAP, handle]),
+            ("apply_custom_window32", CVectorResult, [handle, C_WINDOW,
+                                                      handle, i32])):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = restype, argtypes
+    return lib
+
+
+def c_array(handle):
+    """The tensor of the vector behind a C ABI handle (a DspVec's first
+    member is its Python vector)."""
+    obj = ctypes.cast(handle, ctypes.POINTER(ctypes.c_void_p))[0]
+    return ctypes.cast(obj, ctypes.py_object).value.array
+
+
 def main(work):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -455,7 +531,7 @@ def main(work):
 
     # 1. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = (sc._lib, osc._lib, rsc._lib, chc._lib)
+    libs = (sc._lib, osc._lib, rsc._lib, chc._lib, _build.interop_library)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
@@ -463,7 +539,8 @@ def main(work):
           f"({_build.library_path('rowfft_mag').name}, "
           f"{_build.library_path('overlap_save').name}, "
           f"{_build.library_path('resample').name}, "
-          f"{_build.library_path('channelizer').name})")
+          f"{_build.library_path('channelizer').name}, "
+          f"{_build.interop_library().relative_to(_build.BUILD_DIR)})")
 
     # 2. kernel against its plain version, on the card
     abs_err_4m = None
@@ -1456,6 +1533,183 @@ def main(work):
                       f"profiler showed no device time)")
     del vp, xm_c, X, X64
 
+    # 3q. the C ABI: the port's native library, loaded with ctypes into
+    # this process with BDSP_PLATFORM unset, so that every vector lives on
+    # the card; the dispatch knobs come from the temporary autotune cache
+    # (BDSP_AUTOTUNE_CACHE), so no calibration runs inside a C call
+    from basic_dsp_tpu_torch import _interop_support as ois
+    os.environ.pop("BDSP_PLATFORM", None)
+    clib = c_abi(ctypes.CDLL(str(_build.interop_library())))
+    assert clib.bdsp_init() == 0, clib.bdsp_last_error()
+    assert ois._device == dev, ois._device
+    print(f"q: C ABI {_build.interop_library()} initialised, vectors on "
+          f"{ois._device}")
+
+    def c_vec(host, is_complex=1):
+        """from_data32 of a host array (complex64 read as interleaved
+        float32)."""
+        flat = np.ascontiguousarray(host).view(np.float32)
+        handle = clib.from_data32(is_complex, 0, 1.0, flat.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_float)), flat.size)
+        assert handle, clib.bdsp_last_error()
+        return handle
+
+    def c_data(handle, is_complex=1):
+        """get_data32 of a handle, as a tensor on the card."""
+        out = np.empty(clib.get_len32(handle), np.float32)
+        got = clib.get_data32(handle, out.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_float)), out.size)
+        assert got == out.size, (got, out.size)
+        return torch.from_numpy(out.view(np.complex64) if is_complex
+                                else out).to(dev)
+
+    h_np = h.cpu().numpy()
+    q_sig, q_taps = c_vec(xh_np), c_vec(h_np)
+    assert c_array(q_sig).dtype == torch.complex64
+    assert c_array(q_sig).device.type == "cuda"
+    reset_counts()
+    res = clib.convolve_signal32(q_sig, q_taps)
+    torch.cuda.synchronize()
+    q_k3 = osc.conv_blocks_cuda.launches
+    print(f"main path: convolve_signal32 (C ABI) n={N}, {CONV_TAPS} complex "
+          f"taps, conv_blocks_cuda launches: {q_k3}, other kernels: "
+          f"{other_launches() - q_k3}")
+    assert res.result_code == 0 and q_k3 == 1 and other_launches() == 1, \
+        "convolve_signal32 did not launch K3 once"
+    yq = c_data(q_sig)
+    assert yq.shape == (N,) and bool(torch.isfinite(
+        torch.view_as_real(yq)).all())
+    errs = (rel_err(yq, vh.convolve_signal(imp).array),
+            rel_err(yq.to(torch.complex128),
+                    conv_oracle(xh.real, xh.imag, h)))
+    print(f"convolve_signal32 vs the typed call {errs[0]:.3e} (tol "
+          f"{SHARD_TOL}), vs float64 oracle {errs[1]:.3e} (tol {CHAIN_TOL})")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    clib.delete_vector32(q_sig)
+    del yq
+
+    x3_np = x3.cpu().numpy()
+    q3 = c_vec(x3_np)
+    reset_counts()
+    res = clib.interpolatef32(q3, 0, 0.0, 1.5, 0.0, 10)
+    torch.cuda.synchronize()
+    q_k4 = rsc.resample_direct_cuda.launches
+    print(f"main path: interpolatef32 (C ABI) x1.5 of {CFG3_N} complex, sinc, "
+          f"conv_len 10, resample_direct_cuda launches: {q_k4}, other "
+          f"kernels: {other_launches() - q_k4}")
+    assert res.result_code == 0 and q_k4 == 1 and other_launches() == 1, \
+        "interpolatef32 did not launch K4 once"
+    y3q = c_data(q3)
+    assert y3q.shape == (CFG3_N * 3 // 2,)
+    errs = (rel_err(y3q, bt.to_complex_time_vec(x3).interpolatef(
+                sinc, 1.5, 0.0, 10).array),
+            rel_err(y3q.to(torch.complex128),
+                    resample_oracle(x3, sinc, 3, 2, 10, CFG3_N * 3 // 2)))
+    print(f"interpolatef32 vs the typed call {errs[0]:.3e} (tol {SHARD_TOL}), "
+          f"vs float64 oracle {errs[1]:.3e} (tol {CHAIN_TOL})")
+    assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
+    clib.delete_vector32(q3)
+    del y3q
+
+    # K5 through the 32-bit facade: the factor arrives as a float32.
+    # float32(160/147) is no ratio with a denominator up to 512 within
+    # 1e-9, and 129/128, which float32 holds, fails the polyphase
+    # resampler's size gate: both take the per-sample gather branch, as in
+    # the JAX package, and launch no resampler kernel.
+    xa_np = xa.cpu().numpy()
+    for label, factor in (("160/147", 160 / 147), ("129/128", 129 / 128)):
+        f32 = float(np.float32(factor))
+        n_out = int(round(AUDIO_N * f32))
+        branch = interp_ops._branch(AUDIO_N, f32, 10, n_out + n_out % 2)
+        qa = c_vec(xa_np, 0)
+        reset_counts()
+        res = clib.interpolatef32(qa, 0, 0.0, f32, 0.0, 10)
+        torch.cuda.synchronize()
+        launches = (rsc.resample_direct_cuda.launches,
+                    rsc.resample_rowblock_cuda.launches)
+        print(f"q: interpolatef32 {label} (float32 {f32!r}) of {AUDIO_N} real "
+              f"samples: _branch {branch}, resample_direct_cuda / "
+              f"resample_rowblock_cuda launches {launches}: the per-sample "
+              f"gather ran, no K5")
+        assert res.result_code == 0 and launches == (0, 0)
+        yaq = c_data(qa, 0)
+        err = rel_err(yaq, bt.to_real_time_vec(xa).interpolatef(
+            sinc, f32, 0.0, 10).array)
+        print(f"q: interpolatef32 {label} vs the typed call with the same "
+              f"float32 factor: {err:.3e} (tol {SHARD_TOL})")
+        assert err <= SHARD_TOL, err
+        clib.delete_vector32(qa)
+    del yaq
+
+    qs = c_vec(xh_np)
+    reset_counts()
+    res = clib.windowed_fft32(qs, 1)
+    assert res.result_code == 0
+    res = clib.magnitude32(qs)
+    assert res.result_code == 0
+    stats = CRealStatistics()
+    assert clib.real_statistics32(qs, ctypes.byref(stats)) == 0
+    torch.cuda.synchronize()
+    assert other_launches() == 0 and chc.channelize_demod_cuda.launches == 0
+    mq = c_data(qs, 0)
+    w64 = bt.HammingWindow().sample(N, dtype=torch.float64, device=dev)
+    err = rel_err(mq.double(), torch.fft.fftshift(torch.fft.fft(
+        xh.to(torch.complex128) * w64)).abs())
+    print(f"q: windowed_fft32(Hamming) -> magnitude32 of {N} (C ABI) vs "
+          f"float64 oracle: {err:.3e} (tol {CHAIN_TOL}); no kernel")
+    assert mq.shape == (N,) and err <= CHAIN_TOL, err
+    m64 = mq.cpu().numpy().astype(np.float64)
+    want = {"sum": m64.sum(), "average": m64.mean(),
+            "rms": math.sqrt(np.mean(m64 * m64)), "min": m64.min(),
+            "max": m64.max()}
+    st_err = max(abs(getattr(stats, k) - v) / abs(v) for k, v in want.items())
+    print(f"q: real_statistics32 (C ABI) vs float64 on the host: "
+          f"{st_err:.3e} (tol {STATS_TOL}), count {stats.count}, indices "
+          f"({stats.min_index}, {stats.max_index})")
+    assert st_err <= STATS_TOL and stats.count == N, st_err
+    assert (stats.min_index, stats.max_index) == (int(m64.argmin()),
+                                                  int(m64.argmax()))
+    clib.delete_vector32(qs)
+    del mq, m64, w64
+
+    cb_x = rng.standard_normal(4096).astype(np.float32)
+    double_plus_one = C_MAP(lambda value, idx, _: 2.0 * value + 1.0)
+    hann = C_WINDOW(lambda _, n, points: 0.5 - 0.5 * math.cos(
+        2 * math.pi * n / (points - 1)))
+    qc = c_vec(cb_x, 0)
+    res = clib.map_inplace_real32(qc, double_plus_one, None)
+    assert res.result_code == 0
+    res = clib.apply_custom_window32(qc, hann, None, 1)
+    assert res.result_code == 0
+    got = c_data(qc, 0).double()
+    n_cb = np.arange(4096)
+    want = torch.from_numpy((2.0 * cb_x.astype(np.float64) + 1.0) * (
+        0.5 - 0.5 * np.cos(2 * np.pi * n_cb / 4095))).to(dev)
+    err = rel_err(got, want)
+    print(f"q: map_inplace_real32 and apply_custom_window32 with ctypes C "
+          f"callbacks at 4096 samples vs float64: {err:.3e} (tol "
+          f"{KERNEL_TOL}); the result on {c_array(qc).device}, "
+          f"{c_array(qc).dtype}")
+    assert err <= KERNEL_TOL and c_array(qc).dtype == torch.float32, err
+    clib.delete_vector32(qc)
+
+    exe = os.path.join(work, "c_example")
+    subprocess.run(["cc", os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples", "c_example.c"), *_build.interop_c_flags(),
+                    "-o", exe], check=True)
+    env = {k: v for k, v in os.environ.items() if k != "BDSP_PLATFORM"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([exe], capture_output=True, text=True, env=env,
+                          cwd=work, timeout=300)
+    print(f"q: examples/c_example.c linked against {_build.INTEROP_LIB}, run "
+          f"without BDSP_PLATFORM: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.2f} s (process start, torch import, "
+          f"CUDA init); stdout {proc.stdout!r}")
+    assert proc.returncode == 0, proc.stderr
+    assert "vec[0] = 25" in proc.stdout and proc.stdout.endswith("ok\n")
+    os_launches += q_k3
+    cfg3_launches += q_k4
+
     # 4. times (CUDA events, median of REPS after warm-up)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
                                                      CONV_FFT_LEN))
@@ -1581,6 +1835,65 @@ def main(work):
         dev_ms, _ = device_ms_per_call(fn)
         print(f"typed path, {label}: device {dev_ms:.4f} ms/call "
               f"(torch.profiler, 10 calls)")
+
+    # q's times: convolve_signal32 through the C ABI against the typed
+    # call, in turns (each C call on a clone of the signal's handle, since a
+    # C call replaces its handle's vector), and the wall time of from_data32
+    # and get_data32 at 2^22 complex beside the typed constructor and
+    # to_numpy
+    q_sig = c_vec(xh_np)
+
+    def c_convolve():
+        handle = clib.clone32(q_sig)
+        clib.convolve_signal32(handle, q_taps)
+        clib.delete_vector32(handle)
+
+    name = (f"q: convolve_signal 2^22, {CONV_TAPS} complex taps, C ABI "
+            f"(convolve_signal32) vs the typed call")
+    fns = {"typed": lambda: vh.convolve_signal(imp), "C ABI": c_convolve}
+    med = in_turns(name, fns, smi)
+    print(f"q: the C ABI's convolve_signal32: "
+          f"{(med['C ABI'] - med['typed']) * 1e3:.1f} us a call above the "
+          f"typed call on {smi}")
+    for label, fn in fns.items():
+        dev_ms, per_kernel = device_ms_per_call(fn)
+        if dev_ms > 0:
+            print(f"{name}, {label}: device {dev_ms:.4f} ms/call "
+                  f"(torch.profiler, 10 calls), idle share "
+                  f"{1 - dev_ms / med[label]:.3f} of the {med[label]:.4f} ms "
+                  f"event median; kernels "
+                  + ", ".join(f"{k[:48]} {v * 1e3:.1f} us" for k, v in
+                              sorted(per_kernel.items(),
+                                     key=lambda kv: -kv[1])[:6]))
+        else:
+            print(f"{name}, {label}: device time not measured (the profiler "
+                  f"showed no device time)")
+    q_out = np.empty(2 * N, np.float32)
+    q_ptr = q_out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+    def from_data():
+        clib.delete_vector32(c_vec(xh_np))
+
+    for label, fn in (
+            ("from_data32", from_data),
+            ("to_complex_time_vec(numpy)",
+             lambda: bt.to_complex_time_vec(xh_np, device=dev)),
+            ("get_data32", lambda: clib.get_data32(q_sig, q_ptr, 2 * N)),
+            ("to_numpy", lambda: vh.to_numpy())):
+        times = []
+        for rep in range(REPS + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if rep >= 3:
+                times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        print(f"q: {label} of 2^22 complex64 (32 MiB): wall {ms:.4f} ms "
+              f"(median of {REPS}, host clock to a synchronize), "
+              f"{8 * N / ms / 1e6:.2f} GB/s on {smi}")
+    clib.delete_vector32(q_sig)
+    clib.delete_vector32(q_taps)
 
     # budget="high" against None (both f32-exact), in turns.
     for fused in (False, True):
