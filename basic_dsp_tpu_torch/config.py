@@ -184,8 +184,10 @@ def distributed_init(coordinator_address: Optional[str] = None,
     raises without CUDA), gloo for "cpu".  ``coordinator_address``
     ("host:port") is rank 0's TCP store; None reads ``MASTER_ADDR`` /
     ``MASTER_PORT``, and a None count or id ``WORLD_SIZE`` / ``RANK``
-    (``env://``).  A CUDA process takes device ``rank % device_count()``.
-    Call once per process before building a mesh."""
+    (``env://``).  A CUDA process takes device ``LOCAL_RANK`` where the
+    environment sets it (torchrun's contract: the rank's index on its
+    host), else ``rank % device_count()``.  Call once per process before
+    building a mesh."""
     import torch.distributed as dist
 
     device_type = _mesh_device_type(device_type)
@@ -196,4 +198,58 @@ def distributed_init(coordinator_address: Optional[str] = None,
         world_size=-1 if num_processes is None else int(num_processes),
         rank=-1 if process_id is None else int(process_id))
     if device_type == "cuda":
-        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(local_device_index(dist.get_rank()))
+
+
+def local_device_index(rank: int) -> int:
+    """The card a rank takes: ``LOCAL_RANK`` where the environment sets it,
+    else ``rank % device_count()`` (one device count on the CPU)."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None:
+        return int(local)
+    return rank % max(torch.cuda.device_count(), 1)
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now, for a process group's
+    store."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int, timeout: float) -> None:
+    """Runs ``fn(i, *args)`` for i < ``nprocs`` in as many spawned
+    processes, one a rank, and waits for every one.  The first failure
+    terminates the others and raises; past ``timeout`` seconds every
+    process still running is killed and ``TimeoutError`` raised."""
+    import time
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+            raise TimeoutError(f"{nprocs} ranks of {fn.__qualname__}: still "
+                               f"running after {timeout} s, killed")
+
+
+def device_name(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, or
+    "cpu (gloo)" for the CPU."""
+    if dev.type != "cuda":
+        return "cpu (gloo)"
+    import subprocess
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", str(index)],
+        capture_output=True, text=True, check=True).stdout.strip()

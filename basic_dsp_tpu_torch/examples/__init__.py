@@ -1,0 +1,13 @@
+"""The repository's user examples (``examples/``), ported to PyTorch.
+
+Each module is the twin of the JAX example of the same name: the same
+arguments and outputs, plus ``device`` (None: the card, which raises
+without CUDA; the tests pass "cpu").  Run one as
+
+    python3 -m basic_dsp_tpu_torch.examples.<name> [arguments]
+
+They are imported only as ``basic_dsp_tpu_torch.examples.<name>``; the
+JAX examples' bare module names (``crosstalk``, ``modulation``) belong to
+the JAX side.  ``bench_tables.py`` and ``plot_csv_data.py`` are benchmark
+tooling and are not ported yet.
+"""

@@ -152,6 +152,28 @@ def _raw_stream(index: int) -> int:
     return torch.cuda.current_stream(index).cuda_stream
 
 
+def refuse_grad(kernel: str, *inputs) -> None:
+    """Raises ``RuntimeError`` when grad mode is on and any tensor of
+    ``inputs`` (tensors, None or tuples of them) requires grad.  A kernel
+    writes into a tensor it allocates through a raw pointer, so its result
+    has no ``grad_fn``: a loss through it would get a wrong or no gradient
+    without a word.  The kernels have no backward, as the JAX package's
+    Pallas kernels have none; the wrappers call this before a launch."""
+    if not torch.is_grad_enabled():
+        return
+    stack = list(inputs)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, (tuple, list)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            raise RuntimeError(
+                f"{kernel}: the CUDA kernel has no backward (as the JAX "
+                f"package's Pallas kernels have none), and an input "
+                f"requires grad; run it under torch.no_grad(), or on the "
+                f"CPU, where its plain version differentiates")
+
+
 def aligned(p: torch.Tensor) -> torch.Tensor:
     """``p`` contiguous at a 16-byte aligned address, for a kernel that
     reads it in 16-byte pieces (cp.async, float4): a copy only where it is

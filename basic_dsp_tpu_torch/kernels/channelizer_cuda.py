@@ -242,6 +242,7 @@ def channelize_demod_cuda(xr, xi, taps_merged, C: int, demod: bool = True,
             return channelize_demod_plain(xr, xi, taps_merged, C, demod,
                                           prefix)
         raise ValueError(f"channelize_demod_cuda: no kernel for {xr.device}")
+    _build.refuse_grad("channelize_demod_cuda", xr, xi, taps_merged, prefix)
     out = _launch(xr, xi, taps_merged, C, S, tp1, demod, prefix)
     channelize_demod_cuda.launches += 1
     return out

@@ -199,6 +199,7 @@ def conv_blocks_cuda(xr, xi, H, m_eff: int, fft_len: int,
     n = xr.shape[0]
     if not _route(xr.device):
         return conv_blocks_plain(xr, xi, H, m_eff, fft_len, linear, imag)
+    _build.refuse_grad("conv_blocks_cuda", xr, xi, H)
     pad, L, lim, shift = _mode(n, m_eff, fft_len, linear)
     if H.dtype != torch.complex64 or H.shape != (fft_len,) \
             or H.device != xr.device:

@@ -330,6 +330,7 @@ def resample_direct_cuda(rows, taps, P: int, Q: int, offs, L: int,
     record = _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
     if _device_of(rows, "resample_direct_cuda") == "cpu":
         return resample_direct_plain(rows, taps, P, Q, offs, L, out_len, c)
+    _build.refuse_grad("resample_direct_cuda", rows, taps)
     out = _launch(rows, taps, P, Q, record, L, out_len)
     resample_direct_cuda.launches += 1
     return out
@@ -349,6 +350,7 @@ def resample_rowblock_cuda(rows, taps, P: int, Q: int, offs, L: int,
     _rowblock_split(P, Q, L, rows.shape[-1])
     if _device_of(rows, "resample_rowblock_cuda") == "cpu":
         return resample_rowblock_plain(rows, taps, P, Q, offs, L, out_len)
+    _build.refuse_grad("resample_rowblock_cuda", rows, taps)
     out = _launch(rows, taps, P, Q, record, L, out_len)
     resample_rowblock_cuda.launches += 1
     return out

@@ -173,6 +173,7 @@ def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
         if dev.type == "cpu":
             return rowfft_mag_plain(Br, Bi, shift, Tfac)
         raise ValueError(f"rowfft_mag: no kernel for device {dev}")
+    _build.refuse_grad("rowfft_mag", Br, Bi, Tfac, W)
     if W is None:
         W = _held_twiddle(L2, n2, dev)
     _check_planes("W", W, [(L2, LANES)] * 2, dev)
@@ -302,6 +303,7 @@ def fourstep_mag_fused(Ar: torch.Tensor, Ai: torch.Tensor,
         if dev.type == "cpu":
             return fourstep_mag_fused_plain(Ar, Ai, shift)
         raise ValueError(f"fourstep_mag_fused: no kernel for device {dev}")
+    _build.refuse_grad("fourstep_mag_fused", Ar, Ai, W, Tfac)
     if W is None:
         W = _held_twiddle(L2, n2, dev)
     if Tfac is None:

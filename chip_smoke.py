@@ -145,6 +145,29 @@ Phases (any failure raises and exits non-zero):
       with ``cc`` against the library and run without ``BDSP_PLATFORM``
       (exit 0, ``vec[0] = 25``, ``ok``).  K3's and K4's launch counts in
       the ``kernels`` line include phase q's;
+   r. the entry points outside the package, each with the counts set to
+      0 just before it and read just after: ``entry.entry()``'s step (one
+      K1 launch) against the float64 oracle (<= 5e-6);
+      ``entry.dryrun_multichip(1)`` (one spawned NCCL rank on this card,
+      every step within 1e-6 of its single-device call, K4 in the
+      resampler); ``multihost.run(1, 1, 2^22, 384)`` (a host process and
+      its rank: the five checks ok, one K3 in the sharded FIR and one K4
+      in the sharded resampler, as the rank's record reports them); the
+      examples: ``slow_down_music`` on a 60 s, 44.1 kHz stereo PCM16 WAV
+      (2,646,000 frames, numpy seed 0, amplitude 0.25) with exactly one K4
+      launch, its output within one PCM16 code of the float64 resample's;
+      ``modulation`` (three blocks of 10000 float32 symbols, three K4
+      launches, every 10th sample its symbol within 1e-5); ``crosstalk``
+      on the same WAV (no kernel) within one code of a float64 einsum's;
+      ``streaming_pipeline(8)`` (eight K4 launches; its 64-tap FIR runs
+      the whole-extent FFT, no K3), the resampled stream against the
+      float64 linear resample delayed by ``output_delay`` and the filtered
+      one against the float64 causal linear convolution (<= 5e-6); then
+      each of the six wrappers (K3's through ``circular_conv_cuda`` and
+      ``blocked_linear_conv_cuda``) called with an input that requires
+      grad must raise, and the same call under ``torch.no_grad()`` equal
+      its plain version (<= 2e-6).  The ``kernels`` line's launches
+      include phase r's, the dry run's and the rank's among them;
 4. times with CUDA events (median of 20 after warm-up): every path (the
    DIT spectrum among them, its planes held on the card after its first
    call; k, l and m by chunk or call, and k and l's host time a chunk),
@@ -162,7 +185,10 @@ Phases (any failure raises and exits non-zero):
    turns, with device time and idle share, and the wall time of
    ``from_data32`` and ``get_data32`` at 2^22 complex beside the typed
    constructor and ``to_numpy``;
-   ``budget="high"`` against None, unfused and fused, in turns; and each
+   ``budget="high"`` against None, unfused and fused, in turns; phase
+   r's ``entry()`` step among the paths, the wall time of
+   ``slow_down_music`` (median of 3) and of phase r's ``multihost.run``;
+   and each
    kernel's bound, the
    larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
    over 67 TFLOP/s, from this run's shapes;
@@ -372,6 +398,15 @@ def chan_oracle(xr, xi, taps_merged, C):
     return y.T, z.T
 
 
+def pcm16_steps(frames, want):
+    """The largest difference in PCM16 codes between the (n, 2) frames of
+    a PCM16 file as read (code / 32768) and the codes that the writer
+    gives the (2, n) float64 result ``want`` (rint(clip(want) * 32767),
+    half to even)."""
+    got = torch.from_numpy(frames.T.copy()).to(want.device).double() * 32768
+    return float((got - torch.round(want.clamp(-1, 1) * 32767)).abs().max())
+
+
 def device_ms_per_call(fn, calls=10):
     """Device ms per call from torch.profiler (the device-side events'
     time over ``calls`` calls), and the ms of each kernel."""
@@ -486,6 +521,7 @@ def main(work):
           f"device {torch.cuda.get_device_name(0)}")
 
     import basic_dsp_tpu_torch as bt
+    from basic_dsp_tpu_torch import kernels as bkernels
     from basic_dsp_tpu_torch import profiling, streaming
     from basic_dsp_tpu_torch.kernels import _build
     from basic_dsp_tpu_torch.kernels import channelizer_cuda as chc
@@ -515,13 +551,7 @@ def main(work):
         return tuple(torch.from_numpy(p).to(dev)
                      for p in fourstep._dif_twiddle_factored(n1, n2))
 
-    def reset_counts():
-        sc.rowfft_mag.launches = 0
-        sc.fourstep_mag_fused.launches = 0
-        osc.conv_blocks_cuda.launches = 0
-        rsc.resample_direct_cuda.launches = 0
-        rsc.resample_rowblock_cuda.launches = 0
-        chc.channelize_demod_cuda.launches = 0
+    reset_counts = bkernels.reset_launch_counts
 
     def other_launches():
         return (sc.rowfft_mag.launches + sc.fourstep_mag_fused.launches
@@ -1710,6 +1740,238 @@ def main(work):
     os_launches += q_k3
     cfg3_launches += q_k4
 
+    # 3r. the entry points outside the package: entry(), the
+    # multi-chip dry run on this card, the multi-host harness as one host
+    # of one rank at full width, and the user examples
+    r_t0 = time.perf_counter()
+    from basic_dsp_tpu_torch import entry as bentry
+    from basic_dsp_tpu_torch import multihost
+    from basic_dsp_tpu_torch.examples import (crosstalk, modulation,
+                                              slow_down_music,
+                                              streaming_pipeline)
+    r_launches = dict.fromkeys(bkernels.wrappers(), 0)
+
+    def tally(counts):
+        for k, v in counts.items():
+            r_launches[k] += v
+
+    e_fn, e_args = bentry.entry()
+    reset_counts()
+    e_out = e_fn(*e_args)
+    torch.cuda.synchronize()
+    fired = bkernels.launch_counts()
+    tally(fired)
+    ex, etaps, ewin = e_args
+    err = rel_err(e_out.double(), oracle(ex.real, ex.imag, etaps, ewin))
+    print(f"r: entry() fir_fft_chain, n={bentry.ENTRY_N}, {bentry.ENTRY_TAPS} "
+          f"complex taps, Hamming: {err:.3e} from the float64 oracle (tol "
+          f"{CHAIN_TOL}); launches {fired}")
+    assert e_out.shape == (bentry.ENTRY_N,) and err <= CHAIN_TOL, err
+    assert fired["K1"] == 1 and sum(fired.values()) == 1, fired
+
+    t0 = time.perf_counter()
+    dry = bentry.dryrun_multichip(1)
+    dry_s = time.perf_counter() - t0
+    for name, st in dry["steps"].items():
+        fired = {k: v for k, v in st["launches"].items() if v}
+        tally(fired)
+        print(f"r: dryrun_multichip(1) {name}: {st['max_err']:.3e} of max "
+              f"from the single-device call (tol {bentry.DRYRUN_TOL}); "
+              f"launches {fired}")
+        assert st["max_err"] <= bentry.DRYRUN_TOL, (name, st)
+    print(f"r: dryrun_multichip(1): {len(dry['steps'])} steps on "
+          f"{dry['device']}, wall {dry_s:.2f} s (one spawned rank)")
+    assert dry["steps"]["mesh of 1: sharded_interpolatef"]["launches"][
+        "K4"] == 1
+
+    t0 = time.perf_counter()
+    mh = multihost.run(1, 1, N, CONV_TAPS, timeout=300)
+    mh_s = time.perf_counter() - t0
+    for name, chk in mh["checks"].items():
+        tally(chk["launches"])
+        print(f"r: multihost.run(1, 1, {N}, {CONV_TAPS}) {name}: {chk}")
+    print(f"r: multihost timing {mh['timing']}; device {mh['device']}; wall "
+          f"{mh_s:.2f} s (one host process, one spawned rank)")
+    assert mh["ok"] and mh["global_devices"] == 1, mh
+    assert mh["checks"]["sharded_convolve_signal"]["launches"] == {"K3": 1}
+    assert mh["checks"]["sharded_interpolatef"]["launches"] == {"K4": 1}
+
+    # a 60 s, 44.1 kHz stereo PCM16 WAV from numpy seed 0, at an amplitude
+    # (0.25) that the x1.5 sinc resample and the crosstalk keep inside the
+    # PCM16 range: a clipped sample would differ from the float64 result
+    frames = 60 * 44100
+    src = os.path.join(work, "music.wav")
+    wav = np.random.default_rng(0).uniform(-0.25, 0.25, (frames, 2))
+    bt.io.write_wav(src, wav.astype(np.float32), 44100)
+    held, _ = bt.io.read_wav(src)          # the PCM16 frames as read back
+    slow = os.path.join(work, "slow.wav")
+    reset_counts()
+    t0 = time.perf_counter()
+    slow_down_music.main(src, slow)
+    slow_s = time.perf_counter() - t0
+    fired = bkernels.launch_counts()
+    tally(fired)
+    got, rate = bt.io.read_wav(slow)
+    x_wav = torch.complex(torch.from_numpy(held[:, 0]).double(),
+                       torch.from_numpy(held[:, 1]).double()).to(dev)
+    want = resample_oracle(x_wav, sinc, 3, 2, 10, frames * 3 // 2)
+    step = pcm16_steps(got, torch.stack((want.real, want.imag)))
+    branch = interp_ops._branch(frames, 1.5, 10, frames * 3 // 2)
+    print(f"r: slow_down_music on {frames} stereo PCM16 frames (60 s at "
+          f"44.1 kHz): _branch {branch}, "
+          f"launches {fired}, output {got.shape[0]} frames at {rate} Hz "
+          f"{step:.0f} PCM16 codes from the float64 resample's (tol 1); wall "
+          f"{slow_s:.2f} s (WAV read and write included)")
+    assert got.shape == (frames * 3 // 2, 2) and step <= 1.0, step
+    assert fired["K4"] == 1 and sum(fired.values()) == 1, fired
+    del x_wav, want
+
+    mod_dir = os.path.join(work, "modulation")
+    os.makedirs(mod_dir)
+    reset_counts()
+    modulation.main(mod_dir)
+    fired = bkernels.launch_counts()
+    tally(fired)
+    prbs = modulation.Prbs15()
+    worst = 0.0
+    for i in range(3):
+        bits = np.array([prbs.next() for _ in range(
+            2 * modulation.NUMBER_OF_SYMBOLS)])
+        real = np.loadtxt(os.path.join(mod_dir, f"modulated_time{i}.csv"))
+        assert real.shape == (10 * modulation.NUMBER_OF_SYMBOLS,)
+        worst = max(worst, float(np.abs(real[::10] - bits[1::2]).max()))
+    print(f"r: modulation, 3 blocks of {modulation.NUMBER_OF_SYMBOLS} "
+          f"float32 symbols x10: every 10th sample {worst:.3e} from its "
+          f"symbol (tol 1e-5); launches {fired}")
+    assert worst <= 1e-5 and fired["K4"] == 3 and sum(fired.values()) == 3
+
+    cross = os.path.join(work, "cross.wav")
+    reset_counts()
+    crosstalk.main(src, cross)
+    fired = bkernels.launch_counts()
+    got, _ = bt.io.read_wav(cross)
+    att = np.array([0.2, 0.0, 0.0, 0.5, 0.0, 0.0, 0.0])
+    ctk = np.array([0.0, 0.0, 0.0, 0.3, 0.0, 0.0, 0.0])
+    imp_x = torch.from_numpy(np.stack([np.stack([att, ctk]),
+                                       np.stack([ctk, att])])).to(dev)
+    rows_x = torch.from_numpy(held.T.astype(np.float64)).to(dev)
+    G = torch.fft.fft(torch.stack([torch.stack([
+        conv_ops.kernel_layout(imp_x[c, r].to(torch.complex128), frames)
+        for r in range(2)]) for c in range(2)]), dim=-1)
+    want = torch.fft.ifft(torch.einsum("crn,rn->cn", G, torch.fft.fft(
+        rows_x.to(torch.complex128), dim=-1)), dim=-1).real
+    step = pcm16_steps(got, want)
+    print(f"r: crosstalk on the same WAV: {step:.0f} PCM16 codes from the "
+          f"float64 einsum's (tol 1); launches {fired}")
+    assert got.shape == (frames, 2) and step <= 1.0, step
+    assert sum(fired.values()) == 0, fired
+    del G, want, rows_x
+
+    reset_counts()
+    sp = streaming_pipeline.main(8)
+    torch.cuda.synchronize()
+    fired = bkernels.launch_counts()
+    tally(fired)
+    rs_sp, fir_sp = sp["resampler"], sp["fir"]
+    up, filt = sp["resampled"], sp["filtered"]
+    d = rs_sp.output_delay
+    ref = resample_oracle(sp["input"], sinc, 3, 2, 10, up.shape[-1] - d,
+                          circular=False)
+    err_up = rel_err(up[d:].double(), ref)
+    lin = np.convolve(up.double().cpu().numpy(),
+                      sp["taps"].double().cpu().numpy())[:filt.shape[-1]]
+    err_f = rel_err(filt.double().cpu(), torch.from_numpy(lin))
+    print(f"r: streaming_pipeline(8): launches {fired} (K4 a chunk; the "
+          f"64-tap FIR's extended chunk of {768 + fir_sp.m - 1} is shorter "
+          f"than its block length {fir_sp.fft_len}: the whole-extent FFT, "
+          f"no K3); resampled vs the float64 linear resample delayed by {d}: "
+          f"{err_up:.3e}, filtered vs the float64 causal linear convolution "
+          f"of the resampled stream: {err_f:.3e} (tol {CHAIN_TOL})")
+    assert fired["K4"] == 8 and sum(fired.values()) == 8, fired
+    assert err_up <= CHAIN_TOL and err_f <= CHAIN_TOL, (err_up, err_f)
+
+    # the gradient refusal: each wrapper, given an input that requires
+    # grad, raises; the same call under no_grad runs and equals its plain
+    # version
+    taps_k4, offs_k4 = interp_ops.polyphase_taps(sinc, 3, 2, 0.0, 10,
+                                                 torch.float32, dev)
+    taps_k5, offs_k5 = interp_ops.polyphase_taps(sinc, 147, 160, 0.0, 10,
+                                                 torch.float32, dev)
+    proto_g = torch.from_numpy((np.hamming(256 * 4) / 256)
+                               .astype(np.float32)).to(dev)
+    ts_g = chz._merged_tap_rows(proto_g, 256)
+    Br, Bi = planes(8, 256)
+    Ar, Ai = planes(8, 256)
+    gx, gy = planes(4096)
+    ghr, ghi = planes(33)
+    rows_g = torch.from_numpy(rng.standard_normal((2, 4096), np.float32)
+                              ).to(dev)
+    rows_5 = torch.from_numpy(rng.standard_normal((1, 1 << 16), np.float32)
+                              ).to(dev)
+    cr, ci = planes(256 * 1024)
+    n5 = evened(1 << 16, 147, 160)
+    refusals = [
+        ("rowfft_mag", lambda a: sc.rowfft_mag(a, Bi),
+         lambda a: sc.rowfft_mag_plain(a, Bi), Br),
+        ("fourstep_mag_fused", lambda a: sc.fourstep_mag_fused(a, Ai),
+         lambda a: sc.fourstep_mag_fused_plain(a, Ai), Ar),
+        ("conv_blocks_cuda (circular_conv_cuda)",
+         lambda a: osc.circular_conv_cuda(gx, gy, a, ghi, 1024),
+         lambda a: osc.circular_conv_plain(gx, gy, a, ghi, 1024), ghr),
+        ("conv_blocks_cuda (blocked_linear_conv_cuda)",
+         lambda a: osc.blocked_linear_conv_cuda(a, gy, ghr, ghi, 1024),
+         lambda a: osc.blocked_linear_conv_plain(a, gy, ghr, ghi, 1024), gx),
+        ("resample_direct_cuda",
+         lambda a: rsc.resample_direct_cuda(a, taps_k4, 3, 2, offs_k4, 10,
+                                            6144),
+         lambda a: rsc.resample_direct_plain(a, taps_k4, 3, 2, offs_k4, 10,
+                                             6144,
+                                             interp_ops._choose_c(3, 2)),
+         rows_g),
+        ("resample_rowblock_cuda",
+         lambda a: rsc.resample_rowblock_cuda(a, taps_k5, 147, 160, offs_k5,
+                                              10, n5),
+         lambda a: rsc.resample_rowblock_plain(a, taps_k5, 147, 160,
+                                               offs_k5, 10, n5), rows_5),
+        ("channelize_demod_cuda (z, demod=False)",
+         lambda a: chc.channelize_demod_cuda(a, ci, ts_g, 256, False),
+         lambda a: chc.channelize_demod_plain(a, ci, ts_g, 256, False), cr),
+    ]
+    for name, kernel, plain, arg in refusals:
+        leaf = arg.clone().requires_grad_()
+        reset_counts()
+        try:
+            kernel(leaf)
+        except RuntimeError as e:
+            assert "has no backward" in str(e), e
+            refused = str(e).split(";")[0]
+        else:
+            raise AssertionError(f"{name} accepted an input that requires "
+                                 f"grad")
+        assert other_launches() + chc.channelize_demod_cuda.launches == 0
+        with torch.no_grad():
+            got = kernel(leaf)
+            ref = plain(leaf)
+        torch.cuda.synchronize()
+        got = torch.stack(got) if isinstance(got, tuple) else got
+        ref = torch.stack(ref) if isinstance(ref, tuple) else ref
+        err = rel_err(got, ref)
+        print(f"r: gradient refusal, {name}: raised \"{refused}\"; under "
+              f"torch.no_grad() {err:.3e} from the plain version (tol "
+              f"{KERNEL_TOL})")
+        assert err <= KERNEL_TOL, (name, err)
+    del Br, Bi, Ar, Ai, cr, ci, rows_5, rows_g
+    r_s = time.perf_counter() - r_t0
+    print(f"r: phase r took {r_s:.2f} s; its launches {r_launches} (the "
+          f"dry run's and the multi-host rank's as their records report "
+          f"them)")
+    k1_launches += r_launches["K1"]
+    os_launches += r_launches["K3"]
+    cfg3_launches += r_launches["K4"]
+    audio_launches += r_launches["K5"]
+    chan_launches += r_launches["K6"]
+    fused_launches += r_launches["K2"]
+
     # 4. times (CUDA events, median of REPS after warm-up)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
                                                      CONV_FFT_LEN))
@@ -1764,6 +2026,9 @@ def main(work):
          lambda: shd.sharded_sum(x, mesh)),
         ("m: sharded_statistics, 2^22 complex, mesh of 1 (host fetch)", N,
          lambda: shd.sharded_statistics(x, mesh)),
+        (f"r: entry(): fir_fft_chain, {bentry.ENTRY_N}, "
+         f"{bentry.ENTRY_TAPS} complex taps (K1)", bentry.ENTRY_N,
+         lambda: e_fn(*e_args)),
     ]
     path_ms = {}
     for name, outputs, fn in paths:
@@ -1808,6 +2073,22 @@ def main(work):
               f"{t_wall / nchunks * 1e6:.1f} us a chunk "
               f"({xin.shape[-1] / t_wall / 1e6:.1f} Msamples/s in) on {smi}")
     dist.destroy_process_group()
+    # r's examples and harness by the wall clock, WAV I/O and process
+    # starts included
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        slow_down_music.main(src, slow)
+        walls.append(time.perf_counter() - t0)
+    print(f"r: slow_down_music, 60 s of 44.1 kHz stereo: wall "
+          f"{np.median(walls) * 1e3:.1f} ms (median of 3, runs "
+          f"{[round(w * 1e3, 1) for w in walls]} ms: read, one K4, write) "
+          f"on {smi}")
+    print(f"r: multihost.run(1, 1, {N}, {CONV_TAPS}): wall {mh_s:.2f} s "
+          f"(a host process and its rank started, five checks with their "
+          f"oracles, 2 x 22 timed calls); its sharded FIR "
+          f"{mh['timing']['sharded_fir_mesh_ms']:.4f} ms a call (CUDA "
+          f"events, 20 calls) on {smi}")
     chains = in_turns("config #1 chain, 2^22, 128 taps",
                       {"unfused": lambda: chain(xr, xi),
                        "fused": lambda: chain_f(xr, xi)}, smi)
