@@ -8,6 +8,6 @@ without CUDA; the tests pass "cpu").  Run one as
 
 They are imported only as ``basic_dsp_tpu_torch.examples.<name>``; the
 JAX examples' bare module names (``crosstalk``, ``modulation``) belong to
-the JAX side.  ``bench_tables.py`` and ``plot_csv_data.py`` are benchmark
-tooling and are not ported yet.
+the JAX side.  ``bench_tables`` (the per-op size sweep, CSV) and
+``plot_csv_data`` (its plot, with matplotlib) are twins too.
 """

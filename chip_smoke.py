@@ -168,6 +168,29 @@ Phases (any failure raises and exits non-zero):
       grad must raise, and the same call under ``torch.no_grad()`` equal
       its plain version (<= 2e-6).  The ``kernels`` line's launches
       include phase r's, the dry run's and the rank's among them;
+   s. the per-op size sweep and the device smokes' checks, with the counts
+      set to 0 just before and read just after (``phase_s``):
+      ``examples.bench_tables.main(6, ..., with_f64=True)`` (the JAX
+      example's 30 ops, ``vector_creation`` and the two float64 ops at
+      10^3..10^6, into a temporary CSV): every row a finite positive eager
+      time, its device time (CUDA graph) finite and positive where its
+      loop captures, K4 the only kernel launched; one untimed
+      ``interpolatef`` call a size launching exactly one K4; every op body
+      at n = 4096 on the card within 1e-5 of the same body on CPU copies
+      of its inputs (the plain versions).  Then ``smoke_checks``:
+      ``smoke_tpu.py``'s 14 families (elementary, trig, fft_roundtrip,
+      windowed_fft, convolve_signal, convolve_fn, interpolatef,
+      interpolatei, interpft, correlate, statistics, sum_prec,
+      matrix_mimo, sfft), each on the card within 1e-5 of the same call
+      on the CPU (the JAX smoke asks only that each runs), and
+      ``smoke_accuracy_tpu.py``'s checks at its tolerances: the ten
+      ``interpolatef`` cases against its scalar oracle (<= 2e-4; "rational
+      1.5x real 64k" exactly one K4 launch), ``convolve_signal`` Toeplitz
+      at n = 3000, m = 31 (<= 1e-5), ``decimatei`` and ``zero_interleave``
+      (exact), ``plain_fft`` at 4096 and 2^20 (<= 5e-5), and
+      ``interpolate_lin`` / ``interpolate_hermite`` in four cases
+      (<= 2e-4).  Every one of the two smokes' checks runs here; the
+      ``kernels`` line's launches include phase s's;
 4. times with CUDA events (median of 20 after warm-up): every path (the
    DIT spectrum among them, its planes held on the card after its first
    call; k, l and m by chunk or call, and k and l's host time a chunk),
@@ -206,8 +229,10 @@ The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import concurrent.futures
+import contextlib
 import ctypes
 import glob
+import io
 import json
 import math
 import os
@@ -506,6 +531,110 @@ def c_array(handle):
     member is its Python vector)."""
     obj = ctypes.cast(handle, ctypes.POINTER(ctypes.c_void_p))[0]
     return ctypes.cast(obj, ctypes.py_object).value.array
+
+
+SWEEP_MAX_EXP = 6      # phase s: the per-op sweep at 10^3 .. 10^6
+SWEEP_TOL = 1e-5       # an op body on the card against its CPU run
+SWEEP_CHECK_N = 4096
+SMOKE_TOL = 1e-5       # a smoke family on the card against its CPU run
+
+
+def phase_s(work):
+    """s. the per-op size sweep (``examples/bench_tables.py``) and the
+    checks of the JAX repository's device smokes (``smoke_checks``) on the
+    card; returns the phase's launches by kernel."""
+    from basic_dsp_tpu_torch import kernels as bkernels
+    from basic_dsp_tpu_torch import smoke_checks
+    from basic_dsp_tpu_torch.examples import bench_tables
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    bkernels.reset_launch_counts()
+    csv = os.path.join(work, "bench_tables.csv")
+    with contextlib.redirect_stdout(io.StringIO()):   # its rows, below
+        rows, no_graph = bench_tables.main(SWEEP_MAX_EXP, csv, with_f64=True)
+    sweep = bkernels.launch_counts()
+    with open(csv) as f:
+        first = f.readline().strip()
+    ops = list(bench_tables.build_ops()) + ["vector_creation"] \
+        + list(bench_tables.F64_OPS)
+    sizes = [10 ** e for e in range(3, SWEEP_MAX_EXP + 1)]
+    print(f"s: sweep 10^3..10^{SWEEP_MAX_EXP} --with-f64: {len(rows)} rows "
+          f"in {time.perf_counter() - t0:.2f} s, {first!r}; launches "
+          f"{sweep}; no CUDA graph: {no_graph}")
+    assert len(rows) == len(ops) * len(sizes), len(rows)
+    assert {(r[0], r[1]) for r in rows} == {(o, n) for o in ops
+                                            for n in sizes}
+    for name, n, sec, dev_sec in rows:
+        assert math.isfinite(sec) and sec > 0, (name, n, sec)
+        assert dev_sec is None or (math.isfinite(dev_sec) and dev_sec > 0)
+    assert sweep["K4"] > 0 and sum(sweep.values()) == sweep["K4"], sweep
+    by = {(r[0], r[1]): r for r in rows}
+    print("s: op, eager us / device us a call at " + ", ".join(
+        f"10^{e}" for e in range(3, SWEEP_MAX_EXP + 1)))
+    for name in ops:
+        print(f"s:   {name}: " + ", ".join(
+            f"{by[(name, n)][2] * 1e6:.2f} / "
+            + ("-" if by[(name, n)][3] is None
+               else f"{by[(name, n)][3] * 1e6:.2f}") for n in sizes))
+
+    # each interpolatef row's call launches K4 once
+    rng = np.random.default_rng(0)
+    body = bench_tables.build_ops()["interpolatef"]
+    for n in sizes:
+        x_re, x_im, h, win = bench_tables.inputs(n, rng, dev)
+        before = bkernels.launch_counts()
+        out = body(x_re, x_im, (win, win), torch.zeros_like(x_re))
+        torch.cuda.synchronize()
+        after = bkernels.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        assert out.shape == (n * 3 // 2,) and delta["K4"] == 1 \
+            and sum(delta.values()) == 1, (n, delta)
+    print(f"s: interpolatef x1.5 at {sizes}: one K4 launch a call")
+
+    # each op body on the card against the same body on CPU copies of its
+    # inputs (the plain versions)
+    x_re, x_im, h, win = bench_tables.inputs(SWEEP_CHECK_N, rng, dev)
+    carry = torch.from_numpy((rng.normal(size=SWEEP_CHECK_N) * 1e-3)
+                             .astype(np.float32)).to(dev)
+    x64 = torch.from_numpy(rng.normal(size=SWEEP_CHECK_N)).to(dev)
+    worst = (-1.0, "")
+    for name, body in {**bench_tables.build_ops(),
+                       **bench_tables.F64_OPS}.items():
+        r, i = (x64, x64) if name in bench_tables.F64_OPS else (x_re, x_im)
+        aux = bench_tables.aux_for(name, h, win)
+        got = body(r, i, aux, carry)
+        ref = body(r.cpu(), i.cpu(), tuple(a.cpu() for a in aux),
+                   carry.cpu())
+        err = rel_err(got.cpu().to(ref.dtype), ref)
+        assert got.shape == ref.shape and err <= SWEEP_TOL, (name, err)
+        worst = max(worst, (err, name))
+    print(f"s: every op body at n = {SWEEP_CHECK_N} on the card against its "
+          f"CPU run: worst {worst[0]:.3e} ({worst[1]}; tol {SWEEP_TOL})")
+
+    # smoke_tpu.py's families: on the card, against the same call on the CPU
+    card = smoke_checks.families(dev)
+    host = smoke_checks.families("cpu")
+    for name, got in card.items():
+        ref = host[name]
+        err = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+        print(f"s: smoke family {name}: shape {got.shape}, {err:.3e} from "
+              f"its CPU run (tol {SMOKE_TOL})")
+        assert got.shape == ref.shape and np.all(np.isfinite(got))
+        assert err <= SMOKE_TOL, (name, err)
+    assert len(card) == 14
+    # smoke_accuracy_tpu.py's checks against its numpy oracles
+    for rec in smoke_checks.accuracy(dev):
+        ran = {k: v for k, v in rec["launches"].items() if v}
+        print(f"s: {rec['name']}: {rec['err']:.3e} (tol {rec['tol']}), "
+              f"launches {ran}")
+        assert rec["ok"], rec
+        if rec["name"].startswith("rational 1.5x real 64k"):
+            assert ran == {"K4": 1}, ran
+    counts = bkernels.launch_counts()
+    print(f"s: phase s took {time.perf_counter() - t0:.2f} s; its launches "
+          f"{counts}")
+    return counts
 
 
 def main(work):
@@ -1971,6 +2100,14 @@ def main(work):
     audio_launches += r_launches["K5"]
     chan_launches += r_launches["K6"]
     fused_launches += r_launches["K2"]
+
+    s_launches = phase_s(work)
+    k1_launches += s_launches["K1"]
+    fused_launches += s_launches["K2"]
+    os_launches += s_launches["K3"]
+    cfg3_launches += s_launches["K4"]
+    audio_launches += s_launches["K5"]
+    chan_launches += s_launches["K6"]
 
     # 4. times (CUDA events, median of REPS after warm-up)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
