@@ -1,6 +1,6 @@
 # Build/test targets (the analog of the reference's feature-matrix Makefile).
 
-.PHONY: test test-matrix bench interop clean examples
+.PHONY: test test-matrix bench bench-torch interop clean examples
 
 test:
 	python -m pytest tests/ -q
@@ -12,6 +12,18 @@ test-matrix:
 
 bench:
 	python bench.py
+
+# The PyTorch port's benchmark programs on an H100 (each kernel wrapper
+# builds its kernel at its first call): the flagship, unfused then
+# fused, and the five configs with the overlap-save A/B, this session's
+# captures merged into $(OUT)/BENCH_ALL_h100.json.
+OUT ?= .
+bench-torch:
+	mkdir -p $(OUT)
+	python3 bench_torch.py
+	BENCH_FUSED=1 python3 bench_torch.py
+	BDSP_BENCH_AB=1 python3 -m basic_dsp_tpu_torch.bench.bench_all \
+	    --merge $(OUT)/BENCH_ALL_h100.json
 
 interop:
 	cmake -S interop -B interop/build -G Ninja

@@ -5,7 +5,8 @@ for ``plot_csv_data.py``.
 
 The ops are the JAX example's, written on the port's functions, each with
 its signature ``(x_re, x_im, aux, carry)``.  Each is timed as the JAX
-example times it (``bench_all.timed`` there): every output element folds
+example times it (``bench_all.timed`` there; here ``bench.timing.timed``,
+which the port's benchmark programs share): every output element folds
 into an n-long float32 carry that the next call adds to its input, and
 the time per call is the slope between a loop of ``iters`` calls and one
 of ``3 * iters``, the median of three back-to-back pairs.  Two times a
@@ -35,7 +36,6 @@ and the device column.
 (the card; ``BDSP_PLATFORM=cpu`` for the CPU).
 """
 import os
-import subprocess
 import sys
 import time
 
@@ -45,6 +45,8 @@ import torch
 import basic_dsp_tpu_torch as bt
 from basic_dsp_tpu_torch import config
 from basic_dsp_tpu_torch import vector as _vec
+# fold: the carry the sweep times with, importable from here as before
+from basic_dsp_tpu_torch.bench.timing import card_line, fold, timed  # noqa: F401
 from basic_dsp_tpu_torch.conv_types import SincFunction
 from basic_dsp_tpu_torch.ops import approx_ops, conv_ops, fft_ops, interp_ops
 from basic_dsp_tpu_torch.windows import HammingWindow
@@ -125,124 +127,6 @@ F64_OPS = {"real_offset_f64": lambda r, i, a, c: (r + c) + 5.0,
            "real_sin_f64": lambda r, i, a, c: torch.sin(r + c)}
 
 
-def fold(out, n):
-    """Every element of ``out`` into an n-long float32 carry: |out| padded
-    to a multiple of n, summed down the short axis, times 1e-20
-    (``bench_all.timed``'s fold)."""
-    flat = torch.abs(out.reshape(-1)).to(torch.float32)
-    rows = -(-flat.shape[0] // n)
-    if rows * n != flat.shape[0]:
-        flat = torch.nn.functional.pad(flat, (0, rows * n - flat.shape[0]))
-    return flat.reshape(rows, n).sum(dim=0) * 1e-20
-
-
-def _slope(run, iters):
-    """Median of three back-to-back (iters, 3 * iters) pairs' per-call
-    slopes, non-positive ones dropped, and their spread; with none
-    positive, the 3 * iters loop's time a call, an upper bound."""
-    slopes = []
-    for _ in range(3):
-        t1 = run(iters)
-        t3 = run(3 * iters)
-        s = (t3 - t1) / (2 * iters)
-        if s > 0:
-            slopes.append(s)
-    if not slopes:
-        return run(3 * iters) / (3 * iters), float("inf")
-    slopes.sort()
-    return slopes[len(slopes) // 2], slopes[-1] / slopes[0]
-
-
-def _loop(fn, args, n, k):
-    carry = torch.zeros(n, dtype=torch.float32, device=args[0].device)
-    for _ in range(k):
-        carry = fold(fn(*args, carry), n)
-    return carry
-
-
-def _eager_seconds(fn, args, n, k):
-    """Wall seconds of a k-call eager loop: CUDA events on the card (the
-    host's dispatch included), ``time.perf_counter`` on the CPU."""
-    if args[0].device.type != "cuda":
-        t0 = time.perf_counter()
-        _loop(fn, args, n, k)
-        return time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    _loop(fn, args, n, k)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3
-
-
-class _Graphs:
-    """The k-call loop captured once in a CUDA graph for each k, replayed
-    between two CUDA events; ``close`` frees the graphs and their memory
-    pools."""
-
-    def __init__(self, fn, args, n):
-        self.fn, self.args, self.n = fn, args, n
-        self.graphs = {}
-        self.stream = torch.cuda.Stream()
-        self.stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self.stream):   # warm up where it captures
-            _loop(fn, args, n, 2)
-        torch.cuda.current_stream().wait_stream(self.stream)
-
-    def seconds(self, k):
-        if k not in self.graphs:
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, stream=self.stream):
-                out = _loop(self.fn, self.args, self.n, k)
-            self.graphs[k] = (g, out)
-            g.replay()
-        g = self.graphs[k][0]
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        g.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
-
-    def close(self):
-        self.graphs.clear()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-
-
-def timed(fn, *args, iters=10):
-    """(eager seconds a call, device seconds a call or None): the slope
-    between an ``iters`` and a ``3 * iters`` loop of ``fn(*args, carry)``.
-    ``timed.last_spread`` holds the two spreads (max / min slope) and
-    ``timed.last_capture_error`` why the loop did not capture into a CUDA
-    graph (None when it did, or on the CPU)."""
-    n = args[0].shape[-1]
-    timed.last_capture_error = None
-    for _ in range(2):
-        _loop(fn, args, n, iters)
-    eager, eager_spread = _slope(
-        lambda k: _eager_seconds(fn, args, n, k), iters)
-    device, device_spread = None, None
-    if args[0].device.type == "cuda":
-        graphs = _Graphs(fn, args, n)
-        try:
-            device, device_spread = _slope(graphs.seconds, iters)
-        except RuntimeError as e:
-            timed.last_capture_error = str(e).strip().splitlines()[0]
-        finally:
-            graphs.close()
-    timed.last_spread = (eager_spread, device_spread)
-    return eager, device
-
-
-timed.last_spread = (1.0, None)
-timed.last_capture_error = None
-
-
 def inputs(n, rng, device):
     """The JAX example's inputs at size n, drawn from ``rng`` in its order:
     float32 planes, 32 complex taps as planes, the Hamming window."""
@@ -257,15 +141,6 @@ def inputs(n, rng, device):
 
 def aux_for(name, h, win):
     return h if name == "convolve_signal" else (win, win)
-
-
-def card_line():
-    """``# <name>, <power limit>`` of the card, as nvidia-smi gives them."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return "# " + smi.strip().splitlines()[0]
 
 
 def _device(device):
@@ -288,18 +163,17 @@ def main(max_exp=7, out_path="bench_tables.csv", with_f64=False,
     on_card = dev.type == "cuda"
     rng = np.random.default_rng(0)
     ops = build_ops()
-    lines = [card_line() if on_card else "# cpu", HEADER]
+    lines = ["# " + card_line(dev), HEADER]
     rows, no_graph = [], {}
 
-    def record(name, n, sec, dev_sec):
-        rows.append((name, n, sec, dev_sec))
-        lines.append(_row(name, n, sec, dev_sec))
+    def record(name, n, t):
+        rows.append((name, n, t.eager, t.graph))
+        lines.append(_row(name, n, t.eager, t.graph))
         print(lines[-1], flush=True)
-        err = timed.last_capture_error
-        if on_card and dev_sec is None and name not in no_graph:
-            no_graph[name] = err
+        if on_card and t.graph is None and name not in no_graph:
+            no_graph[name] = t.no_graph
             print(f"{name}: no device time, its loop does not capture "
-                  f"into a CUDA graph ({err})", flush=True)
+                  f"into a CUDA graph ({t.no_graph})", flush=True)
 
     for exp in range(3, max_exp + 1):
         n = 10 ** exp
@@ -309,8 +183,7 @@ def main(max_exp=7, out_path="bench_tables.csv", with_f64=False,
             if name in CAPPED and n > CAP:
                 continue
             aux = aux_for(name, h, win)
-            sec, dev_sec = timed(body, x_re, x_im, aux, iters=iters)
-            record(name, n, sec, dev_sec)
+            record(name, n, timed(body, x_re, x_im, aux, iters=iters))
         # vector_creation (real_bench.rs:59-65): construction from numpy,
         # which on the card includes the copy there
         reps = max(1, 10 ** 6 // n)
@@ -327,9 +200,8 @@ def main(max_exp=7, out_path="bench_tables.csv", with_f64=False,
         if with_f64:
             x64 = torch.from_numpy(rng.normal(size=n)).to(dev)
             for name, body in F64_OPS.items():
-                sec, dev_sec = timed(body, x64, x64, (win, win),
-                                     iters=iters)
-                record(name, n, sec, dev_sec)
+                record(name, n, timed(body, x64, x64, (win, win),
+                                      iters=iters))
         del x_re, x_im, h, win
     with open(out_path, "w") as f:
         f.write("\n".join(lines) + "\n")

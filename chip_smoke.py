@@ -198,9 +198,11 @@ Phases (any failure raises and exits non-zero):
    fused
    chain against the unfused one in turns; each kernel against its plain
    version and its library call (one PyTorch call computing the same
-   function, where there is one) in turns, and its device time from
-   ``torch.profiler`` (K3 also with its taps' spectrum H computed in the
-   call, and against the block call ``ifft(fft(blocks) * H)`` that was its
+   function, where there is one) in turns, and its device time from a
+   CUDA-graph replay of its calls (``graph_ms``; the kernels line's
+   ``device_ms``, null below the kernel's bound) beside what
+   ``torch.profiler`` reads, which has dropped kernel events on the card
+   (K3 also with its taps' spectrum H computed in the call, and against the block call ``ifft(fft(blocks) * H)`` that was its
    yardstick before its library call became the whole-signal
    ``ifft(fft(x) * Hn)``); the typed path of h against the same ops
    called as functions, in turns (the typed layer's host overhead);
@@ -218,6 +220,23 @@ Phases (any failure raises and exits non-zero):
    o. ``profiling``: ``time_op`` and ``throughput`` of ``FirFftChainPlanar``
       within 2x of phase 4's event median, and ``trace`` writing a
       non-empty Chrome trace into a temporary directory;
+   t. the benchmark programs (``basic_dsp_tpu_torch/bench/``), with the
+      counts set to 0 just before and read just after (``phase_t``):
+      ``bench_torch.py``'s ``main()``, then with ``BENCH_FUSED=1``, each printing exactly one stdout line
+      ``{"metric": "fir_fft_chain_throughput", "value", "unit",
+      "vs_baseline"}``, its one eager call launching K1 (K2 when fused);
+      ``bench_all`` over the five configs and the overlap-save A/B
+      (``BDSP_BENCH_AB=1``), ``--json`` into the work directory, each
+      config launching the kernels of its row (K1, none, K4, K4, K6; K3 in
+      the A/B's kernel body, none in its library body);
+      ``bench_scaling`` at d = 1 on one NCCL rank (each workload within
+      1e-5 of its single-device function); ``round_summary`` over the
+      work directory.  Every slope is positive, every ``vs_baseline`` at
+      or below 1.0 (no capture beats its floor) and TF32 off.  It runs
+      after phase 4, whose profiler windows it would otherwise follow
+      with its own and with its CUDA-graph captures; a capture leaves
+      the launch counts as they were (``timing.not_counted``), so the
+      ``kernels`` line's launches include phase t's eager ones only;
    n. last, so that no earlier phase runs tuned knobs: ``autotune.calibrate()``
       with JAX's defaults into a temporary cache (every earlier phase reads
       the default knobs from it), the table printed beside the card's name
@@ -278,10 +297,6 @@ PREC_TOL = 1e-12
 MAT_ROWS, MAT_N, MAT_TAPS = 8, 1 << 19, 33
 BUDGETS = (None, "high", "high-xla", "high-kernel")
 REPS = 20
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, FP32 outside the
-# tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
 # Resampler geometries (P, Q, L, n); K4 also at interpolate_lin's 2-tap
 # geometry (5/2, delay 0.3, zero offsets) below.  resample_runs at one
 # phase a lane (Q <= 2: 3/2, x10, 2/1, P > 32 at 64/1, a 32-word window at
@@ -432,25 +447,24 @@ def pcm16_steps(frames, want):
     return float((got - torch.round(want.clamp(-1, 1) * 32767)).abs().max())
 
 
-def device_ms_per_call(fn, calls=10):
-    """Device ms per call from torch.profiler (the device-side events'
-    time over ``calls`` calls), and the ms of each kernel."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    per_kernel = {}
-    for e in prof.key_averages():
-        # device-side events only: a CPU op's self device time repeats the
-        # time of the kernels it launched
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and e.self_device_time_total > 0:
-            per_kernel[e.key] = e.self_device_time_total / calls / 1e3
-    return sum(per_kernel.values()), per_kernel
+def graph_ms(fn, calls=20, pairs=3):
+    """Device ms a call of ``fn()``: ``calls`` and 3 x ``calls`` calls
+    captured in CUDA graphs and replayed between CUDA events, the median
+    of ``pairs`` pair slopes (``bench/timing.py``), so no host dispatch
+    and no profiler; None where the calls do not capture."""
+    from basic_dsp_tpu_torch.bench import timing
+
+    def loop(k):
+        for _ in range(k):
+            out = fn()
+        return out
+    graphs = timing.Graphs(loop)
+    try:
+        return timing.slope(graphs.seconds, calls, pairs).seconds * 1e3
+    except RuntimeError:
+        return None
+    finally:
+        graphs.close()
 
 
 def in_turns(name, fns, smi):
@@ -465,15 +479,6 @@ def in_turns(name, fns, smi):
           + f" (each a median of {REPS}; runs "
           + "; ".join(f"{k} {r}" for k, r in runs.items()) + f") on {smi}")
     return med
-
-
-def bound(nbytes, flops):
-    """The least time the card could take: the larger of the compulsory
-    bytes over PEAK_BYTES and the FP32 operations over PEAK_FP32, in ms,
-    and which of the two it is."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
-    return ((t_bytes, "bytes") if t_bytes >= t_ops
-            else (t_ops, "operations"))
 
 
 def nbytes(*tensors):
@@ -637,6 +642,93 @@ def phase_s(work):
     return counts
 
 
+def phase_t(work):
+    """t. the benchmark programs on the card; returns the phase's launches
+    by kernel."""
+    from basic_dsp_tpu_torch import kernels as bkernels
+    from basic_dsp_tpu_torch.bench import (bench, bench_all, bench_scaling,
+                                           round_summary, timing)
+
+    import basic_dsp_tpu_torch as bt
+
+    t0 = time.perf_counter()
+    bkernels.reset_launch_counts()
+    assert timing.tf32_off(), "TF32 must be off"
+    saved = bt.default_config()     # the programs pin their knobs
+    for env, kernel in (({}, "K1"), ({"BENCH_FUSED": "1"}, "K2")):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rec = bench.main([], env=env)
+        lines = out.getvalue().splitlines()
+        print(f"t: bench_torch.py {env or '(unfused)'}: stdout "
+              f"{lines}; graph {rec['graph_ms']:.4f} ms/iter (spread "
+              f"{rec['spread']:.3f}x), eager {rec['eager_ms']:.4f}, floor "
+              f"{rec['floor_ms']:.4f} ms ({rec['bound']}: bytes "
+              f"{rec['bytes_ms']:.4f}, operations {rec['flops_ms']:.4f}); "
+              f"launches {rec['launches']}; on {rec['card']}")
+        for line in err.getvalue().splitlines():
+            if line.startswith(("# L2", "# floor", "# median")):
+                print(f"t:   {line[2:]}")
+        assert len(lines) == 1, lines
+        line = json.loads(lines[0])
+        assert list(line) == ["metric", "value", "unit", "vs_baseline"]
+        assert line["metric"] == "fir_fft_chain_throughput"
+        assert line["unit"] == "Msamples/s" and line["value"] > 0
+        assert 0 < line["vs_baseline"] <= 1.0, line
+        assert rec["graph_ms"] > 0 and rec["eager_ms"] > 0
+        assert rec["launches"] == {kernel: 1}, rec["launches"]
+        print(f"t:   at {time.perf_counter() - t0:.2f} s of phase t")
+
+    path = os.path.join(work, round_summary.BENCH_ALL)
+    os.environ["BDSP_BENCH_AB"] = "1"
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            session = bench_all.main(["--json", path])
+    finally:
+        del os.environ["BDSP_BENCH_AB"]
+    print(f"t: bench_all: health probe {session['probe_us']:.3f} us/iter "
+          f"on {session['card']}; at {time.perf_counter() - t0:.2f} s of "
+          f"phase t")
+    for rec in session["configs"]:
+        print(f"t:   {rec['metric']}: {rec['measured_ms']:.4f} ms "
+              f"({rec['timing']}; eager {rec['eager_ms']:.4f}, graph "
+              f"{rec['graph_ms']}), {rec['value']} Msamples/s, floor "
+              f"{rec['floor_ms']:.4f} ms ({rec['bound']}), vs_baseline "
+              f"{rec['vs_baseline']}, spread {rec['slope_spread']}, launches "
+              f"{rec['launches']}, idle share {rec['idle_share']}"
+              + (f"; io bound {rec['model']['io_bound_ms'] * 1e3:.2f} us"
+                 if "io_bound_ms" in rec["model"] else "")
+              + (f"; no graph: {rec['no_graph']}" if rec["no_graph"]
+                 else ""))
+        assert rec["measured_ms"] > 0 and rec["eager_ms"] > 0
+        assert 0 < rec["vs_baseline"] <= rec["max_vs_floor"] == 1.0, rec
+        assert rec["launches"] == dict.fromkeys(rec["kernels"], 1), rec
+    assert len(session["configs"]) == 7
+    with open(path) as f:
+        assert json.load(f)["configs"] == session["configs"]
+
+    scaling = os.path.join(work, round_summary.SCALING)
+    with contextlib.redirect_stdout(io.StringIO()):
+        record = bench_scaling.main(["--devices", "1", "--out", scaling])
+    for name, e in record["workloads"].items():
+        p = e["strong"][0]
+        print(f"t: bench_scaling d=1 {name}: strong {p['ms']:.4f} ms "
+              f"({p['msamples_per_s']:.1f} Msamples/s), weak "
+              f"{e['weak'][0]['ms']:.4f} ms, {p['err']:.3e} from its "
+              f"single-device function, on {record['card']}")
+        assert p["ms"] > 0 and p["err"] <= bench_scaling.TOL, (name, p)
+    print(f"t: bench_scaling at {time.perf_counter() - t0:.2f} s of phase t")
+    table = round_summary.lines(work)
+    assert len(table) == 2 + 7 + 1 + 4, table
+    for line in table:
+        print(f"t: round_summary: {line}")
+    bt.set_default_config(saved)
+    counts = bkernels.launch_counts()
+    print(f"t: phase t took {time.perf_counter() - t0:.2f} s; its launches "
+          f"{counts}")
+    return counts
+
+
 def main(work):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -652,6 +744,7 @@ def main(work):
     import basic_dsp_tpu_torch as bt
     from basic_dsp_tpu_torch import kernels as bkernels
     from basic_dsp_tpu_torch import profiling, streaming
+    from basic_dsp_tpu_torch.bench import timing
     from basic_dsp_tpu_torch.kernels import _build
     from basic_dsp_tpu_torch.kernels import channelizer_cuda as chc
     from basic_dsp_tpu_torch.kernels import overlap_save_cuda as osc
@@ -920,8 +1013,8 @@ def main(work):
     assert osc.conv_blocks_cuda.launches == 2
     # The path runs K3 and the ops of H (osc.spectrum) and nothing else: no
     # fold, wrap or concatenation.
-    _, h_ops = device_ms_per_call(lambda: osc.spectrum(h, CONV_FFT_LEN))
-    _, path_ops = device_ms_per_call(
+    _, h_ops = timing.device_ms(lambda: osc.spectrum(h, CONV_FFT_LEN))
+    _, path_ops = timing.device_ms(
         lambda: conv_ops.convolve_signal_planar(xr, xi, h))
     k3_ops = [k for k in path_ops if "overlap_save_blocks" in k]
     print(f"convolve_signal_planar's kernels: {sorted(path_ops)}")
@@ -1677,7 +1770,7 @@ def main(work):
               "sharded": lambda: vp.convolve_signal(imp_rc)})):
         med = in_turns(name, fns, smi)
         for label, fn in fns.items():
-            dev_ms, per_kernel = device_ms_per_call(fn)
+            dev_ms, per_kernel = timing.device_ms(fn)
             if dev_ms > 0:
                 print(f"{name}, {label}: device {dev_ms:.4f} ms/call "
                       f"(torch.profiler, 10 calls), idle share "
@@ -2172,7 +2265,7 @@ def main(work):
         ms = path_ms[name] = median_ms(fn)
         print(f"{name}: {ms:.4f} ms/call, "
               f"{outputs / ms / 1e3:.1f} Msamples/s out on {smi}")
-        dev_ms, per_kernel = device_ms_per_call(fn)
+        dev_ms, per_kernel = timing.device_ms(fn)
         if "taps held" in name and dev_ms > 0:
             # K6 stores (C, S) itself: the module runs no other kernel
             assert all("channelize" in k for k in per_kernel), per_kernel
@@ -2250,7 +2343,7 @@ def main(work):
     print(f"typed layer: {(typed['typed'] - typed['functions']) * 1e3:.1f} "
           f"us a call above the functions on {smi}")
     for label, fn in (("functions", functions_path), ("typed", typed_path)):
-        dev_ms, _ = device_ms_per_call(fn)
+        dev_ms, _ = timing.device_ms(fn)
         print(f"typed path, {label}: device {dev_ms:.4f} ms/call "
               f"(torch.profiler, 10 calls)")
 
@@ -2274,7 +2367,7 @@ def main(work):
           f"{(med['C ABI'] - med['typed']) * 1e3:.1f} us a call above the "
           f"typed call on {smi}")
     for label, fn in fns.items():
-        dev_ms, per_kernel = device_ms_per_call(fn)
+        dev_ms, per_kernel = timing.device_ms(fn)
         if dev_ms > 0:
             print(f"{name}, {label}: device {dev_ms:.4f} ms/call "
                   f"(torch.profiler, 10 calls), idle share "
@@ -2331,24 +2424,29 @@ def main(work):
     def measure(name, source, replaces, launches, max_abs_err, fns, inputs,
                 output, flops):
         med = in_turns(name, fns, smi)
-        bound_ms, bound_by = bound(nbytes(*inputs, *output), flops)
+        bound_ms, bound_by = timing.floor_ms(nbytes(*inputs, *output),
+                                             flops)[:2]
         print(f"{name}: bound {bound_ms * 1e3:.2f} us ({bound_by}), "
               f"kernel at {bound_ms / med['kernel']:.3f} of it on {smi}")
-        dev_ms, per_kernel = device_ms_per_call(fns["kernel"])
-        if dev_ms > 0:
-            print(f"{name}: device {dev_ms * 1e3:.1f} us/call (torch.profiler"
-                  f", 10 calls), {bound_ms / dev_ms:.3f} of the bound; "
-                  + ", ".join(f"{k[:48]} {v * 1e3:.1f} us"
-                              for k, v in per_kernel.items()))
+        dev_ms = graph_ms(fns["kernel"])
+        prof_ms, per_kernel = timing.device_ms(fns["kernel"])
+        print(f"{name}: device " + ("did not capture" if dev_ms is None
+                                    else f"{dev_ms * 1e3:.1f} us/call, "
+                                    f"{bound_ms / dev_ms:.3f} of the bound")
+              + f" (CUDA-graph replay); torch.profiler read "
+              f"{prof_ms * 1e3:.1f} us/call: "
+              + ", ".join(f"{k[:48]} {v * 1e3:.1f} us"
+                          for k, v in per_kernel.items()))
+        if dev_ms is not None and dev_ms < bound_ms:
+            print(f"{name}: device time not measured: below the bound")
+            dev_ms = None
         rows.append({
             "name": name.split(" ")[0], "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": med["kernel"],
             "plain_ms": med["plain"], "bound_ms": bound_ms,
             "bound_us": bound_ms * 1e3, "bound_by": bound_by,
-            "library_ms": med.get("library"),
-            "device_ms": dev_ms if dev_ms > 0 else None,
-            "device_kernels_ms": per_kernel})
+            "library_ms": med.get("library"), "device_ms": dev_ms})
 
     n1, n2 = 128, 32768
     L2 = n2 // 128
@@ -2468,6 +2566,15 @@ def main(work):
                       if e.get("cat") == "kernel"})
     print(f"profiling.trace: {os.path.getsize(traces[0])} bytes, "
           f"{len(events)} events, device kernels {kernels}")
+
+    # t. the benchmark programs, after phase 4's timings
+    t_launches = phase_t(work)
+    kernel_of = {"rowfft_mag": "K1", "fourstep_mag_fused": "K2",
+                 "overlap_save": "K3", "resample_direct": "K4",
+                 "resample_rowblock": "K5", "channelize_demod": "K6"}
+    assert [r["name"] for r in rows] == list(kernel_of)
+    for row in rows:
+        row["launches"] += t_launches[kernel_of[row["name"]]]
 
     # n. autotune, last: calibrate with JAX's defaults, reload from the
     # cache, a typed convolution under the tuned knobs, then the defaults
