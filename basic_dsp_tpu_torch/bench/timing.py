@@ -31,7 +31,6 @@ peaks at 700 W.
 from __future__ import annotations
 
 import collections
-import contextlib
 import math
 import time
 
@@ -95,25 +94,11 @@ def eager_seconds(loop, k: int, device: torch.device) -> float:
     return start.elapsed_time(end) / 1e3
 
 
-@contextlib.contextmanager
-def not_counted():
-    """Leaves the kernels' launch counts as they were before the block: a
-    wrapper called while a CUDA graph is captured records its kernel and
-    launches nothing, and a replay launches without entering the wrapper,
-    so neither is a launch the counts should hold."""
-    from ..kernels import wrappers
-    saved = {fn: fn.launches for fn in wrappers().values()}
-    try:
-        yield
-    finally:
-        for fn, count in saved.items():
-            fn.launches = count
-
-
 class Graphs:
     """``loop(k)`` captured once in a CUDA graph for each k, replayed
     between two CUDA events; ``close`` frees the graphs and their memory
-    pools.  The capture leaves the launch counts as they were."""
+    pools.  The capture leaves the launch counts as they were (the
+    wrappers count no launch while a graph is captured)."""
 
     def __init__(self, loop):
         self.loop = loop
@@ -127,7 +112,7 @@ class Graphs:
     def seconds(self, k: int) -> float:
         if k not in self.graphs:
             g = torch.cuda.CUDAGraph()
-            with not_counted(), torch.cuda.graph(g, stream=self.stream):
+            with torch.cuda.graph(g, stream=self.stream):
                 out = self.loop(k)
             self.graphs[k] = (g, out)
             g.replay()

@@ -182,6 +182,15 @@ def aligned(p: torch.Tensor) -> torch.Tensor:
     return p if p.data_ptr() % 16 == 0 else p.clone()
 
 
+def count_launch(wrapper) -> None:
+    """Adds one to ``wrapper.launches`` unless the current stream is
+    capturing a CUDA graph: a wrapper called then records its kernel into
+    the graph and launches nothing, and a replay launches without entering
+    the wrapper."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+
+
 def launch(dev, fn, *args) -> int:
     """Calls the C entry ``fn(*args, stream)``, ``stream`` the current
     stream of ``dev``, and returns its code.  Enters ``dev``'s device

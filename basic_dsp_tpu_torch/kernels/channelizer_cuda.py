@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from .. import profiling
 from . import _build
 
 LANES = 128
@@ -229,6 +230,7 @@ def _launch(xr, xi, taps, C, S, tp1, demod, prefix):
     return out if demod else (out[0], out[1])
 
 
+@profiling.spanned("dsp.K6")
 def channelize_demod_cuda(xr, xi, taps_merged, C: int, demod: bool = True,
                           prefix=None):
     """K6: fused channelize + conj-demod of (n,) float32 planes, as
@@ -244,7 +246,7 @@ def channelize_demod_cuda(xr, xi, taps_merged, C: int, demod: bool = True,
         raise ValueError(f"channelize_demod_cuda: no kernel for {xr.device}")
     _build.refuse_grad("channelize_demod_cuda", xr, xi, taps_merged, prefix)
     out = _launch(xr, xi, taps_merged, C, S, tp1, demod, prefix)
-    channelize_demod_cuda.launches += 1
+    _build.count_launch(channelize_demod_cuda)
     return out
 
 

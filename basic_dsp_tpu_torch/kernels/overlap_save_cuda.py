@@ -34,6 +34,7 @@ import functools
 
 import torch
 
+from .. import profiling
 from . import _build
 from ..ops.conv_ops import LANES, _clip_kernel
 
@@ -182,6 +183,7 @@ def _route(dev: torch.device) -> bool:
     raise ValueError(f"overlap_save: no kernel for {dev}")
 
 
+@profiling.spanned("dsp.K3")
 def conv_blocks_cuda(xr, xi, H, m_eff: int, fft_len: int,
                      linear: bool = False, imag: bool = True):
     """K3: the overlap-save convolution of the (n,) float32 planes
@@ -219,7 +221,7 @@ def conv_blocks_cuda(xr, xi, H, m_eff: int, fft_len: int,
     if rc != 0:
         raise RuntimeError("overlap_save kernel launch failed: "
                            + lib.overlap_save_error_string(rc).decode())
-    conv_blocks_cuda.launches += 1
+    _build.count_launch(conv_blocks_cuda)
     return y
 
 

@@ -28,6 +28,7 @@ import math
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _build
 
 TILE_OUTPUTS = 2048        # outputs per CUDA block, rounded up to whole P
@@ -319,6 +320,7 @@ def _device_of(rows, who: str) -> str:
     return kind
 
 
+@profiling.spanned("dsp.K4")
 def resample_direct_cuda(rows, taps, P: int, Q: int, offs, L: int,
                          out_len: int, c: int = 128) -> torch.Tensor:
     """K4: the resampler at the JAX K4 branch's geometries.  rows (R, n)
@@ -332,13 +334,14 @@ def resample_direct_cuda(rows, taps, P: int, Q: int, offs, L: int,
         return resample_direct_plain(rows, taps, P, Q, offs, L, out_len, c)
     _build.refuse_grad("resample_direct_cuda", rows, taps)
     out = _launch(rows, taps, P, Q, record, L, out_len)
-    resample_direct_cuda.launches += 1
+    _build.count_launch(resample_direct_cuda)
     return out
 
 
 resample_direct_cuda.launches = 0
 
 
+@profiling.spanned("dsp.K5")
 def resample_rowblock_cuda(rows, taps, P: int, Q: int, offs, L: int,
                            out_len: int) -> torch.Tensor:
     """K5: the resampler at the JAX row-block branch's geometries (Q >=
@@ -352,7 +355,7 @@ def resample_rowblock_cuda(rows, taps, P: int, Q: int, offs, L: int,
         return resample_rowblock_plain(rows, taps, P, Q, offs, L, out_len)
     _build.refuse_grad("resample_rowblock_cuda", rows, taps)
     out = _launch(rows, taps, P, Q, record, L, out_len)
-    resample_rowblock_cuda.launches += 1
+    _build.count_launch(resample_rowblock_cuda)
     return out
 
 

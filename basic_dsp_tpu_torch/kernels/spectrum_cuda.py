@@ -23,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _build
 
 LANES = 128
@@ -141,6 +142,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@profiling.spanned("dsp.K1")
 def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
                Tfac=None, W=None) -> torch.Tensor:
     """|FFT(rows)| of planar rows, with the global fftshift folded in.
@@ -188,7 +190,7 @@ def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
     if rc != 0:
         raise RuntimeError("rowfft_mag kernel launch failed: "
                            + lib.rowfft_mag_error_string(rc).decode())
-    rowfft_mag.launches += 1
+    _build.count_launch(rowfft_mag)
     return out
 
 
@@ -273,6 +275,7 @@ def _fused_operands(Ar, Ai, Tfac) -> tuple:
             (*Tfac[:2], *map(_build.aligned, Tfac[2:])))
 
 
+@profiling.spanned("dsp.K2")
 def fourstep_mag_fused(Ar: torch.Tensor, Ai: torch.Tensor,
                        shift: bool = True, W=None, Tfac=None) -> torch.Tensor:
     """|fftshift(FFT)| of the (n1, n2)-reshaped planar signal, both
@@ -322,7 +325,7 @@ def fourstep_mag_fused(Ar: torch.Tensor, Ai: torch.Tensor,
     if rc != 0:
         raise RuntimeError("fourstep_mag_fused kernel launch failed: "
                            + lib.rowfft_mag_error_string(rc).decode())
-    fourstep_mag_fused.launches += 1
+    _build.count_launch(fourstep_mag_fused)
     return out
 
 

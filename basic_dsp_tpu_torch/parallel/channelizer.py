@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..kernels import channelizer_cuda
 
 
@@ -193,10 +194,11 @@ class ChannelizeAndDemodPlanar(torch.nn.Module):
                              _merged_tap_rows(prototype, self.n_channels))
 
     def forward(self, xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-        if xr.shape != xi.shape or xr.dim() != 1:
-            raise ValueError(f"expected two equal 1-D planes, got "
-                             f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-        return _demod_planar(xr, xi, self.taps_merged, self.n_channels)
+        with profiling.span("dsp.channelize", xr):
+            if xr.shape != xi.shape or xr.dim() != 1:
+                raise ValueError(f"expected two equal 1-D planes, got "
+                                 f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+            return _demod_planar(xr, xi, self.taps_merged, self.n_channels)
 
 
 def sharded_channelize_and_demod(x, prototype: torch.Tensor,
@@ -218,6 +220,16 @@ def sharded_channelize_and_demod(x, prototype: torch.Tensor,
     run the generic row path.  Returns the (n_channels, n // n_channels)
     angles as a ``DTensor`` with ``Shard(-1)``, equal to
     :func:`channelize_and_demod`."""
+    with profiling.span("dsp.sharded_channelize", x):
+        return _sharded_channelize(x, prototype, n_channels, mesh,
+                                   axis_name)
+
+
+def _sharded_channelize(x, prototype, n_channels: int, mesh, axis_name):
+    """:func:`sharded_channelize_and_demod` inside its root span, each step
+    a span: ``dsp.taps`` (the merged taps), ``dsp.halo`` (the shift),
+    ``dsp.prefix``, ``dsp.K6`` or ``dsp.rows`` (the generic path) and
+    ``dsp.wrap`` (the DTensor)."""
     from . import collectives, sharded
     axis_name = collectives.resolve_axes(mesh, axis_name)
     C = n_channels
@@ -238,24 +250,30 @@ def sharded_channelize_and_demod(x, prototype: torch.Tensor,
         raise ValueError("shard shorter than FIR+demod halo; "
                          "use fewer devices")
     xb, _ = sharded._local(x, mesh, axis_name)
-    taps_merged = _merged_tap_rows(_prototype_on(prototype, xb), C)
+    with profiling.span("dsp.taps"):
+        taps_merged = _merged_tap_rows(_prototype_on(prototype, xb), C)
     halo_n = (t + 1) * C
-    with collectives.on_mesh(mesh):
+    with profiling.span("dsp.halo"), collectives.on_mesh(mesh):
         halo = collectives.shift_from_left(xb[-halo_n:], axis_name,
                                            wrap=False)
     xr, xi = _planes(xb)
     s_loc = S // d
     if _kernel_eligible(xr, xi, C, s_loc, t):
-        hr, hi = _planes(halo)
-        pad = torch.zeros((channelizer_cuda.HALO_ROWS - (t + 1), C),
-                          dtype=xr.dtype, device=xr.device)
-        prefix = (torch.cat([pad, hr.reshape(t + 1, C)]),
-                  torch.cat([pad, hi.reshape(t + 1, C)]))
+        with profiling.span("dsp.prefix"):
+            hr, hi = _planes(halo)
+            pad = torch.zeros((channelizer_cuda.HALO_ROWS - (t + 1), C),
+                              dtype=xr.dtype, device=xr.device)
+            prefix = (torch.cat([pad, hr.reshape(t + 1, C)]),
+                      torch.cat([pad, hi.reshape(t + 1, C)]))
         ang = channelizer_cuda.channelize_demod_cuda(
             xr.contiguous(), xi.contiguous(), taps_merged, C, demod=True,
             prefix=prefix)
     else:
-        ext = torch.cat([halo, xb]).reshape(-1, C)
-        y = _channelize_rows(ext, taps_merged, s_loc + 1)  # row -1 .. end
-        ang = torch.angle(y[1:] * torch.conj(y[:-1])).T    # (C, s_loc)
-    return sharded._wrap(ang.contiguous(), mesh, axis_name, (C, S))
+        with profiling.span("dsp.prefix"):
+            ext = torch.cat([halo, xb]).reshape(-1, C)
+        with profiling.span("dsp.rows"):
+            # rows -1 .. end
+            y = _channelize_rows(ext, taps_merged, s_loc + 1)
+            ang = torch.angle(y[1:] * torch.conj(y[:-1])).T    # (C, s_loc)
+    with profiling.span("dsp.wrap"):
+        return sharded._wrap(ang.contiguous(), mesh, axis_name, (C, S))

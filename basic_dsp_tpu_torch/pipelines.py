@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from . import profiling
 from .conv_types import RaisedCosineFunction
 from .kernels import spectrum_cuda
 from .ops import conv_ops, fft_ops, fourstep, interp_ops
@@ -83,17 +84,23 @@ def _check_budget(budget):
 
 def _planar_chain(xr, xi, taps, bands, window, dft, Tfac, W, n1, n2):
     """The chain after its constants; ``dft`` None takes the fused
-    spectrum."""
-    fr, fi = conv_ops.toeplitz_conv_planar(xr, xi, taps, bands)
-    Ar = (fr * window).reshape(n1, n2)
-    Ai = (fi * window).reshape(n1, n2)
+    spectrum.  Each stage is a span: ``dsp.fir``, ``dsp.window``,
+    ``dsp.stage1``, the kernel's own (``dsp.K1``, or ``dsp.K2`` fused) and
+    ``dsp.flatten``."""
+    with profiling.span("dsp.fir"):
+        fr, fi = conv_ops.toeplitz_conv_planar(xr, xi, taps, bands)
+    with profiling.span("dsp.window"):
+        Ar = (fr * window).reshape(n1, n2)
+        Ai = (fi * window).reshape(n1, n2)
     if dft is None:
         M = spectrum_cuda.fourstep_mag_fused(Ar, Ai, shift=True, W=W,
                                              Tfac=Tfac)
     else:
-        Br, Bi = fourstep.stage1_planar(*dft, Ar, Ai)
+        with profiling.span("dsp.stage1"):
+            Br, Bi = fourstep.stage1_planar(*dft, Ar, Ai)
         M = spectrum_cuda.rowfft_mag(Br, Bi, shift=True, Tfac=Tfac, W=W)
-    return spectrum_cuda.natural_flatten(M)
+    with profiling.span("dsp.flatten"):
+        return spectrum_cuda.natural_flatten(M)
 
 
 def _geometry(n: int, n1: int, fused: bool):
@@ -131,14 +138,19 @@ def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
     (:func:`_check_budget`).
     ``fused=True`` runs stage 1 and the row stage as one launch
     (``spectrum_cuda.fourstep_mag_fused``, K2) instead of the stage-1
-    matmuls and ``rowfft_mag`` (K1).  Builds the constants on every call;
+    matmuls and ``rowfft_mag`` (K1).  Builds the constants on every call
+    (the span ``dsp.constants`` in the call's ``dsp.chain``);
     :class:`FirFftChainPlanar` holds them."""
-    n1, n2 = _geometry(xr.shape[-1], n1, fused)
-    _check_budget(budget)
-    tf = taps.to(xr.dtype)
-    dft, Tfac, W = _constants(n1, n2, xr.device, fused)
-    return _planar_chain(xr, xi, tf, conv_ops.toeplitz_bands(tf, n1 * n2),
-                         window.to(xr.dtype), dft, Tfac, W, n1, n2)
+    with profiling.span("dsp.chain", xr):
+        n1, n2 = _geometry(xr.shape[-1], n1, fused)
+        _check_budget(budget)
+        with profiling.span("dsp.constants"):
+            tf = taps.to(xr.dtype)
+            dft, Tfac, W = _constants(n1, n2, xr.device, fused)
+            bands = conv_ops.toeplitz_bands(tf, n1 * n2)
+            window = window.to(xr.dtype)
+        return _planar_chain(xr, xi, tf, bands, window, dft, Tfac, W, n1,
+                             n2)
 
 
 class FirFftChainPlanar(torch.nn.Module):
@@ -169,14 +181,17 @@ class FirFftChainPlanar(torch.nn.Module):
         self.register_buffer("w_i", W[1])
 
     def forward(self, xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
-        n = self.n1 * self.n2
-        if xr.shape != (n,) or xi.shape != (n,):
-            raise ValueError(f"expected two ({n},) planes, got "
-                             f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-        dft = None if self.fused else (self.dft_r, self.dft_p, self.dft_m)
-        Tfac = (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi)
-        return _planar_chain(xr, xi, self.taps, self.bands, self.window, dft,
-                             Tfac, (self.w_r, self.w_i), self.n1, self.n2)
+        with profiling.span("dsp.chain", xr):
+            n = self.n1 * self.n2
+            if xr.shape != (n,) or xi.shape != (n,):
+                raise ValueError(f"expected two ({n},) planes, got "
+                                 f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+            dft = None if self.fused else (self.dft_r, self.dft_p,
+                                           self.dft_m)
+            Tfac = (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi)
+            return _planar_chain(xr, xi, self.taps, self.bands, self.window,
+                                 dft, Tfac, (self.w_r, self.w_i), self.n1,
+                                 self.n2)
 
 
 def modulation_chain_planar(sr: torch.Tensor, si: torch.Tensor,

@@ -235,7 +235,8 @@ Phases (any failure raises and exits non-zero):
       or below 1.0 (no capture beats its floor) and TF32 off.  It runs
       after phase 4, whose profiler windows it would otherwise follow
       with its own and with its CUDA-graph captures; a capture leaves
-      the launch counts as they were (``timing.not_counted``), so the
+      the launch counts as they were (the wrappers count no launch while
+      a graph is captured), so the
       ``kernels`` line's launches include phase t's eager ones only;
    n. last, so that no earlier phase runs tuned knobs: ``autotune.calibrate()``
       with JAX's defaults into a temporary cache (every earlier phase reads

@@ -1,0 +1,31 @@
+"""The device ms of stage 1 of the four-step FFT (its Karatsuba sgemms)
+in a call of the chain: the median stream ms of the ``dsp.stage1``
+span records the profiled second of a traced run leaves in the
+process (``basic_dsp_tpu_torch.profiling``: from the CUDA
+marker before the stage to the one at its end, on the device's
+timeline).  None where no such record has markers (a program without
+spans, a cell whose call has no such stage)."""
+import statistics
+
+UNIT = "ms"
+END_TO_END = False
+SPAN = "dsp.stage1"
+
+
+def records() -> list:
+    """The program's span records, none where it has no spans."""
+    try:
+        from basic_dsp_tpu_torch.profiling import spans
+    except ImportError:
+        return []
+    return spans()
+
+
+def value(recs: list):
+    ms = [r["stream_ms"] for r in recs
+          if r["name"] == SPAN and r["stream_ms"] is not None]
+    return statistics.median(ms) if ms else None
+
+
+def read(t):
+    return value(records())

@@ -45,6 +45,8 @@ def pytest_configure(config):
         "markers",
         "requires_x64: test depends on f64/c128 flavors (skipped when "
         "BDSP_TEST_X64=0)")
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (skips without CUDA)")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -361,10 +361,21 @@ def test_the_flagship_rehearses_on_the_cpu(capsys):
     assert fused["fused"] and fused["launches"] == {}
 
 
-def test_a_graph_capture_leaves_the_launch_counts():
+def test_a_graph_capture_leaves_the_launch_counts(monkeypatch):
+    """The wrappers count a launch (``_build.count_launch``) only while no
+    CUDA graph is captured, so ``timing.Graphs`` needs no guard."""
     from basic_dsp_tpu_torch import kernels
+    from basic_dsp_tpu_torch.kernels import _build
     before = kernels.launch_counts()
-    with timing.not_counted():
-        for fn in kernels.wrappers().values():
-            fn.launches += 3
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    for fn in kernels.wrappers().values():
+        _build.count_launch(fn)
     assert kernels.launch_counts() == before
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    for fn in kernels.wrappers().values():
+        _build.count_launch(fn)
+    assert kernels.launch_counts() == {k: n + 1 for k, n in before.items()}
+    for k, fn in kernels.wrappers().items():
+        fn.launches = before[k]

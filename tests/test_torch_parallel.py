@@ -223,6 +223,20 @@ def test_sharded_channelize_matches_jax(ranks):
     assert np.max(amp * np.abs(d)) / np.max(amp) <= ANGLE
 
 
+def test_sharded_channelize_spans(ranks):
+    """Each rank's call under a profiler is one root span over its steps
+    in order, the generic path's rows on the CPU, with no stream ms."""
+    _, _, _, results = ranks
+    for r in results:
+        recs = r["chan_spans"]
+        name, call, index, parent, _ = recs[0]
+        assert (name, parent) == ("dsp.sharded_channelize", None)
+        assert [rec[0] for rec in recs[1:]] == [
+            "dsp.taps", "dsp.halo", "dsp.prefix", "dsp.rows", "dsp.wrap"]
+        assert all(rec[1] == call and rec[3] == index for rec in recs[1:])
+        assert all(rec[4] is None for rec in recs)
+
+
 def _placed(shape):
     """The placements of a result sharded over every mesh axis on dim 0
     (the time axis of a signal, the rows of a matrix)."""

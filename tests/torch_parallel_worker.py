@@ -156,6 +156,19 @@ def _cases():
             torch.from_numpy(x["chan_x"]), torch.from_numpy(x["chan_proto"]),
             CHAN_C, mesh))
 
+    def chan_spans(mesh, x):
+        # the call's span tree under a profiler: (name, call, index,
+        # parent, stream ms) of each record, in the order they opened
+        from torch.profiler import ProfilerActivity, profile
+        from basic_dsp_tpu_torch import profiling
+        profiling.reset_spans()
+        with profile(activities=[ProfilerActivity.CPU]):
+            bt.sharded_channelize_and_demod(
+                torch.from_numpy(x["chan_x"]),
+                torch.from_numpy(x["chan_proto"]), CHAN_C, mesh)
+        return [(r["name"], r["call"], r["index"], r["parent"],
+                 r["stream_ms"]) for r in profiling.spans()]
+
     def fft(key, natural_order=True):
         def case(mesh, x):
             out = bt.parallel.sharded_fft.sharded_fft(
@@ -262,7 +275,7 @@ def _cases():
                 for kind in ERROR_CASES},
              "sum_c": ssum("x_c"), "sum_r": ssum("x_r"),
              "stats_c": stats("x_c"), "stats_r": stats("x_r"),
-             "chan": chan}
+             "chan": chan, "chan_spans": chan_spans}
     for length in ("short", "long"):
         cases[f"conv_{length}_c"] = conv(f"h_{length}_c", "x_c")
         cases[f"conv_{length}_r"] = conv(f"h_{length}_r", "x_r")
