@@ -26,7 +26,10 @@ and kernels ``kernels.resample_cuda.resample_direct_cuda`` and
 ``channelize_and_demod`` and its planar entry,
 :class:`ChannelizeAndDemodPlanar`) with kernel
 ``kernels.channelizer_cuda.channelize_demod_cuda``.  Six kernels of the
-JAX package's six, in four CUDA libraries, one per ``csrc/*.cu``.
+JAX package's six, and one of the port's own (K7,
+``kernels.fir_cuda.fir_window_cuda``: the chain's FIR and window, which
+the JAX chain leaves to XLA), in five CUDA libraries, one per
+``csrc/*.cu``.
 And the typed core: the vector flavors (:class:`RealTimeVector` …,
 :class:`GenDspVector` and its erroneous-state protocol) and their
 constructors (``to_real_time_vec`` …), the matrix layer
@@ -72,6 +75,7 @@ from .conv_types import (ComplexFrequencyLinearTableLookup,
                          RealTimeLinearTableLookup, SincFunction)
 from .kernels.channelizer_cuda import (channelize_demod_cuda,
                                        channelize_demod_plain)
+from .kernels.fir_cuda import fir_window_cuda, fir_window_plain
 from .kernels.overlap_save_cuda import (blocked_linear_conv_cuda,
                                         blocked_linear_conv_plain,
                                         circular_conv_cuda,
@@ -145,7 +149,8 @@ __all__ = [
     "channelize_demod_cuda", "channelize_demod_plain",
     "circular_conv_cuda", "circular_conv_plain", "conv_ops",
     "default_config", "dif_spectrum_mag_cuda", "fft_ops", "fir_fft_chain",
-    "fir_fft_chain_planar", "fm_demodulate", "fourstep",
+    "fir_fft_chain_planar", "fir_window_cuda", "fir_window_plain",
+    "fm_demodulate", "fourstep",
     "fourstep_mag_fused", "fourstep_mag_fused_plain", "from_numpy",
     "interp_ops", "matmul_precision", "modulation_chain_planar",
     "natural_flatten", "overlap_save_cuda", "parallel",

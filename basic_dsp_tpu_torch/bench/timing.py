@@ -264,7 +264,7 @@ def tf32_off() -> bool:
 
 
 def launches(fn) -> dict:
-    """The kernels one eager call of ``fn()`` launched, by kernel (K1-K6),
+    """The kernels one eager call of ``fn()`` launched, by kernel (K1-K7),
     as the wrappers count them; only those it launched."""
     from ..kernels import launch_counts
     before = launch_counts()
@@ -279,8 +279,11 @@ def device_ms(fn, calls: int = 10):
     """Device ms a call from one ``torch.profiler`` window over ``calls``
     eager calls (the CUDA events' time, summed over the kernels), and the
     ms of each kernel; (0.0, {}) where the profiler saw no device time.
-    The profiler has dropped kernel events on the H100 (PERF.md, Open
-    questions): a time below the work's floor is such a dropout."""
+    The device-side copies of ``record_function`` ranges (the port's
+    ``dsp.*`` spans) are user annotations, not kernels: counted, each
+    would add its kernels' time again.  The profiler has dropped kernel
+    events on the H100 (PERF.md, Open questions): a time below the work's
+    floor is such a dropout."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -292,6 +295,7 @@ def device_ms(fn, calls: int = 10):
     per_kernel = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA \
-                and e.self_device_time_total > 0:
+                and e.self_device_time_total > 0 \
+                and not getattr(e, "is_user_annotation", False):
             per_kernel[e.key] = e.self_device_time_total / calls / 1e3
     return sum(per_kernel.values()), per_kernel

@@ -1,7 +1,7 @@
 // persistent: the grid of a persistent kernel, shared by the overlap-save
-// convolution (K3), stage 1 of the fused four-step spectrum (K2) and the
-// resampler (K4, K5): as many blocks as fit the card at once, each walking
-// its share of the work.
+// convolution (K3), stage 1 of the fused four-step spectrum (K2), the
+// resampler (K4, K5) and the chain's FIR and window (K7): as many blocks as
+// fit the card at once, each walking its share of the work.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -3,15 +3,17 @@
 
 ``fir_fft_chain_planar`` runs, on (re, im) float32 planes:
 
-1. the centered circular FIR against real taps as banded 128x128 Toeplitz
-   matmuls (``ops.conv_ops``);
-2. the window multiply;
-3. stage 1 of the DIF four-step, a DFT-n1 over columns as three Karatsuba
+1. the centered circular FIR against real taps and the window multiply:
+   one launch of ``kernels.fir_cuda.fir_window_cuda`` (K7, the direct sum
+   with the window as its epilogue) for float32 planes and real float32
+   taps up to ``fir_cuda.MAX_TAPS``, else banded 128x128 Toeplitz matmuls
+   (``ops.conv_ops``) and the multiply;
+2. stage 1 of the DIF four-step, a DFT-n1 over columns as three Karatsuba
    matmuls (``ops.fourstep.stage1_planar``);
-4. the row stage, ``kernels.spectrum_cuda.rowfft_mag`` (the CUDA kernel on
+3. the row stage, ``kernels.spectrum_cuda.rowfft_mag`` (the CUDA kernel on
    the card), then one transpose into spectrum order.
 
-With ``fused=True`` steps 3 and 4 are one launch,
+With ``fused=True`` steps 2 and 3 are one launch,
 ``kernels.spectrum_cuda.fourstep_mag_fused`` (stage 1, then the row stage
 with the factored big twiddle).  :class:`FirFftChainPlanar` holds the chain's
 constants as buffers, so a call computes and does not rebuild them.
@@ -27,7 +29,7 @@ import torch
 
 from . import profiling
 from .conv_types import RaisedCosineFunction
-from .kernels import spectrum_cuda
+from .kernels import fir_cuda, spectrum_cuda
 from .ops import conv_ops, fft_ops, fourstep, interp_ops
 
 BUDGETS = (None, "high", "high-xla", "high-kernel")
@@ -84,14 +86,17 @@ def _check_budget(budget):
 
 def _planar_chain(xr, xi, taps, bands, window, dft, Tfac, W, n1, n2):
     """The chain after its constants; ``dft`` None takes the fused
-    spectrum.  Each stage is a span: ``dsp.fir``, ``dsp.window``,
-    ``dsp.stage1``, the kernel's own (``dsp.K1``, or ``dsp.K2`` fused) and
-    ``dsp.flatten``."""
+    spectrum.  Each stage is a span: ``dsp.fir`` (the FIR and the window,
+    one K7 launch where ``fir_cuda.takes`` the planes and taps, under its
+    own ``dsp.K7``; else the Toeplitz matmuls against ``bands``, None to
+    build them, and the window multiply), ``dsp.stage1``, the row
+    kernel's own (``dsp.K1``, or ``dsp.K2`` fused) and ``dsp.flatten``."""
     with profiling.span("dsp.fir"):
-        fr, fi = conv_ops.toeplitz_conv_planar(xr, xi, taps, bands)
-    with profiling.span("dsp.window"):
-        Ar = (fr * window).reshape(n1, n2)
-        Ai = (fi * window).reshape(n1, n2)
+        if fir_cuda.takes(xr, xi, taps):
+            fr, fi = fir_cuda.fir_window_cuda(xr, xi, taps, window)
+        else:
+            fr, fi = fir_cuda.fir_window_plain(xr, xi, taps, window, bands)
+        Ar, Ai = fr.reshape(n1, n2), fi.reshape(n1, n2)
     if dft is None:
         M = spectrum_cuda.fourstep_mag_fused(Ar, Ai, shift=True, W=W,
                                              Tfac=Tfac)
@@ -147,7 +152,9 @@ def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
         with profiling.span("dsp.constants"):
             tf = taps.to(xr.dtype)
             dft, Tfac, W = _constants(n1, n2, xr.device, fused)
-            bands = conv_ops.toeplitz_bands(tf, n1 * n2)
+            # K7 reads the taps alone
+            bands = (None if fir_cuda.takes(xr, xi, tf)
+                     else conv_ops.toeplitz_bands(tf, n1 * n2))
             window = window.to(xr.dtype)
         return _planar_chain(xr, xi, tf, bands, window, dft, Tfac, W, n1,
                              n2)
@@ -155,7 +162,9 @@ def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
 
 class FirFftChainPlanar(torch.nn.Module):
     """:func:`fir_fft_chain_planar` with its constants as buffers: the
-    Toeplitz band matrices, the window, the inner twiddle, the factored big
+    Toeplitz band matrices where K7 does not take the taps (more than
+    ``fir_cuda.MAX_TAPS`` after clipping), the window, the inner twiddle,
+    the factored big
     twiddle and, unless ``fused``, the DFT-n1 Karatsuba planes (the fused
     kernel computes its own stage 1).  The signal length is the
     window's.  ``forward(xr, xi)`` returns the (n,) magnitude spectrum."""
@@ -170,7 +179,9 @@ class FirFftChainPlanar(torch.nn.Module):
         taps = taps.to(device=dev, dtype=torch.float32)
         dft, Tfac, W = _constants(self.n1, self.n2, dev, self.fused)
         self.register_buffer("taps", taps)
-        self.register_buffer("bands", conv_ops.toeplitz_bands(taps, n))
+        m_eff = conv_ops._clip_kernel(n, taps.shape[-1])[1]
+        self.register_buffer("bands", None if fir_cuda.supported(n, m_eff)
+                             else conv_ops.toeplitz_bands(taps, n))
         self.register_buffer("window", window.to(torch.float32))
         if not self.fused:
             for name, p in zip(("dft_r", "dft_p", "dft_m"), dft):

@@ -6,8 +6,9 @@
 Phases (any failure raises and exits non-zero):
 
 0. device: requires CUDA, prints the card's name and power limit;
-1. build: compiles and loads the four CUDA libraries (rowfft_mag, which
-   holds K1 and K2, overlap_save, resample, channelizer), one nvcc each,
+1. build: compiles and loads the five CUDA libraries (rowfft_mag, which
+   holds K1 and K2, overlap_save, resample, channelizer, fir_window), one
+   nvcc each,
    and the C ABI library (``libbasic_dsp_tpu_torch.so``, the host C++
    compiler), all started together;
 2. kernels vs plain, on the card, <= 2e-6 relative to the maximum:
@@ -34,13 +35,17 @@ Phases (any failure raises and exits non-zero):
    among them config #5's with no prefix and with phase m's zero one, and
    a ragged S with a non-zero prefix, with ``demod`` True (angles, by the
    |z|-weighted wrapped error) and False (z), both (C, S); K3 also at the
-   extended shapes of phases k and m (n + 383);
+   extended shapes of phases k and m (n + 383); ``fir_window_cuda`` (K7)
+   against ``fir_window_plain`` at six (n, taps, window): the chain's 2^22
+   with 128 and with 202 taps, a length below one tile (its loads wrap at
+   both ends of the signal), a length 4 does not divide without a window,
+   a ragged last tile and taps longer than the signal (clipped);
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    a. the spectrum chain: ``FirFftChainPlanar`` at n = 2^22 with 128
-      raised-cosine taps and a Hamming window, checked against a float64
-      oracle (<= 5e-6 relative); then ``fir_fft_chain`` and
-      ``windowed_spectrum`` once each;
+      raised-cosine taps and a Hamming window (one K7 and one K1 launch),
+      checked against a float64 oracle (<= 5e-6 relative); then
+      ``fir_fft_chain`` and ``windowed_spectrum`` once each (no K7);
    b. the long-tap convolution: ``conv_ops.convolve_signal_planar`` at
       n = 2^22 with 384 complex taps (fft_len 4096), against a float64
       oracle (<= 5e-6), one K3 launch, and its profile must show K3 and
@@ -66,7 +71,8 @@ Phases (any failure raises and exits non-zero):
       at 5e-6) once each; the module's profile must show K6 alone (no
       transpose);
    g. the fused spectrum chain: ``FirFftChainPlanar(..., fused=True)`` as
-      in a (one K2 launch, no K1 launch), against the float64 oracle (<=
+      in a (one K7 and one K2 launch, no K1 launch), against the float64
+      oracle (<=
       5e-6); then ``fir_fft_chain_planar(..., fused=True)`` once;
    h. the typed vectors at full width: ``to_complex_time_vec`` of 2^22
       complex64 samples (numpy seed 0, copied to the card by the
@@ -84,8 +90,9 @@ Phases (any failure raises and exits non-zero):
       complex grid against a float64 einsum oracle (<= 5e-6); no kernel;
    j. the flagship API: ``fourstep.dit_spectrum_mag`` at 2^22 (<= 5e-6,
       no kernel); ``fir_fft_chain_planar`` with each budget (None, "high",
-      "high-xla", "high-kernel"), unfused (one K1 launch each) and fused
-      (one K2 launch each), against the float64 oracle (<= 5e-6, every
+      "high-xla", "high-kernel"), unfused (one K7 and one K1 launch each)
+      and fused (one K7 and one K2 launch each), against the float64
+      oracle (<= 5e-6, every
       budget bit-equal to None: all run f32-exact); then budget None again
       with TF32 off afterwards;
    k. ``streaming.StreamingFir`` with cell 2's 384 complex taps over 2^22
@@ -163,7 +170,7 @@ Phases (any failure raises and exits non-zero):
       the whole-extent FFT, no K3), the resampled stream against the
       float64 linear resample delayed by ``output_delay`` and the filtered
       one against the float64 causal linear convolution (<= 5e-6); then
-      each of the six wrappers (K3's through ``circular_conv_cuda`` and
+      each of the seven wrappers (K3's through ``circular_conv_cuda`` and
       ``blocked_linear_conv_cuda``) called with an input that requires
       grad must raise, and the same call under ``torch.no_grad()`` equal
       its plain version (<= 2e-6).  The ``kernels`` line's launches
@@ -216,7 +223,11 @@ Phases (any failure raises and exits non-zero):
    and each
    kernel's bound, the
    larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
-   over 67 TFLOP/s, from this run's shapes;
+   over 67 TFLOP/s, from this run's shapes (a FIR's operations the cheaper
+   of the direct sum's and overlap-save's); K7's yardsticks, the Toeplitz
+   FIR and window it replaced (its plain version, with the chain's held
+   band matrices) and K3 in circular mode on the same planes and taps
+   (fft_len 4096), timed in turns beside it and by CUDA-graph replay;
    o. ``profiling``: ``time_op`` and ``throughput`` of ``FirFftChainPlanar``
       within 2x of phase 4's event median, and ``trace`` writing a
       non-empty Chrome trace into a temporary directory;
@@ -224,7 +235,8 @@ Phases (any failure raises and exits non-zero):
       counts set to 0 just before and read just after (``phase_t``):
       ``bench_torch.py``'s ``main()``, then with ``BENCH_FUSED=1``, each printing exactly one stdout line
       ``{"metric": "fir_fft_chain_throughput", "value", "unit",
-      "vs_baseline"}``, its one eager call launching K1 (K2 when fused);
+      "vs_baseline"}``, its one eager call launching K7 and K1 (K2 when
+      fused);
       ``bench_all`` over the five configs and the overlap-save A/B
       (``BDSP_BENCH_AB=1``), ``--json`` into the work directory, each
       config launching the kernels of its row (K1, none, K4, K4, K6; K3 in
@@ -286,6 +298,13 @@ OS_GEOMETRIES = [(4096, 33, 1024), (8192, 129, 2048), (5000, 63, 1024),
                  (1 << 20, 4097, 16384), (700, 129, 1024), (5001, 63, 1024),
                  (STREAM_CHUNK + CONV_TAPS - 1, CONV_TAPS, CONV_FFT_LEN),
                  (N + CONV_TAPS - 1, CONV_TAPS, CONV_FFT_LEN)]
+# K7 (n, taps, window): the chain's two lengths of taps at 2^22; 1500, one
+# tile (2048 outputs) whose loads wrap at both ends; 5001, which 4 does not
+# divide (single loads and stores), no window; a ragged last tile; taps
+# longer than the signal (clipped to 100).
+FIR_GEOMETRIES = [(N, TAPS, True), (N, 202, True), (1500, 202, True),
+                  (5001, 7, False), (2 * 2048 + 36, TAPS, True),
+                  (100, 301, True)]
 KERNEL_TOL = 2e-6
 SHARD_TOL = 1e-6       # a sharded function against its single-device one
 FFT_TOL = 1e-6         # an FFT against torch.fft.fft, of max |X|
@@ -677,7 +696,7 @@ def phase_t(work):
         assert line["unit"] == "Msamples/s" and line["value"] > 0
         assert 0 < line["vs_baseline"] <= 1.0, line
         assert rec["graph_ms"] > 0 and rec["eager_ms"] > 0
-        assert rec["launches"] == {kernel: 1}, rec["launches"]
+        assert rec["launches"] == {"K7": 1, kernel: 1}, rec["launches"]
         print(f"t:   at {time.perf_counter() - t0:.2f} s of phase t")
 
     path = os.path.join(work, round_summary.BENCH_ALL)
@@ -748,6 +767,7 @@ def main(work):
     from basic_dsp_tpu_torch.bench import timing
     from basic_dsp_tpu_torch.kernels import _build
     from basic_dsp_tpu_torch.kernels import channelizer_cuda as chc
+    from basic_dsp_tpu_torch.kernels import fir_cuda as fcu
     from basic_dsp_tpu_torch.kernels import overlap_save_cuda as osc
     from basic_dsp_tpu_torch.kernels import resample_cuda as rsc
     from basic_dsp_tpu_torch.kernels import spectrum_cuda as sc
@@ -784,7 +804,8 @@ def main(work):
 
     # 1. build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = (sc._lib, osc._lib, rsc._lib, chc._lib, _build.interop_library)
+    libs = (sc._lib, osc._lib, rsc._lib, chc._lib, fcu._lib,
+            _build.interop_library)
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for f in [pool.submit(lib) for lib in libs]:
             f.result()
@@ -793,6 +814,7 @@ def main(work):
           f"{_build.library_path('overlap_save').name}, "
           f"{_build.library_path('resample').name}, "
           f"{_build.library_path('channelizer').name}, "
+          f"{_build.library_path('fir_window').name}, "
           f"{_build.interop_library().relative_to(_build.BUILD_DIR)})")
 
     # 2. kernel against its plain version, on the card
@@ -948,6 +970,24 @@ def main(work):
     assert chc.channelize_demod_cuda.launches == 2 * len(K6_GEOMETRIES)
     del got, ref, ang, ang_ref, xr, xi
 
+    k7_abs_err_4m = None
+    for n, m, windowed in FIR_GEOMETRIES:
+        xr, xi = planes(n)
+        taps_f = rc_taps(m, dev)
+        win = bt.HammingWindow().sample(n, device=dev) if windowed else None
+        got = torch.stack(fcu.fir_window_cuda(xr, xi, taps_f, win))
+        ref = torch.stack(fcu.fir_window_plain(xr, xi, taps_f, win))
+        torch.cuda.synchronize()
+        err, abs_err = planes_err(got, ref)
+        print(f"fir_window_cuda vs plain at (n={n}, taps={m}, window "
+              f"{windowed}): {err:.3e} relative to max (tol {KERNEL_TOL})")
+        assert got.shape == ref.shape == (2, n)
+        assert err <= KERNEL_TOL, (n, m, windowed, err)
+        if (n, m) == (N, TAPS):
+            k7_abs_err_4m = abs_err
+    assert fcu.fir_window_cuda.launches == len(FIR_GEOMETRIES)
+    del got, ref, xr, xi
+
     # 3a. main path: the spectrum chain at full size
     taps = rc_taps(TAPS, dev)
     window = bt.HammingWindow().sample(N, device=dev)
@@ -959,9 +999,12 @@ def main(work):
     out = chain(xr, xi)
     torch.cuda.synchronize()
     k1_launches = sc.rowfft_mag.launches
+    k7_launches = fcu.fir_window_cuda.launches
     print(f"main path: FirFftChainPlanar n={N} (n1={chain.n1}, "
-          f"n2={chain.n2}), rowfft_mag launches: {k1_launches}")
+          f"n2={chain.n2}), rowfft_mag launches: {k1_launches}, "
+          f"fir_window_cuda launches: {k7_launches}")
     assert k1_launches >= 1, "the main path did not launch rowfft_mag"
+    assert k7_launches == 1, "the chain's FIR and window: not one K7"
     assert out.shape == (N,) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
     err = rel_err(out.double(), ref)
@@ -981,6 +1024,8 @@ def main(work):
     print(f"windowed_spectrum vs oracle: {err:.3e}")
     assert got.shape == (N,) and err <= CHAIN_TOL, err
     assert sc.rowfft_mag.launches == before + 2
+    # fir_fft_chain's FIR is conv_ops.toeplitz_conv on complex64: no K7
+    assert fcu.fir_window_cuda.launches == 1
     del ref, got
 
     # 3b. main path: the long-tap convolution at full size, complex64 taps
@@ -1163,6 +1208,7 @@ def main(work):
           f"rowfft_mag launches: {sc.rowfft_mag.launches}")
     assert fused_launches == 1, "the fused chain did not launch K2 once"
     assert other_launches() == 1 and sc.rowfft_mag.launches == 0
+    assert fcu.fir_window_cuda.launches == 1, "the fused chain: not one K7"
     assert out.shape == (N,) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
     err = rel_err(out.double(), ref)
@@ -1176,6 +1222,7 @@ def main(work):
     assert got.shape == (N,) and err <= CHAIN_TOL, err
     assert sc.fourstep_mag_fused.launches == 2
     assert sc.rowfft_mag.launches == 0
+    assert fcu.fir_window_cuda.launches == 2
     del ref, got, out
 
     # 3h. the typed vectors at full width: K3, K4 and K5 through the
@@ -1343,6 +1390,7 @@ def main(work):
                   f"{torch.backends.cuda.matmul.allow_tf32}")
             assert counter.launches == 1 and launches[2] == 1, (
                 budget, fused, launches)
+            assert fcu.fir_window_cuda.launches == 1, (budget, fused)
             assert chc.channelize_demod_cuda.launches == 0
             assert err <= CHAIN_TOL, (budget, fused, err)
             assert torch.equal(outs[budget], outs[None]), (budget, fused)
@@ -2127,6 +2175,7 @@ def main(work):
     Ar, Ai = planes(8, 256)
     gx, gy = planes(4096)
     ghr, ghi = planes(33)
+    gw = bt.HammingWindow().sample(4096, device=dev)
     rows_g = torch.from_numpy(rng.standard_normal((2, 4096), np.float32)
                               ).to(dev)
     rows_5 = torch.from_numpy(rng.standard_normal((1, 1 << 16), np.float32)
@@ -2159,6 +2208,9 @@ def main(work):
         ("channelize_demod_cuda (z, demod=False)",
          lambda a: chc.channelize_demod_cuda(a, ci, ts_g, 256, False),
          lambda a: chc.channelize_demod_plain(a, ci, ts_g, 256, False), cr),
+        ("fir_window_cuda",
+         lambda a: fcu.fir_window_cuda(a, gy, ghr, gw),
+         lambda a: fcu.fir_window_plain(a, gy, ghr, gw), gx),
     ]
     for name, kernel, plain, arg in refusals:
         leaf = arg.clone().requires_grad_()
@@ -2171,7 +2223,8 @@ def main(work):
         else:
             raise AssertionError(f"{name} accepted an input that requires "
                                  f"grad")
-        assert other_launches() + chc.channelize_demod_cuda.launches == 0
+        assert (other_launches() + chc.channelize_demod_cuda.launches
+                + fcu.fir_window_cuda.launches) == 0
         with torch.no_grad():
             got = kernel(leaf)
             ref = plain(leaf)
@@ -2194,6 +2247,7 @@ def main(work):
     audio_launches += r_launches["K5"]
     chan_launches += r_launches["K6"]
     fused_launches += r_launches["K2"]
+    k7_launches += r_launches["K7"]
 
     s_launches = phase_s(work)
     k1_launches += s_launches["K1"]
@@ -2202,6 +2256,7 @@ def main(work):
     cfg3_launches += s_launches["K4"]
     audio_launches += s_launches["K5"]
     chan_launches += s_launches["K6"]
+    k7_launches += s_launches["K7"]
 
     # 4. times (CUDA events, median of REPS after warm-up)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
@@ -2544,6 +2599,29 @@ def main(work):
              "library": lambda: torch.fft.ifft(Y5, dim=-1)},
             (xr5, xi5, ts5), (torch.empty(CHAN_C, S5, device=dev),),
             CHAN_N * (4 * (CHAN_TAPS + 1) + 5 * np.log2(CHAN_C) + 6 + 1))
+    # K7 at the chain's shape, its yardsticks in turns beside it: the
+    # Toeplitz FIR and window it replaced (its plain version, with held
+    # band matrices) and K3 in circular mode on the same planes.  Its
+    # operations count the cheaper of the direct sum and overlap-save, as
+    # every FIR floor does (timing.fir_flops): its bound is bytes.
+    H7 = osc.spectrum(taps.to(torch.complex64), CONV_FFT_LEN)
+    bands7 = conv_ops.toeplitz_bands(taps, N)
+    fir_fns = {
+        "plain": lambda: fcu.fir_window_plain(xr, xi, taps, window, bands7),
+        "kernel": lambda: fcu.fir_window_cuda(xr, xi, taps, window),
+        "K3 circular": lambda: osc.conv_blocks_cuda(xr, xi, H7, TAPS,
+                                                    CONV_FFT_LEN)}
+    measure(f"fir_window (n={N}, {TAPS} taps, window)",
+            "basic_dsp_tpu_torch/csrc/fir_window.cu",
+            "none (the JAX chain's FIR is XLA matmuls)", k7_launches,
+            k7_abs_err_4m, fir_fns, (xr, xi, taps, window),
+            (torch.empty(2, N, device=dev),),
+            (timing.fir_flops(TAPS) + 2) * N)
+    for label in ("plain", "K3 circular"):
+        ms = graph_ms(fir_fns[label])
+        print(f"fir_window yardstick {label}: device "
+              + ("did not capture" if ms is None else f"{ms * 1e3:.1f} "
+                 f"us/call") + f" (CUDA-graph replay) on {smi}")
     # o. profiling: time_op and throughput against phase 4's median, and a
     # trace on disk
     chain_name = paths[0][0]
@@ -2572,7 +2650,8 @@ def main(work):
     t_launches = phase_t(work)
     kernel_of = {"rowfft_mag": "K1", "fourstep_mag_fused": "K2",
                  "overlap_save": "K3", "resample_direct": "K4",
-                 "resample_rowblock": "K5", "channelize_demod": "K6"}
+                 "resample_rowblock": "K5", "channelize_demod": "K6",
+                 "fir_window": "K7"}
     assert [r["name"] for r in rows] == list(kernel_of)
     for row in rows:
         row["launches"] += t_launches[kernel_of[row["name"]]]

@@ -18,6 +18,8 @@ programs of the same names, on the CPU.
 - the floor model against hand counts, a FIR's operations the fewer of
   the direct sum's and overlap-save's;
 - a CUDA-graph capture leaving the kernels' launch counts;
+- ``timing.device_ms`` summing kernels and not the spans' user
+  annotations (a fake profiler window);
 - the scaling sweep on gloo ranks at d = 1, 2 and n = 2^12, every point
   within 1e-5 of its single-device function;
 - ``round_summary`` over a temporary directory;
@@ -379,3 +381,39 @@ def test_a_graph_capture_leaves_the_launch_counts(monkeypatch):
     assert kernels.launch_counts() == {k: n + 1 for k, n in before.items()}
     for k, fn in kernels.wrappers().items():
         fn.launches = before[k]
+
+
+def test_device_ms_counts_kernels_and_not_annotations(monkeypatch):
+    """``timing.device_ms`` sums the window's kernels; the device-side
+    copy of a ``record_function`` range (a ``dsp.*`` span, a user
+    annotation) and host events are left out."""
+    import torch.profiler as tp
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def event(key, device, us, annotation=False):
+        return type("E", (), {"key": key, "device_type": device,
+                              "self_device_time_total": us,
+                              "is_user_annotation": annotation})()
+
+    class Window:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [event("overlap_save_blocks", cuda, 400.0),
+                    event("dsp.K3", cuda, 400.0, annotation=True),
+                    event("vector_fft", cuda, 60.0),
+                    event("aten::mm", cpu, 90.0),
+                    event("idle", cuda, 0.0)]
+
+    monkeypatch.setattr(tp, "profile", Window)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    total, per_kernel = timing.device_ms(lambda: None)
+    assert per_kernel == {"overlap_save_blocks": 0.04, "vector_fft": 0.006}
+    assert total == pytest.approx(0.046)

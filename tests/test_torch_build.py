@@ -10,7 +10,8 @@ import pytest
 
 from basic_dsp_tpu_torch.kernels import _build
 
-SOURCES = ["rowfft_mag", "overlap_save", "resample", "channelizer"]
+SOURCES = ["rowfft_mag", "overlap_save", "resample", "channelizer",
+           "fir_window"]
 
 
 def _copy(tmp_path):

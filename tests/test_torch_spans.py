@@ -16,14 +16,15 @@ from torch.profiler import ProfilerActivity, profile
 
 from basic_dsp_tpu_torch import kernels, pipelines, profiling
 from basic_dsp_tpu_torch.conv_types import RaisedCosineFunction
-from basic_dsp_tpu_torch.kernels import channelizer_cuda, overlap_save_cuda
+from basic_dsp_tpu_torch.kernels import channelizer_cuda, fir_cuda
+from basic_dsp_tpu_torch.kernels import overlap_save_cuda
 from basic_dsp_tpu_torch.kernels import resample_cuda, spectrum_cuda
 from basic_dsp_tpu_torch.ops import interp_ops
 from basic_dsp_tpu_torch.parallel import channelizer
 from dspbench import cells
 
 N = 1 << 16
-CHAIN = ["dsp.fir", "dsp.window", "dsp.stage1", "dsp.K1", "dsp.flatten"]
+CHAIN = ["dsp.fir", "dsp.stage1", "dsp.K1", "dsp.flatten"]
 C, TAPS_PER_PHASE = 1024, 8
 
 
@@ -93,7 +94,11 @@ def test_chain_records_its_stages_under_one_root():
     assert root["name"] == "dsp.chain"
     assert recs[0] == root
     assert [r["name"] for r in children] == CHAIN
-    assert len(recs) == 1 + len(CHAIN)
+    # the FIR and window are one K7 call inside dsp.fir
+    assert len(recs) == 1 + len(CHAIN) + 1
+    k7 = [r for r in recs if r["name"] == "dsp.K7"]
+    by_index = {r["index"]: r for r in recs}
+    assert len(k7) == 1 and by_index[k7[0]["parent"]]["name"] == "dsp.fir"
     for r in recs:
         assert root["start_ns"] <= r["start_ns"] <= r["end_ns"] \
             <= root["end_ns"]
@@ -125,8 +130,7 @@ def test_functional_chain_adds_its_constants(fused):
               torch.hamming_window(N), 128, None, fused)
     root, children = _tree(profiling.spans())
     assert root["name"] == "dsp.chain"
-    stages = (["dsp.fir", "dsp.window", "dsp.K2", "dsp.flatten"] if fused
-              else CHAIN)
+    stages = (["dsp.fir", "dsp.K2", "dsp.flatten"] if fused else CHAIN)
     assert [r["name"] for r in children] == ["dsp.constants"] + stages
 
 
@@ -165,6 +169,8 @@ def _kernel_calls():
         "K5": resample(160, 147),
         "K6": lambda: channelizer_cuda.channelize_demod_cuda(
             xr, xi, channelizer._merged_tap_rows(_prototype(), C), C),
+        "K7": lambda: fir_cuda.fir_window_cuda(
+            xr, xi, h.real.contiguous(), torch.hamming_window(4096)),
     }
 
 
@@ -191,7 +197,8 @@ def test_profiler_events_hold_each_span_by_name(monkeypatch):
     prof = _profiled(both)
     names = {e.name for e in prof.events()}
     recorded = {r["name"] for r in profiling.spans()}
-    assert recorded == {"dsp.chain", "dsp.channelize", "dsp.K6", *CHAIN}
+    assert recorded == {"dsp.chain", "dsp.channelize", "dsp.K6", "dsp.K7",
+                        *CHAIN}
     assert recorded <= names
 
 
@@ -420,5 +427,6 @@ def test_a_graph_capture_leaves_the_launch_counts(card):
     chain(*planes)
     mod(*planes)
     del graph
-    want = dict(before, K1=before["K1"] + 1, K6=before["K6"] + 1)
+    want = dict(before, K1=before["K1"] + 1, K6=before["K6"] + 1,
+                K7=before["K7"] + 1)
     assert kernels.launch_counts() == want
