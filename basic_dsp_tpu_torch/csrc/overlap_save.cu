@@ -60,6 +60,11 @@
 //   hit 32 distinct banks a warp (tests/test_torch_overlap_save.py checks
 //   each access).
 //
+// The bank (overlap_save_bank, below): P rows of taps over one signal in
+// one launch, each signal block transformed once for a group of rows; the
+// signal as planes or as complex64 whole, each row's result complex64 or
+// its real part.
+//
 // The TPU kernel wrote each FFT as 3-dot Karatsuba matmuls against DFT
 // planes, for the MXU.  A tensor-core DFT on Hopper would round to TF32;
 // here the butterflies run in FP32 on the CUDA cores, so the result keeps
@@ -81,12 +86,14 @@ struct Natural {
   __device__ __forceinline__ int operator()(int e) const { return e; }
 };
 
-template <int LOG2N>
+// BANK: the bank kernel, whose rows each take their own H from global
+// memory (L2), so that no H is held in shared memory.
+template <int LOG2N, bool BANK = false>
 struct Geo {
   static constexpr int N = 1 << LOG2N;
   static constexpr int kThreads = LOG2N <= 12 ? N / 16 : 512;
   static constexpr bool kStage = LOG2N <= 12;
-  static constexpr bool kHShared = LOG2N <= 13;
+  static constexpr bool kHShared = !BANK && LOG2N <= 13;
   static constexpr int kMinBlocks = LOG2N <= 12 ? 2 : 1;
   static constexpr int kPlanes = kStage ? 4 : 2;
   static constexpr size_t kSmem =
@@ -324,6 +331,307 @@ int launch_len(int log2n, const float* xr, const float* xi, const float* h,
   }
 }
 
+// The bank: P rows of taps over one signal, one launch.  Work item w is
+// signal block b = w / groups and the rows [g G, min(P, (g + 1) G)) of its
+// group g = w % groups.  The item loads and transforms block b once, runs
+// the forward's last pass into this block's scratch (N complex64 points a
+// resident block, each thread its own points, so no barrier guards it),
+// then, row by row, multiplies the points by that row's H (read from L2),
+// runs the inverse and stores the row.  G trades the forward transforms
+// (nb groups of them) against the balance of the work over the resident
+// blocks; the wrapper chooses it (kernels/overlap_save_cuda.bank_group).
+// Row p's outputs go to y + p ld: complex64 (cplx) or the real part alone.
+// The signal comes as planes, or (CIN) as complex64 whole, interleaved,
+// which the staging copies as it is and pass 0 reads in pairs.
+template <int LOG2N>
+using BankGeo = Geo<LOG2N, true>;
+
+// load_item of an interleaved complex block: the R points z[i + r N / R]
+// of item i, each one 8-byte load (consecutive items, consecutive words:
+// no bank conflict).
+template <int R, int LOG2N>
+__device__ __forceinline__ void load_item_complex(const float2* z, int i,
+                                                  float (&xr)[R],
+                                                  float (&xi)[R]) {
+  constexpr int n = (1 << LOG2N) / R;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float2 v = z[i + r * n];
+    xr[r] = v.x;
+    xi[r] = v.y;
+  }
+}
+
+// stage() for a complex64 signal x (n points, interleaved): block point
+// z[t] = x[start + t] into the 2 N words at z, interleaved, one 16-byte
+// cp.async for two points where both lie inside [0, n) and the first is
+// even (16-byte aligned in x), single loads elsewhere.
+template <int LOG2N, bool LINEAR>
+__device__ __forceinline__ void stage_complex(const float* __restrict__ x,
+                                              float* z, long long n,
+                                              long long start) {
+  constexpr int N = 1 << LOG2N;
+  for (int j = threadIdx.x; j < N / 2; j += blockDim.x) {
+    long long g = start + 2 * j;
+    if (!LINEAR && g >= n) g %= n;
+    float* d = z + 4 * j;
+    if ((g & 1) == 0 && g + 2 <= n && (!LINEAR || g >= 0)) {
+      cp_async::copy16(d, x + 2 * g);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        long long ge = g + e;
+        bool in = true;
+        if (LINEAR) {
+          in = ge >= 0 && ge < n;
+        } else if (ge >= n) {
+          ge %= n;
+        }
+        d[2 * e] = in ? x[2 * ge] : 0.0f;
+        d[2 * e + 1] = in ? x[2 * ge + 1] : 0.0f;
+      }
+    }
+  }
+  cp_async::commit();
+}
+
+// The bank's signal: CIN, xr the complex64 signal whole (interleaved);
+// otherwise planes as for overlap_save_blocks.
+template <int LOG2N, bool LINEAR, bool CIN>
+__device__ __forceinline__ void stage_bank(const float* xr, const float* xi,
+                                           float* sr, float* si, long long n,
+                                           long long start) {
+  if constexpr (CIN) {
+    stage_complex<LOG2N, LINEAR>(xr, sr, n, start);
+  } else {
+    stage<LOG2N, LINEAR>(xr, xi, sr, si, n, start);
+  }
+}
+
+template <int LOG2N, bool LINEAR, bool CIN>
+__global__ void __launch_bounds__(BankGeo<LOG2N>::kThreads,
+                                  BankGeo<LOG2N>::kMinBlocks)
+overlap_save_bank(const float* __restrict__ xr, const float* __restrict__ xi,
+                  const float2* __restrict__ h, float* __restrict__ y,
+                  float2* __restrict__ scratch, long long n, int L, int pad,
+                  long long lim, long long shift, int rows, int group,
+                  long long ld, int cplx) {
+  using G = BankGeo<LOG2N>;
+  constexpr int N = G::N;
+  constexpr int T = G::kThreads;
+  constexpr fft_core::Plan F = fft_core::plan_16(LOG2N);
+  constexpr fft_core::Plan I = fft_core::plan_16_reversed(LOG2N);
+  constexpr int R0 = 1 << F.log2r(0);
+  constexpr int RM = 1 << F.log2r(F.count - 1);
+  constexpr int PM = N / RM;
+  constexpr int PL = N / R0;
+  constexpr int K0 = N / (R0 * T);
+  constexpr int KM = N / (RM * T);
+  constexpr float kInvN = 1.0f / N;
+
+  extern __shared__ float4 smem4[];
+  float* dr = reinterpret_cast<float*>(smem4);
+  float* di = dr + N;
+  float* sr = G::kStage ? di + N : dr;
+  float* si = G::kStage ? sr + N : di;
+  float2* tab = reinterpret_cast<float2*>(dr + G::kPlanes * N);
+  fft_core::TwoLevel<LOG2N>::fill(tab);
+  const fft_core::TwoLevel<LOG2N> tl{tab};
+  using F0 = fft_core::PlanSwizzle<F.count, F.bits, 0>;
+  using FLast = fft_core::PlanSwizzle<F.count, F.bits, F.count - 2>;
+  using I0 = fft_core::PlanSwizzle<I.count, I.bits, 0>;
+  using ILast = fft_core::PlanSwizzle<I.count, I.bits, I.count - 2>;
+  float2* scr = scratch + static_cast<long long>(blockIdx.x) * N;
+
+  const int groups = (rows + group - 1) / group;
+  const long long items = (lim + L - 1) / L * groups;
+  long long w = blockIdx.x;
+  if (G::kStage) {
+    stage_bank<LOG2N, LINEAR, CIN>(xr, xi, sr, si, n,
+                                   block_start<LINEAR>(w / groups, L, pad,
+                                                       n));
+  }
+  for (; w < items; w += gridDim.x) {
+    const long long b = w / groups;
+    const int p0 = static_cast<int>(w % groups) * group;
+    const int p1 = p0 + group < rows ? p0 + group : rows;
+    if (!G::kStage) {
+      __syncthreads();
+      stage_bank<LOG2N, LINEAR, CIN>(xr, xi, sr, si, n,
+                                     block_start<LINEAR>(b, L, pad, n));
+    }
+    cp_async::wait_all();
+    __syncthreads();
+
+    {   // forward pass 0, as in overlap_save_blocks
+      float xr0[K0][R0], xi0[K0][R0];
+#pragma unroll
+      for (int u = 0; u < K0; ++u) {
+        const int i = threadIdx.x + u * T;
+        if constexpr (CIN) {
+          load_item_complex<R0, LOG2N>(reinterpret_cast<const float2*>(sr),
+                                       i, xr0[u], xi0[u]);
+        } else {
+          fft_core::load_item<R0, LOG2N>(Natural{}, sr, si, i, xr0[u],
+                                         xi0[u]);
+        }
+        fft_core::dft_regs<R0, -1>(xr0[u], xi0[u]);
+      }
+      if (!G::kStage) __syncthreads();
+#pragma unroll
+      for (int u = 0; u < K0; ++u) {
+        fft_core::store_item<R0, 1>(F0{}, dr, di, threadIdx.x + u * T,
+                                    xr0[u], xi0[u]);
+      }
+      __syncthreads();
+    }
+    if (G::kStage && w + gridDim.x < items) {
+      stage_bank<LOG2N, LINEAR, CIN>(
+          xr, xi, sr, si, n,
+          block_start<LINEAR>((w + gridDim.x) / groups, L, pad, n));
+    }
+
+    fft_core::passes_inplace<-1, LOG2N, T, F.count, F.bits, 1, F.count - 1>(
+        dr, di, tl);
+
+    // The forward's last pass: bin i + q PM of item i to the scratch.
+#pragma unroll
+    for (int u = 0; u < KM; ++u) {
+      const int i = threadIdx.x + u * T;
+      float ar[RM], ai[RM];
+      fft_core::load_item<RM, LOG2N>(FLast{}, dr, di, i, ar, ai);
+      fft_core::twiddle_item<RM, -1, PM, LOG2N>(tl, i, ar, ai);
+      fft_core::dft_regs<RM, -1>(ar, ai);
+#pragma unroll
+      for (int q = 0; q < RM; ++q) {
+        scr[(u * RM + q) * T + threadIdx.x] = make_float2(ar[q], ai[q]);
+      }
+    }
+
+    for (int p = p0; p < p1; ++p) {
+      const float2* hp = h + static_cast<long long>(p) * N;
+      __syncthreads();       // the plane's last reads are done
+#pragma unroll
+      for (int u = 0; u < KM; ++u) {
+        const int i = threadIdx.x + u * T;
+        float ar[RM], ai[RM];
+#pragma unroll
+        for (int q = 0; q < RM; ++q) {
+          const float2 v = scr[(u * RM + q) * T + threadIdx.x];
+          const float2 hq = __ldg(hp + i + q * PM);
+          ar[q] = v.x * hq.x - v.y * hq.y;
+          ai[q] = v.x * hq.y + v.y * hq.x;
+        }
+        fft_core::dft_regs<RM, 1>(ar, ai);
+        fft_core::store_item<RM, 1>(I0{}, dr, di, i, ar, ai);
+      }
+      __syncthreads();
+
+      fft_core::passes_inplace<1, LOG2N, T, I.count, I.bits, 1, I.count - 1>(
+          dr, di, tl);
+
+      float* yp = y + (cplx ? 2 : 1) * p * ld;
+#pragma unroll
+      for (int u = 0; u < K0; ++u) {
+        const int i = threadIdx.x + u * T;
+        float vr[R0], vi[R0];
+        fft_core::load_item<R0, LOG2N>(ILast{}, dr, di, i, vr, vi);
+        fft_core::twiddle_item<R0, 1, PL, LOG2N>(tl, i, vr, vi);
+        fft_core::dft_regs<R0, 1>(vr, vi);
+#pragma unroll
+        for (int q = 0; q < R0; ++q) {
+          const int t = i + q * PL;
+          const long long g = b * L + t - pad;
+          if (t >= pad && g < lim) {
+            long long o = g - shift;
+            if (o < 0) o += n;
+            if (cplx) {
+              reinterpret_cast<float2*>(yp)[o] =
+                  make_float2(vr[q] * kInvN, vi[q] * kInvN);
+            } else {
+              yp[o] = vr[q] * kInvN;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int LOG2N, bool LINEAR, bool CIN>
+int bank_resident(int* resident) {
+  using G = BankGeo<LOG2N>;
+  return static_cast<int>(persistent::grid(
+      reinterpret_cast<const void*>(overlap_save_bank<LOG2N, LINEAR, CIN>),
+      G::kThreads, static_cast<int>(G::kSmem), resident));
+}
+
+template <int LOG2N, bool LINEAR, bool CIN>
+int launch_bank(const float* xr, const float* xi, const float* h, float* y,
+                float* scratch, long long n, int L, int pad, long long lim,
+                long long shift, int rows, int group, long long ld, int cplx,
+                int grid, cudaStream_t stream) {
+  using G = BankGeo<LOG2N>;
+  int resident = 0;
+  const int e = bank_resident<LOG2N, LINEAR, CIN>(&resident);
+  if (e != 0) return e;
+  if (grid > resident) return static_cast<int>(cudaErrorInvalidValue);
+  overlap_save_bank<LOG2N, LINEAR, CIN>
+      <<<static_cast<unsigned>(grid), G::kThreads, G::kSmem, stream>>>(
+          xr, xi, reinterpret_cast<const float2*>(h), y,
+          reinterpret_cast<float2*>(scratch), n, L, pad, lim, shift, rows,
+          group, ld, cplx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+struct ResidentOp {
+  int* r;
+  int cin;
+  template <int LOG2N, bool LINEAR>
+  int operator()() const {
+    return cin ? bank_resident<LOG2N, LINEAR, true>(r)
+               : bank_resident<LOG2N, LINEAR, false>(r);
+  }
+};
+
+struct BankOp {
+  const float *xr, *xi, *h;
+  float *y, *scratch;
+  long long n;
+  int L, pad;
+  long long lim, shift;
+  int rows, group;
+  long long ld;
+  int cplx, cin, grid;
+  cudaStream_t s;
+  template <int LOG2N, bool LINEAR>
+  int operator()() const {
+    return cin ? launch_bank<LOG2N, LINEAR, true>(xr, xi, h, y, scratch, n,
+                                                  L, pad, lim, shift, rows,
+                                                  group, ld, cplx, grid, s)
+               : launch_bank<LOG2N, LINEAR, false>(xr, xi, h, y, scratch, n,
+                                                   L, pad, lim, shift, rows,
+                                                   group, ld, cplx, grid, s);
+  }
+};
+
+// Calls f.template operator()<LOG2N, LINEAR>() for the runtime pair.
+template <class F>
+int dispatch(int log2n, bool linear, F&& f) {
+  switch (log2n * 2 + (linear ? 1 : 0)) {
+    case 20: return f.template operator()<10, false>();
+    case 21: return f.template operator()<10, true>();
+    case 22: return f.template operator()<11, false>();
+    case 23: return f.template operator()<11, true>();
+    case 24: return f.template operator()<12, false>();
+    case 25: return f.template operator()<12, true>();
+    case 26: return f.template operator()<13, false>();
+    case 27: return f.template operator()<13, true>();
+    case 28: return f.template operator()<14, false>();
+    default: return f.template operator()<14, true>();
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -351,6 +659,48 @@ int overlap_save_launch(const float* xr, const float* xi, const float* h,
       ? launch_len<true>(log2n, xr, xi, h, yr, yi, n, L, pad, lim, shift, s)
       : launch_len<false>(log2n, xr, xi, h, yr, yi, n, L, pad, lim, shift,
                           s);
+}
+
+// The blocks of the bank kernel resident on the current device at once
+// (its grid may not exceed them: each takes its own N points of scratch),
+// for a complex64 signal whole (cin != 0) or planes.  Returns the
+// cudaError_t (0 on success).
+int overlap_save_bank_resident(int log2n, int linear, int cin,
+                               int* resident) {
+  if (log2n < kMinLog2 || log2n > kMaxLog2 || resident == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch(log2n, linear != 0, ResidentOp{resident, cin});
+}
+
+// Launches the bank on `stream`: the convolution of the signal (xr, xi as
+// for overlap_save_launch, or with cin != 0 xr the (n,) complex64 signal,
+// interleaved, 16-byte aligned, and xi null) with each of `rows` taps, h (rows, 2^log2n)
+// complex64, 16-byte aligned, each row as for overlap_save_launch.  Row p
+// of the result is y + p ld: (lim,) complex64 when cplx != 0, else (lim,)
+// f32, the real part.  `group` rows a work item (1 <= group <= rows);
+// `grid` blocks, at most overlap_save_bank_resident's, with `scratch`
+// holding grid 2^log2n complex64.  Returns the cudaError_t of the launch;
+// does not synchronise.
+int overlap_save_bank_launch(const float* xr, const float* xi, const float* h,
+                             float* y, float* scratch, long long n, int L,
+                             int pad, long long lim, long long shift,
+                             int log2n, int linear, int rows, int group,
+                             long long ld, int cplx, int cin, int grid,
+                             void* stream) {
+  if (log2n < kMinLog2 || log2n > kMaxLog2 || L <= 0 || pad < 0
+      || pad % 128 != 0 || L + pad != (1 << log2n) || n < 1 || lim < 1
+      || shift < 0 || shift >= n || (linear && shift != 0) || rows < 1
+      || group < 1 || group > rows || ld < lim || grid < 1
+      || (cin && xi != nullptr)
+      || xr == nullptr || h == nullptr || y == nullptr
+      || scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch(log2n, linear != 0,
+                  BankOp{xr, xi, h, y, scratch, n, L, pad, lim, shift, rows,
+                         group, ld, cplx, cin, grid,
+                         static_cast<cudaStream_t>(stream)});
 }
 
 const char* overlap_save_error_string(int code) {

@@ -21,7 +21,9 @@ tensors (one kernel from the signal planes to the convolution planes; no
 pieces, fold or wrap in torch) and adds one to
 ``conv_blocks_cuda.launches``, or raises; for CPU tensors it runs the
 plain PyTorch version :func:`conv_blocks_plain` (the same blocks on
-``torch.fft``).  Both take H, the taps' spectrum of :func:`spectrum`.
+``torch.fft``).  Both take H, the taps' spectrum of :func:`spectrum`: one
+row (fft_len,), or a bank of P rows (P, fft_len), which convolves the one
+signal with each row in one launch and returns (P, lim) rows.
 :func:`circular_conv_cuda` and :func:`blocked_linear_conv_cuda` (plain:
 ``*_plain``) take tap planes; :func:`overlap_save_planar` and
 :func:`overlap_save_cuda` are the convolution dispatch's entries.  The
@@ -107,11 +109,11 @@ def spectrum(h_eff: torch.Tensor, fft_len: int) -> torch.Tensor:
     """H as the kernel takes it: the FFT of the (real or complex) taps
     zero-padded to fft_len, in complex128, rounded once to complex64,
     natural order, unscaled (the kernel applies the inverse's 1/fft_len,
-    a power of two, at its store).  Four device ops: the zeros, the taps
-    copied in, the FFT and the cast (the JAX kernel builds its H outside the
-    kernel too)."""
-    z = h_eff.new_zeros(fft_len, dtype=torch.complex128)
-    z[:h_eff.shape[-1]] = h_eff
+    a power of two, at its store); (P, m_eff) taps give (P, fft_len).
+    Four device ops: the zeros, the taps copied in, the FFT and the cast
+    (the JAX kernel builds its H outside the kernel too)."""
+    z = h_eff.new_zeros(h_eff.shape[:-1] + (fft_len,), dtype=torch.complex128)
+    z[..., :h_eff.shape[-1]] = h_eff
     return torch.fft.fft(z).to(torch.complex64)
 
 
@@ -146,7 +148,8 @@ def conv_blocks_plain(xr, xi, H, m_eff: int, fft_len: int,
     gathered with the same mod-n (or zero) loads, ``torch.fft``, x H, the
     unscaled inverse, the discard of each block's first pad points and the
     centering roll.  Returns (2, lim) f32 planes, (1, lim) without
-    ``imag``."""
+    ``imag``; for a bank H (P, fft_len), each block transformed once, the
+    (P, lim) complex64 rows, f32 real parts without ``imag``."""
     n = xr.shape[0]
     pad, L, lim, shift = _mode(n, m_eff, fft_len, linear)
     nb = -(-lim // L)
@@ -157,8 +160,12 @@ def conv_blocks_plain(xr, xi, H, m_eff: int, fft_len: int,
         z = torch.where((g >= 0) & (g < n), x[g.clamp(0, n - 1)], 0)
     else:
         z = x[g % n]
-    y = torch.fft.ifft(torch.fft.fft(z, dim=-1) * H, dim=-1)
-    out = torch.roll(y[:, pad:].reshape(-1)[:lim], -shift)
+    # a bank's rows broadcast against the blocks, transformed once
+    y = torch.fft.ifft(torch.fft.fft(z, dim=-1) * H[..., None, :], dim=-1)
+    out = torch.roll(y[..., pad:].reshape(H.shape[:-1] + (-1,))[..., :lim],
+                     -shift, dims=-1)
+    if H.dim() == 2:
+        return out if imag else out.real.contiguous()
     return torch.stack((out.real, out.imag) if imag else (out.real,))
 
 
@@ -169,6 +176,13 @@ def _lib() -> ctypes.CDLL:
     lib.overlap_save_launch.argtypes = ([vp] * 5 + [ll, ci, ci, ll, ll, ci,
                                                     ci, vp])
     lib.overlap_save_launch.restype = ci
+    lib.overlap_save_bank_launch.argtypes = ([vp] * 5 + [ll, ci, ci, ll, ll,
+                                                         ci, ci, ci, ci, ll,
+                                                         ci, ci, ci, vp])
+    lib.overlap_save_bank_launch.restype = ci
+    lib.overlap_save_bank_resident.argtypes = [ci, ci, ci,
+                                               ctypes.POINTER(ci)]
+    lib.overlap_save_bank_resident.restype = ci
     lib.overlap_save_error_string.argtypes = [ci]
     lib.overlap_save_error_string.restype = ctypes.c_char_p
     return lib
@@ -183,6 +197,66 @@ def _route(dev: torch.device) -> bool:
     raise ValueError(f"overlap_save: no kernel for {dev}")
 
 
+@functools.lru_cache(maxsize=256)
+def bank_group(blocks: int, rows: int, resident: int) -> int:
+    """Rows of a bank's work item: the bank kernel transforms a signal
+    block once for each group of G rows, then runs G inverses, and its
+    resident blocks take the blocks x ceil(rows / G) items in rounds.  G
+    is the one whose rounds x (1 + G) transforms is least, the smallest
+    of a tie: fewer forward transforms against an even spread."""
+    def cost(g):
+        items = blocks * -(-rows // g)
+        return -(-items // resident) * (1 + g)
+    return min(range(1, rows + 1), key=cost)
+
+
+_RESIDENT = {}
+
+
+def _bank_resident(dev: torch.device, log2n: int, linear: bool,
+                   cin: bool) -> int:
+    """The resident blocks on ``dev`` of the bank kernel for a complex64
+    signal whole (``cin``) or planes (asked once)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (index, log2n, linear, cin)
+    if key not in _RESIDENT:
+        lib = _lib()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            rc = lib.overlap_save_bank_resident(log2n, int(linear), int(cin),
+                                                ctypes.byref(out))
+        if rc != 0:
+            raise RuntimeError("overlap_save bank: no grid: "
+                               + lib.overlap_save_error_string(rc).decode())
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
+
+
+def _launch_bank(xr, xi, H, n, L, pad, lim, shift, fft_len, linear, imag):
+    """The bank kernel: (P, lim) complex64 rows, or f32 without ``imag``."""
+    rows = H.shape[0]
+    log2n = fft_len.bit_length() - 1
+    blocks = -(-lim // L)
+    cin = xr.is_complex()
+    resident = _bank_resident(xr.device, log2n, linear, cin)
+    group = bank_group(blocks, rows, resident)
+    grid = min(blocks * -(-rows // group), resident)
+    scratch = torch.empty((grid, fft_len), dtype=torch.complex64,
+                          device=xr.device)
+    y = torch.empty((rows, lim), dtype=torch.complex64 if imag
+                    else torch.float32, device=xr.device)
+    lib = _lib()
+    rc = _build.launch(xr.device, lib.overlap_save_bank_launch,
+                       xr.data_ptr(), None if xi is None else xi.data_ptr(),
+                       H.data_ptr(), y.data_ptr(), scratch.data_ptr(), n, L,
+                       pad, lim, shift, log2n, int(linear), rows, group, lim,
+                       int(imag), int(cin), grid)
+    if rc != 0:
+        raise RuntimeError("overlap_save bank launch failed: "
+                           + lib.overlap_save_error_string(rc).decode())
+    return y
+
+
 @profiling.spanned("dsp.K3")
 def conv_blocks_cuda(xr, xi, H, m_eff: int, fft_len: int,
                      linear: bool = False, imag: bool = True):
@@ -190,26 +264,38 @@ def conv_blocks_cuda(xr, xi, H, m_eff: int, fft_len: int,
     ``xr``, ``xi`` (``xi`` None: a real signal) with the m_eff taps whose
     :func:`spectrum` is ``H``, circular or ``linear`` (module docstring).
     Returns (2, lim) f32 planes (re, im), or (1, lim) without ``imag``:
-    the kernel then stores no imaginary plane.  A CPU tensor takes
+    the kernel then stores no imaginary plane.  A bank, H (P, fft_len),
+    returns (P, lim) complex64 rows, or the (P, lim) f32 real parts
+    without ``imag``, from one launch, and takes a complex64 signal whole
+    as ``xr`` (``xi`` None) as well as planes.  A CPU tensor takes
     :func:`conv_blocks_plain`; a CUDA tensor launches the kernel and adds
     one to ``conv_blocks_cuda.launches``."""
-    if xr.dtype != torch.float32 or xr.dim() != 1:
-        raise TypeError("xr: expected a 1-D float32 plane")
+    bank = H.dim() == 2
+    if xr.dim() != 1 or xr.dtype not in ((torch.float32, torch.complex64)
+                                          if bank else (torch.float32,)):
+        raise TypeError("xr: expected a 1-D float32 plane (or, for a bank, "
+                        "a complex64 signal)")
     if xi is not None and (xi.dtype != xr.dtype or xi.shape != xr.shape
-                           or xi.device != xr.device):
+                           or xi.device != xr.device or xr.is_complex()):
         raise ValueError("xi: expected a plane like xr, or None")
     n = xr.shape[0]
     if not _route(xr.device):
         return conv_blocks_plain(xr, xi, H, m_eff, fft_len, linear, imag)
     _build.refuse_grad("conv_blocks_cuda", xr, xi, H)
     pad, L, lim, shift = _mode(n, m_eff, fft_len, linear)
-    if H.dtype != torch.complex64 or H.shape != (fft_len,) \
-            or H.device != xr.device:
-        raise ValueError(f"H: expected ({fft_len},) complex64 on "
-                         f"{xr.device}")
+    if H.dtype != torch.complex64 or not 1 <= H.dim() <= 2 \
+            or H.shape[-1] != fft_len or H.device != xr.device \
+            or H.numel() == 0:
+        raise ValueError(f"H: expected ({fft_len},) or (P, {fft_len}) "
+                         f"complex64 on {xr.device}")
     xr = _build.aligned(xr)
     xi = None if xi is None else _build.aligned(xi)
     H = _build.aligned(H)
+    if bank:
+        y = _launch_bank(xr, xi, H, n, L, pad, lim, shift, fft_len, linear,
+                         imag)
+        _build.count_launch(conv_blocks_cuda)
+        return y
     y = torch.empty((2 if imag else 1, lim), dtype=torch.float32,
                     device=xr.device)
     lib = _lib()

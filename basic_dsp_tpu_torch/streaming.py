@@ -12,7 +12,16 @@ K3 in linear mode (``overlap_save_cuda.conv_blocks_cuda(linear=True)``,
 the taps' spectrum held), the resampler through K4 or K5 (the routing of
 ``interp_ops._interpolatef_direct``).  A CPU chunk runs their plain
 versions; the FIR's whole-extent regime and float64 chunks run on
-``torch.fft`` in the promoted dtype, as the JAX package does.
+``torch.fft`` in the promoted dtype, as the JAX package does.  A FIR may
+hold a bank of taps, (P, m), filtering the one stream with each row: one
+K3 launch a chunk for the whole bank.
+
+Spans (``profiling``; no-ops unless a profiler is active): each
+``StreamingFir.process`` is a root ``dsp.stream`` over ``dsp.extend``
+(the tail and chunk joined, the new tail), the FIR (``dsp.K3`` where the
+kernel runs) and ``dsp.assemble`` (the valid outputs sliced out and
+assembled).  ``StreamingFir.chunks`` and ``StreamingFir.rows`` count the
+chunks and the rows (chunks x P) processed, outside CUDA-graph captures.
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from . import config
+from . import config, profiling
 from .ops import conv_ops, interp_ops
 
 
@@ -49,14 +58,24 @@ class StreamingFir:
     the centered kernel becomes latency, as in any real-time filter).
 
     ``taps``: a tensor (it keeps its device) or numpy data (put on
-    ``device``, the card when None).  ``fft_len`` is the JAX package's
-    block length; the kernel runs the same linear convolution at that
-    length clamped into its [1024, 16384] range.
+    ``device``, the card when None), of shape (m,), or (P, m) for a bank:
+    the one stream filtered with each row, each chunk giving (P, len)
+    outputs from one K3 launch, the state still the stream's one tail.
+    ``fft_len`` is the JAX package's block length; the kernel runs the
+    same linear convolution at that length clamped into its [1024, 16384]
+    range.
     """
+
+    chunks = 0
+    rows = 0
 
     def __init__(self, taps, device=None):
         self.taps = _as_taps(taps, device)
+        if self.taps.dim() not in (1, 2) or 0 in self.taps.shape:
+            raise ValueError(f"StreamingFir: taps of shape (m,) or (P, m), "
+                             f"got {tuple(self.taps.shape)}")
         self.m = int(self.taps.shape[-1])
+        self.bank = self.taps.dim() == 2
         self.fft_len = conv_ops.pick_fft_len(self.m)
         self._held = {}
 
@@ -71,9 +90,9 @@ class StreamingFir:
     def _held_taps(self, ext: torch.Tensor, fl_k: int):
         """(h, H): the taps in ``ext``'s dtype on its device (the real part
         for a real chunk, as the JAX step casts them), and with ``fl_k``
-        their kernel spectrum (``overlap_save_cuda.spectrum``), both built
-        at the first chunk of that device, dtype and block length, then
-        held."""
+        their kernel spectrum (``overlap_save_cuda.spectrum``, a row for
+        each row of a bank), both built at the first chunk of that device,
+        dtype and block length, then held."""
         key = (ext.device, ext.dtype, fl_k)
         held = self._held.get(key)
         if held is None:
@@ -88,36 +107,56 @@ class StreamingFir:
             held = self._held[key] = (h, H)
         return held
 
-    def _fir(self, ext: torch.Tensor, n_out: int) -> torch.Tensor:
+    def _fir(self, ext: torch.Tensor, n_out: int,
+             like: torch.Tensor) -> torch.Tensor:
         """out[i] = sum_k h[k] ext[i + m - 1 - k], i < n_out: the causal
-        slice [m-1, m-1+n_out) of the linear convolution of ``ext``."""
+        slice [m-1, m-1+n_out) of the linear convolution of ``ext``, as
+        ``like``'s dtype; (P, n_out) for a bank."""
         m, n = self.m, ext.shape[-1]
+        planes = False
         if self.fft_len >= n:
             # Long-kernel / short-chunk regime: one whole-extent FFT.
             h, _ = self._held_taps(ext, 0)
             size = conv_ops.next_power_of_two(n + m - 1)
-            lin = torch.fft.ifft(torch.fft.fft(ext, n=size)
-                                 * torch.fft.fft(h, n=size))
-            return lin[m - 1:m - 1 + n_out]
-        fl_k = (conv_ops._kernel_fft_len(n, m, self.fft_len)
-                if ext.dtype in (torch.float32, torch.complex64)
-                and ext.dim() == 1 else 0)
-        h, H = self._held_taps(ext, fl_k)
-        if not fl_k:
-            lin = conv_ops.blocked_linear_conv(ext, h, self.fft_len)
-            return lin[m - 1:m - 1 + n_out]
-        from .kernels import overlap_save_cuda
-        cplx = ext.is_complex()
-        y = overlap_save_cuda.conv_blocks_cuda(
-            ext.real if cplx else ext, ext.imag if cplx else None, H, m,
-            fl_k, linear=True, imag=cplx)
-        y = y[:, m - 1:m - 1 + n_out]
-        return torch.complex(y[0], y[1]) if y.shape[0] == 2 else y[0]
+            y = torch.fft.ifft(torch.fft.fft(ext, n=size)
+                               * torch.fft.fft(h, n=size))
+        else:
+            fl_k = (conv_ops._kernel_fft_len(n, m, self.fft_len)
+                    if ext.dtype in (torch.float32, torch.complex64)
+                    and ext.dim() == 1 else 0)
+            h, H = self._held_taps(ext, fl_k)
+            if not fl_k:
+                # a bank's rows broadcast against the signal's blocks
+                y = conv_ops.blocked_linear_conv(
+                    ext, h[:, None, :] if self.bank else h, self.fft_len)
+            else:
+                from .kernels import overlap_save_cuda
+                # a bank reads a complex extension whole, the 1-D kernel
+                # its planes
+                cplx = ext.is_complex()
+                xr, xi = ((ext.real, ext.imag) if cplx and not self.bank
+                          else (ext, None))
+                y = overlap_save_cuda.conv_blocks_cuda(
+                    xr, xi, H, m, fl_k, linear=True, imag=cplx)
+                planes = not self.bank
+        with profiling.span("dsp.assemble"):
+            y = y[..., m - 1:m - 1 + n_out]
+            if planes:
+                y = torch.complex(y[0], y[1]) if y.shape[0] == 2 else y[0]
+            if not like.is_complex():
+                y = y.real
+            return y.to(like.dtype)
+
+    def _count(self, chunk: torch.Tensor) -> None:
+        if not (chunk.is_cuda and torch.cuda.is_current_stream_capturing()):
+            StreamingFir.chunks += 1
+            StreamingFir.rows += self.taps.shape[0] if self.bank else 1
 
     def process(self, chunk: torch.Tensor,
                 state: FirState) -> Tuple[torch.Tensor, FirState]:
         """Processes one chunk; returns (out, new_state) with
-        ``len(out) == len(chunk)``.  A real chunk gives a real output.
+        ``len(out) == len(chunk)``, (P, len(chunk)) for a bank.  A real
+        chunk gives a real output.
 
         A chunk sharded on time over a mesh (a ``Shard(-1)`` ``DTensor``,
         the state the same on every rank) gives a ``Shard(-1)`` output:
@@ -131,18 +170,23 @@ class StreamingFir:
         if _sharded(chunk):
             return self._process_sharded(chunk, state)
         tail = state.tail
-        ext = torch.cat([tail.to(chunk.dtype), chunk])
-        out = self._fir(ext, chunk.shape[-1])
-        # ext[len - (m - 1):], not ext[-(m - 1):], the whole array at m == 1;
-        # a copy, not a view that would hold the whole extension
-        new_tail = ext[ext.shape[-1] - (self.m - 1):].to(tail.dtype,
-                                                         copy=True)
-        if not chunk.is_complex():
-            out = out.real
-        return out.to(chunk.dtype), FirState(tail=new_tail)
+        with profiling.span("dsp.stream", chunk):
+            with profiling.span("dsp.extend"):
+                ext = torch.cat([tail.to(chunk.dtype), chunk])
+                # ext[len - (m - 1):], not ext[-(m - 1):], the whole array
+                # at m == 1; a copy, not a view that would hold the whole
+                # extension
+                new_tail = ext[ext.shape[-1] - (self.m - 1):].to(
+                    tail.dtype, copy=True)
+            out = self._fir(ext, chunk.shape[-1], chunk)
+        self._count(chunk)
+        return out, FirState(tail=new_tail)
 
     def _process_sharded(self, chunk, state: FirState):
         from .parallel import collectives, sharded
+        if self.bank:
+            raise ValueError("StreamingFir: a bank of taps streams "
+                             "unsharded chunks")
         mesh, axes = chunk.device_mesh, sharded.time_axes(chunk)
         halo = self.m - 1
         local = chunk.to_local()
@@ -160,10 +204,9 @@ class StreamingFir:
             else:
                 left = last = local[:0]
         ext = torch.cat([left.to(local.dtype), local])
-        out = self._fir(ext, local.shape[-1])
-        if not local.is_complex():
-            out = out.real
-        return (sharded._wrap(out.to(local.dtype).contiguous(), mesh, axes,
+        out = self._fir(ext, local.shape[-1], local)
+        self._count(local)
+        return (sharded._wrap(out.contiguous(), mesh, axes,
                               tuple(chunk.shape)),
                 FirState(tail=last.to(tail.dtype, copy=True)))
 

@@ -250,6 +250,16 @@ Phases (any failure raises and exits non-zero):
       the launch counts as they were (the wrappers count no launch while
       a graph is captured), so the
       ``kernels`` line's launches include phase t's eager ones only;
+   u. K3's bank (``phase_u``; alone: ``python3 -c "import chip_smoke,
+      tempfile; chip_smoke.phase_u(tempfile.mkdtemp())"``):
+      ``conv_blocks_cuda`` with (P, fft_len) spectra, one launch each,
+      against ``conv_blocks_plain`` at five geometries, among them the GPS
+      L1 C/A bank's chunk (12 rows of 4092 taps over 2^20 + 4091 samples
+      at 16384), a circular real signal and one row; the 1-D launch at
+      cell 2's shape against its plain version; ``StreamingFir`` with the
+      (12, 4092) bank over four 2^20 chunks, one launch a chunk, against
+      twelve 1-D streams; the bank launch and twelve 1-D launches timed by
+      replay;
    n. last, so that no earlier phase runs tuned knobs: ``autotune.calibrate()``
       with JAX's defaults into a temporary cache (every earlier phase reads
       the default knobs from it), the table printed beside the card's name
@@ -660,6 +670,157 @@ def phase_s(work):
     print(f"s: phase s took {time.perf_counter() - t0:.2f} s; its launches "
           f"{counts}")
     return counts
+
+
+# K3's bank (rows, taps, n, fft_len, mode, real signal): the L1 C/A
+# matched-filter bank's chunk, 12 rows of 4092 taps over 2^20 + 4091
+# samples at 16384 (unstaged blocks); a staged length, circular, a real
+# signal, then a complex one of odd length (its loads wrap onto odd
+# points); more rows than resident blocks need; one row.  Each complex
+# signal also goes in whole, as a complex64 tensor.
+BANK_GEOMETRIES = [(12, 4092, (1 << 20) + 4091, 16384, "linear", False),
+                   (5, 300, 50001, 2048, "circular", True),
+                   (4, 300, 50001, 2048, "circular", False),
+                   (3, 129, 4096 * 300 + 17, 1024, "linear", False),
+                   (1, 385, 1 << 18, 8192, "linear", False)]
+BANK_CHUNK, BANK_CHUNKS = 1 << 20, 4
+
+
+def phase_u(work):
+    """u. K3's bank: ``conv_blocks_cuda`` with (P, fft_len) spectra, one
+    launch, against ``conv_blocks_plain`` at ``BANK_GEOMETRIES``; the 1-D
+    launch at cell 2's shape against its plain version (the route the bank
+    leaves as it was); ``StreamingFir`` with the (12, 4092) bank over four
+    2^20 chunks, one launch a chunk, against twelve 1-D streams; the bank
+    launch's device time by replay against twelve 1-D launches.  Returns
+    the phase's launches by kernel."""
+    from basic_dsp_tpu_torch import kernels as bkernels
+    from basic_dsp_tpu_torch import streaming
+    from basic_dsp_tpu_torch.kernels import overlap_save_cuda as osc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    bkernels.reset_launch_counts()
+    for rows, m, n, fl, mode, real in BANK_GEOMETRIES:
+        xr = randn(n)
+        xi = None if real else randn(n)
+        H = osc.spectrum(randn(rows, m), fl)
+        linear = mode == "linear"
+        before = osc.conv_blocks_cuda.launches
+        got = osc.conv_blocks_cuda(xr, xi, H, m, fl, linear=linear)
+        ref = osc.conv_blocks_plain(xr, xi, H, m, fl, linear=linear)
+        torch.cuda.synchronize()
+        err = rel_err(got, ref)
+        pad, L, _ = osc._geometry(n, m, fl)
+        lim = ref.shape[-1]
+        group = osc.bank_group(-(-lim // L), rows, osc._bank_resident(
+            dev, fl.bit_length() - 1, linear, False))
+        print(f"u: K3 bank vs plain at (rows={rows}, taps={m}, n={n}, "
+              f"fft_len={fl}, {mode}, {'real' if real else 'complex'} "
+              f"signal): {err:.3e} relative to max (tol {KERNEL_TOL}), "
+              f"{osc.conv_blocks_cuda.launches - before} launch, rows a "
+              f"work item {group}")
+        assert got.shape == ref.shape == (rows, lim) and got.dtype == \
+            torch.complex64, (got.shape, got.dtype)
+        assert err <= KERNEL_TOL, (rows, m, n, fl, err)
+        assert osc.conv_blocks_cuda.launches - before == 1
+        if not real:
+            # the complex64 signal whole, as StreamingFir hands it over
+            whole = osc.conv_blocks_cuda(torch.complex(xr, xi), None, H, m,
+                                         fl, linear=linear)
+            err = rel_err(whole, ref)
+            print(f"u: K3 bank, the complex signal whole: {err:.3e}, "
+                  f"bit-equal to the planes' launch: "
+                  f"{bool(torch.equal(whole, got))}")
+            assert whole.shape == ref.shape and err <= KERNEL_TOL, err
+            assert torch.equal(whole, got)
+            del whole
+        if real:
+            got = osc.conv_blocks_cuda(xr, None, H, m, fl, linear=linear,
+                                       imag=False)
+            err = rel_err(got, ref.real)
+            print(f"u: K3 bank, real parts only: {err:.3e}")
+            assert got.dtype == torch.float32 and err <= KERNEL_TOL
+    del got, ref, xr, xi, H
+
+    # the 1-D route at cell 2's shape, as before
+    xr, xi, h = randn(N + CONV_TAPS - 1), randn(N + CONV_TAPS - 1), \
+        randn(CONV_TAPS)
+    H1 = osc.spectrum(h, CONV_FFT_LEN)
+    got = osc.conv_blocks_cuda(xr, xi, H1, CONV_TAPS, CONV_FFT_LEN,
+                               linear=True)
+    ref = osc.conv_blocks_plain(xr, xi, H1, CONV_TAPS, CONV_FFT_LEN,
+                                linear=True)
+    torch.cuda.synchronize()
+    err, _ = planes_err(got, ref)
+    print(f"u: K3 1-D linear at (n={N + CONV_TAPS - 1}, taps={CONV_TAPS}, "
+          f"fft_len={CONV_FFT_LEN}): {err:.3e} (tol {KERNEL_TOL}), shape "
+          f"{tuple(got.shape)}")
+    assert got.shape == ref.shape == (2, N + 2 * CONV_TAPS - 2)
+    assert err <= KERNEL_TOL, err
+    del got, ref, xr, xi
+
+    # StreamingFir: the bank against twelve 1-D streams
+    rows, m = BANK_GEOMETRIES[0][:2]
+    taps = torch.where(randn(rows, m) > 0, 1.0, -1.0)
+    x = torch.complex(randn(BANK_CHUNK * BANK_CHUNKS),
+                      randn(BANK_CHUNK * BANK_CHUNKS))
+    bank = streaming.StreamingFir(taps)
+    state = bank.init_state(x.dtype)
+    before = osc.conv_blocks_cuda.launches
+    chunks0, rows0 = streaming.StreamingFir.chunks, streaming.StreamingFir.rows
+    outs = []
+    for k in range(BANK_CHUNKS):
+        out, state = bank.process(x[k * BANK_CHUNK:(k + 1) * BANK_CHUNK],
+                                  state)
+        outs.append(out)
+    torch.cuda.synchronize()
+    bank_launches = osc.conv_blocks_cuda.launches - before
+    y = torch.cat(outs, dim=-1)
+    del outs
+    worst = 0.0
+    before = osc.conv_blocks_cuda.launches
+    for p in range(rows):
+        one = streaming.StreamingFir(taps[p])
+        st = one.init_state(x.dtype)
+        pieces = []
+        for k in range(BANK_CHUNKS):
+            o, st = one.process(x[k * BANK_CHUNK:(k + 1) * BANK_CHUNK], st)
+            pieces.append(o)
+        worst = max(worst, rel_err(y[p], torch.cat(pieces)))
+    row_launches = osc.conv_blocks_cuda.launches - before
+    print(f"u: StreamingFir bank ({rows}, {m}) over {BANK_CHUNKS} chunks of "
+          f"{BANK_CHUNK}: conv_blocks_cuda launches {bank_launches} (twelve "
+          f"1-D streams: {row_launches}), StreamingFir.chunks "
+          f"{streaming.StreamingFir.chunks - chunks0}, rows "
+          f"{streaming.StreamingFir.rows - rows0} (both with the 1-D "
+          f"streams'); bank vs 1-D streams {worst:.3e} relative to max")
+    assert y.shape == (rows, BANK_CHUNK * BANK_CHUNKS)
+    assert bank_launches == BANK_CHUNKS and row_launches == rows * BANK_CHUNKS
+    assert worst <= KERNEL_TOL, worst
+    del y
+
+    # device time: the bank launch (the complex signal whole, as
+    # StreamingFir hands it over, and planes) against twelve 1-D launches
+    n = BANK_CHUNK + m - 1
+    xr, xi = randn(n), randn(n)
+    xc = torch.complex(xr, xi)
+    H = osc.spectrum(taps, 16384)
+    bank_ms = graph_ms(lambda: osc.conv_blocks_cuda(xc, None, H, m, 16384,
+                                                    linear=True))
+    planes_ms = graph_ms(lambda: osc.conv_blocks_cuda(xr, xi, H, m, 16384,
+                                                      linear=True))
+    rows_ms = graph_ms(lambda: [osc.conv_blocks_cuda(xr, xi, H[p], m, 16384,
+                                                     linear=True)
+                                for p in range(rows)])
+    print(f"u: device ms by replay, one chunk: bank {bank_ms} (planes "
+          f"{planes_ms}), twelve 1-D launches {rows_ms}")
+    return bkernels.launch_counts()
 
 
 def phase_t(work):
@@ -2646,15 +2807,17 @@ def main(work):
     print(f"profiling.trace: {os.path.getsize(traces[0])} bytes, "
           f"{len(events)} events, device kernels {kernels}")
 
-    # t. the benchmark programs, after phase 4's timings
+    # t. the benchmark programs, after phase 4's timings; u. K3's bank
     t_launches = phase_t(work)
+    u_launches = phase_u(work)
     kernel_of = {"rowfft_mag": "K1", "fourstep_mag_fused": "K2",
                  "overlap_save": "K3", "resample_direct": "K4",
                  "resample_rowblock": "K5", "channelize_demod": "K6",
                  "fir_window": "K7"}
     assert [r["name"] for r in rows] == list(kernel_of)
     for row in rows:
-        row["launches"] += t_launches[kernel_of[row["name"]]]
+        row["launches"] += (t_launches[kernel_of[row["name"]]]
+                            + u_launches[kernel_of[row["name"]]])
 
     # n. autotune, last: calibrate with JAX's defaults, reload from the
     # cache, a typed convolution under the tuned knobs, then the defaults
