@@ -46,6 +46,7 @@ import torch
 
 from .. import config, pipelines
 from ..conv_types import RaisedCosineFunction
+from ..kernels import spectrum_cuda
 from ..ops import conv_ops
 from ..windows import HammingWindow
 from . import timing
@@ -102,12 +103,18 @@ def work(n: int, m: int):
 def formulation_flops(n: int, m: int, n1: int, fused: bool) -> dict:
     """The FLOPs the port's formulation runs, by stage: the Toeplitz FIR's
     matmuls (2 planes x 128-wide bands, each sample against every band),
-    stage 1 as three Karatsuba matmuls (or K2's column FFTs), the row
-    stage's FFTs, twiddle and magnitude."""
+    stage 1 as column FFTs where ``spectrum_cuda.stage1_supported`` takes
+    the geometry (K8, or K2's panels), else as K2's direct sum or the
+    three Karatsuba matmuls (K2 adds its twiddle), the row stage's FFTs,
+    twiddle and magnitude."""
     n2 = n // n1
     _, m_eff, _ = conv_ops._clip_kernel(n, m)
     shifts = -(-(m_eff + 127) // 128)
-    stage1 = (5 * n * math.log2(n1) + 6 * n) if fused else 3 * 2 * n1 * n
+    if spectrum_cuda.stage1_supported(n1, n2):
+        stage1 = 5 * n * math.log2(n1)
+    else:
+        stage1 = 8 * n1 * n if fused else 3 * 2 * n1 * n
+    stage1 += 6 * n if fused else 0
     return {"toeplitz": 2 * shifts * 2 * 128 * n, "stage1": stage1,
             "rows": 5 * n * math.log2(n2) + 6 * n + 3 * n}
 

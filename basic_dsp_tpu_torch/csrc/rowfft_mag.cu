@@ -90,6 +90,18 @@
 // pass is a phase of its own (probes/phase_cuts.py K2 times both, and the
 // row stage after stage 1 and after an L2 flush).  Error grade: f32, as
 // K1 (no tensor cores: TF32 would round to ~1e-3).
+//
+// fourstep_stage1 (K8): stage 1 alone for the unfused chain, which runs
+// K1 with T on load after it.  Replaces no TPU kernel: the JAX chain
+// leaves stage 1 to XLA as the Karatsuba matmuls of
+// basic_dsp_tpu/ops/fourstep.py, which the port ran on cuBLAS as three
+// FP32 SIMT sgemms (3.2 GFLOP at 2^22, a dense O(n1) DFT) and three
+// elementwise passes over 16 MiB planes.  What bounds it on the H100:
+// bytes, 32 MiB of A in and 32 MiB of B out at 2^22 (~20 us at 3.35
+// TB/s); the column FFTs are ~0.15 GFLOP.  It is stage1_panels<n1>
+// above with the store's twiddle compiled out (a template argument, so
+// K2's instantiation keeps its code): B[k1, j] = sum_j1 w_n1^(k1 j1)
+// A[j1, j], stored untwiddled, for a power-of-two n1 in [8, 1024].
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -354,10 +366,11 @@ __device__ __forceinline__ void load_panel(const Layout& col,
 
 // Stage 1 of the DIF four-step for a power-of-two n1, persistent blocks
 // over the panels of NC adjacent columns j = c0 + t of the (n1, n2) planes
-// A:  C[k1, j] = sum_j1 w_n1^(k1 j1) A[j1, j] times w_N^(k1 j), stored
-// as the (n1, n2) planes cr, ci.  Each block stages its next panel while
-// the current one transforms.
-template <int LOG2_N1>
+// A:  C[k1, j] = sum_j1 w_n1^(k1 j1) A[j1, j], times w_N^(k1 j) when
+// TWIDDLE (K2; tar..tbi unread otherwise, K8), stored as the (n1, n2)
+// planes cr, ci.  Each block stages its next panel while the current one
+// transforms.
+template <int LOG2_N1, bool TWIDDLE>
 __global__ void __launch_bounds__(Stage1Geometry<LOG2_N1>::kThreads, 2)
 stage1_panels(const float* __restrict__ ar, const float* __restrict__ ai,
               const float* __restrict__ tar, const float* __restrict__ tai,
@@ -377,7 +390,7 @@ stage1_panels(const float* __restrict__ ar, const float* __restrict__ ai,
   fft_core::fill_tables<-1>(tw, plan);
 
   const int panels = n2 / nc;
-  const int L2 = n2 >> 7;
+  [[maybe_unused]] const int L2 = n2 >> 7;
   int cur = 0;
   if (static_cast<int>(blockIdx.x) < panels) {
     load_panel<G>(col, ar, ai, bufs, bufs + words, n2, blockIdx.x * nc);
@@ -405,17 +418,19 @@ stage1_panels(const float* __restrict__ ar, const float* __restrict__ ai,
       const int a = col.word(k1, m);
       float4 vr = *reinterpret_cast<const float4*>(dr + a);
       float4 vi = *reinterpret_cast<const float4*>(di + a);
-      const int j = c0 + m;
-      const float a_r = __ldg(tar + k1 * L2 + (j >> 7));
-      const float a_i = __ldg(tai + k1 * L2 + (j >> 7));
-      const float4 b_r = __ldg(reinterpret_cast<const float4*>(
-          tbr + k1 * kLanes + (j & 127)));
-      const float4 b_i = __ldg(reinterpret_cast<const float4*>(
-          tbi + k1 * kLanes + (j & 127)));
-      twiddle(vr.x, vi.x, a_r, a_i, b_r.x, b_i.x);
-      twiddle(vr.y, vi.y, a_r, a_i, b_r.y, b_i.y);
-      twiddle(vr.z, vi.z, a_r, a_i, b_r.z, b_i.z);
-      twiddle(vr.w, vi.w, a_r, a_i, b_r.w, b_i.w);
+      if constexpr (TWIDDLE) {
+        const int j = c0 + m;
+        const float a_r = __ldg(tar + k1 * L2 + (j >> 7));
+        const float a_i = __ldg(tai + k1 * L2 + (j >> 7));
+        const float4 b_r = __ldg(reinterpret_cast<const float4*>(
+            tbr + k1 * kLanes + (j & 127)));
+        const float4 b_i = __ldg(reinterpret_cast<const float4*>(
+            tbi + k1 * kLanes + (j & 127)));
+        twiddle(vr.x, vi.x, a_r, a_i, b_r.x, b_i.x);
+        twiddle(vr.y, vi.y, a_r, a_i, b_r.y, b_i.y);
+        twiddle(vr.z, vi.z, a_r, a_i, b_r.z, b_i.z);
+        twiddle(vr.w, vi.w, a_r, a_i, b_r.w, b_i.w);
+      }
       const size_t g = static_cast<size_t>(k1) * n2 + c0 + m;
       *reinterpret_cast<float4*>(cr + g) = vr;
       *reinterpret_cast<float4*>(ci + g) = vi;
@@ -538,15 +553,16 @@ cudaError_t launch_rows(const float* br, const float* bi, const float* tar,
 #undef ROWFFT_L2
 }
 
-// Stage 1 for n1 = 2^LOG2_N1 on `s`: persistent blocks, as many as fit
-// the card, over the n2 / NC panels.
-template <int LOG2_N1>
+// Stage 1 for n1 = 2^LOG2_N1 on `s`, twiddled at the store when TWIDDLE:
+// persistent blocks, as many as fit the card, over the n2 / NC panels.
+template <int LOG2_N1, bool TWIDDLE>
 cudaError_t launch_stage1(const float* ar, const float* ai, const float* tar,
                           const float* tai, const float* tbr,
                           const float* tbi, float* cr, float* ci, int n2,
                           cudaStream_t s) {
   using G = Stage1Geometry<LOG2_N1>;
-  auto* kernel = stage1_panels<LOG2_N1>;
+  if (n2 < G::kNC || n2 % G::kNC != 0) return cudaErrorInvalidValue;
+  auto* kernel = stage1_panels<LOG2_N1, TWIDDLE>;
   int resident = 0;
   const cudaError_t e = persistent::grid(
       reinterpret_cast<const void*>(kernel), G::kThreads, G::kSmem,
@@ -595,7 +611,8 @@ int fourstep_mag_fused_launch(const float* ar, const float* ai,
   cudaError_t e;
 #define STAGE1_N1(LOG2)                                                     \
   case LOG2:                                                                \
-    e = launch_stage1<LOG2>(ar, ai, tar, tai, tbr, tbi, cr, ci, n2, s);     \
+    e = launch_stage1<LOG2, true>(ar, ai, tar, tai, tbr, tbi, cr, ci, n2, \
+                                  s);                                       \
     break;
   switch (log2_exact(n1)) {
     STAGE1_N1(3) STAGE1_N1(4) STAGE1_N1(5) STAGE1_N1(6) STAGE1_N1(7)
@@ -616,6 +633,27 @@ int fourstep_mag_fused_launch(const float* ar, const float* ai,
   return static_cast<int>(launch_rows(cr, ci, nullptr, nullptr, nullptr,
                                       nullptr, wr, wi, out, n1, L2,
                                       shift_cols, s));
+}
+
+// Launches stage 1 alone on `stream` (K8): the (n1, n2) planes cr, ci of
+// B[k1, j] = sum_j1 w_n1^(k1 j1) A[j1, j], untwiddled, for a power-of-two
+// n1 in [8, 1024] and n2 a multiple of the panel width (4096 / n1, at most
+// 128).  ar, ai, cr, ci 16-byte aligned, allocated by the caller.  Returns
+// the cudaError_t of the launch (0 on success); does not synchronise.
+int fourstep_stage1_launch(const float* ar, const float* ai, float* cr,
+                           float* ci, int n1, int n2, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define STAGE1_ONLY(LOG2)                                                   \
+  case LOG2:                                                                \
+    return static_cast<int>(launch_stage1<LOG2, false>(                     \
+        ar, ai, nullptr, nullptr, nullptr, nullptr, cr, ci, n2, s));
+  switch (log2_exact(n1)) {
+    STAGE1_ONLY(3) STAGE1_ONLY(4) STAGE1_ONLY(5) STAGE1_ONLY(6)
+    STAGE1_ONLY(7) STAGE1_ONLY(8) STAGE1_ONLY(9) STAGE1_ONLY(10)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef STAGE1_ONLY
 }
 
 const char* rowfft_mag_error_string(int code) {

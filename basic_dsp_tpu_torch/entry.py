@@ -2,8 +2,8 @@
 ``__graft_entry__.py``).
 
 ``entry()`` returns the flagship forward step, the FIR + windowed FFT
-magnitude chain, with its inputs: on the card it launches the row-FFT
-kernel K1 once.
+magnitude chain, with its inputs: on the card it launches the stage-1
+kernel K8 and the row-FFT kernel K1 once each.
 
 ``dryrun_multichip(n)`` runs the whole sharded pipeline once on a mesh of
 ``n`` ranks, at the JAX dry run's shapes (per-shard length 256, 31 taps):
@@ -46,8 +46,8 @@ def entry(device=None):
     its inputs, those of the JAX entry: numpy seed 0, 65536 complex64
     samples, 64 complex64 taps and a float32 Hamming window, on the card
     unless ``device`` names another.  ``fn(*args)`` is the (65536,)
-    shifted magnitude spectrum; the four-step's row stage (128, 512) runs
-    K1 on the card."""
+    shifted magnitude spectrum; the four-step's stage 1 and row stage
+    (128, 512) run K8 and K1 on the card."""
     from . import pipelines
     from .windows import HammingWindow
 

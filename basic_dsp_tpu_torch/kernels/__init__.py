@@ -9,10 +9,11 @@ rather than return a result that autograd cannot see through."""
 
 
 def wrappers() -> dict:
-    """The seven kernel wrappers by kernel: K1 to K6 (the JAX package's six
-    Pallas kernels, in the order of the port's records) and K7 (the
-    chain's FIR and window, which the JAX package leaves to XLA).  Each
-    counts the kernels it launches in its ``launches`` attribute."""
+    """The eight kernel wrappers by kernel: K1 to K6 (the JAX package's six
+    Pallas kernels, in the order of the port's records), K7 (the chain's
+    FIR and window) and K8 (the unfused chain's stage 1), which the JAX
+    package leaves to XLA.  Each counts the kernels it launches in its
+    ``launches`` attribute."""
     from . import channelizer_cuda, fir_cuda, overlap_save_cuda
     from . import resample_cuda, spectrum_cuda
     return {"K1": spectrum_cuda.rowfft_mag,
@@ -21,7 +22,8 @@ def wrappers() -> dict:
             "K4": resample_cuda.resample_direct_cuda,
             "K5": resample_cuda.resample_rowblock_cuda,
             "K6": channelizer_cuda.channelize_demod_cuda,
-            "K7": fir_cuda.fir_window_cuda}
+            "K7": fir_cuda.fir_window_cuda,
+            "K8": spectrum_cuda.stage1_cuda}
 
 
 def launch_counts() -> dict:

@@ -8,12 +8,14 @@ magnitudes, in the layout (n1, L2, 128) of the JAX kernel's
 ``permuted=False`` output.  :func:`fourstep_mag_fused` (K2) takes the
 windowed planes before stage 1 and runs both stages into the same
 layout: a column-FFT kernel, then the row kernel with the factored big
-twiddle.
+twiddle.  :func:`stage1_cuda` (K8) is stage 1 alone, the DFT-n1 down the
+columns untwiddled, for the unfused chain that runs K1 after it.
 
 For a CUDA tensor each launches ``csrc/rowfft_mag.cu`` (the source says
 how and why) or raises; for a CPU tensor it runs its plain PyTorch
-version (:func:`rowfft_mag_plain`, :func:`fourstep_mag_fused_plain`).
-The library is built at the first launch, never at import.
+version (:func:`rowfft_mag_plain`, :func:`fourstep_mag_fused_plain`,
+:func:`stage1_plain`).  The library is built at the first launch, never
+at import.
 """
 from __future__ import annotations
 
@@ -137,6 +139,8 @@ def _lib() -> ctypes.CDLL:
     lib.rowfft_mag_launch.restype = ci
     lib.fourstep_mag_fused_launch.argtypes = [vp] * 11 + [ci, ci, ci, vp]
     lib.fourstep_mag_fused_launch.restype = ci
+    lib.fourstep_stage1_launch.argtypes = [vp] * 4 + [ci, ci, vp]
+    lib.fourstep_stage1_launch.restype = ci
     lib.rowfft_mag_error_string.argtypes = [ci]
     lib.rowfft_mag_error_string.restype = ctypes.c_char_p
     return lib
@@ -226,18 +230,89 @@ def stage1_geometry(n1: int) -> tuple:
     return nc, mask, STAGE1_BUFFERS * 8 * n1 * nc + 8 * tables
 
 
-@functools.lru_cache(maxsize=2)
-def _dense_consts(n1: int, n2: int, device: torch.device):
-    """The plain version's constants on ``device``: the Karatsuba DFT-n1
-    planes of ``fourstep._dft_planes`` and the dense big twiddle T of
-    ``fourstep._dif_planes`` as one complex64 tensor (32 MiB at 2^22, so
-    a card keeps at most two geometries)."""
+@functools.lru_cache(maxsize=64)
+def stage1_supported(n1: int, n2: int) -> bool:
+    """Geometries :func:`stage1_cuda` takes: a power-of-two n1 in [8, 1024]
+    (``stage1_panels`` is compiled for each) and n2 a positive multiple of
+    the panel width NC of :func:`stage1_geometry` (at most 128).  Cached:
+    the wrapper asks on every call."""
+    if not (8 <= n1 <= 1024 and n1 & (n1 - 1) == 0):
+        return False
+    nc = stage1_geometry(n1)[0]
+    return n2 >= nc and n2 % nc == 0
+
+
+@functools.lru_cache(maxsize=8)
+def _held_dft(n1: int, device: torch.device) -> tuple:
+    """The Karatsuba DFT-n1 planes of ``fourstep._dft_planes`` on
+    ``device``, built once per n1 and device, for :func:`stage1_plain`."""
     from ..ops import fourstep
 
-    F = tuple(torch.from_numpy(p).to(device)
-              for p in fourstep._dft_planes(n1))
+    return tuple(torch.from_numpy(p).to(device)
+                 for p in fourstep._dft_planes(n1))
+
+
+def stage1_plain(Ar: torch.Tensor, Ai: torch.Tensor = None) -> tuple:
+    """Plain PyTorch version of :func:`stage1_cuda`: the three Karatsuba
+    matmuls of ``fourstep.stage1_planar`` with the DFT-n1 planes held on
+    the planes' device, at any n1; Ai None is a real signal (two dots)."""
+    from ..ops import fourstep
+
+    return fourstep.stage1_planar(*_held_dft(Ar.shape[0], Ar.device), Ar,
+                                  Ai)
+
+
+@profiling.spanned("dsp.K8")
+def stage1_cuda(Ar: torch.Tensor, Ai: torch.Tensor) -> tuple:
+    """Stage 1 of the DIF four-step: (Br, Bi), the (n1, n2) planes of
+    B[k1, j] = sum_j1 w_n1^(k1 j1) A[j1, j], the DFT-n1 down the columns
+    of the planes (Ar, Ai), untwiddled, as ``fourstep.stage1_planar``
+    returns it; :func:`rowfft_mag` with the factored twiddle takes it.
+
+    Ar, Ai: contiguous float32 planes, ``stage1_supported(n1, n2)``.  A
+    CPU tensor takes :func:`stage1_plain`; a CUDA tensor launches
+    ``fourstep_stage1_launch`` (K2's stage 1 with the store's twiddle
+    compiled out) and adds one to ``stage1_cuda.launches``.
+    """
+    if Ar.dim() != 2 or Ar.shape != Ai.shape:
+        raise ValueError(f"Ar, Ai must be equal 2-D shapes, got "
+                         f"{tuple(Ar.shape)} and {tuple(Ai.shape)}")
+    n1, n2 = Ar.shape
+    if not stage1_supported(n1, n2):
+        raise ValueError(f"stage1_cuda: unsupported geometry ({n1}, {n2})")
+    dev = Ar.device
+    _check_planes("Ar/Ai", (Ar, Ai), [(n1, n2)] * 2, dev)
+    if not Ar.is_cuda:
+        if dev.type == "cpu":
+            return stage1_plain(Ar, Ai)
+        raise ValueError(f"stage1_cuda: no kernel for device {dev}")
+    _build.refuse_grad("stage1_cuda", Ar, Ai)
+    lib = _lib()
+    Ar, Ai = _build.aligned(Ar), _build.aligned(Ai)   # cp.async panels
+    # two allocations, not views of one: views add host ops to each call
+    Br = torch.empty((n1, n2), dtype=torch.float32, device=dev)
+    Bi = torch.empty((n1, n2), dtype=torch.float32, device=dev)
+    rc = _build.launch(dev, lib.fourstep_stage1_launch, Ar.data_ptr(),
+                       Ai.data_ptr(), Br.data_ptr(), Bi.data_ptr(), n1, n2)
+    if rc != 0:
+        raise RuntimeError("stage1_cuda kernel launch failed: "
+                           + lib.rowfft_mag_error_string(rc).decode())
+    _build.count_launch(stage1_cuda)
+    return Br, Bi
+
+
+stage1_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=2)
+def _dense_twiddle(n1: int, n2: int, device: torch.device):
+    """The plain version's dense big twiddle T of ``fourstep._dif_planes``
+    on ``device`` as one complex64 tensor (32 MiB at 2^22, so a card keeps
+    at most two geometries)."""
+    from ..ops import fourstep
+
     _, _, Tr, Ti = fourstep._dif_planes(n1, n2)
-    return F, torch.complex(torch.from_numpy(Tr), torch.from_numpy(Ti)).to(
+    return torch.complex(torch.from_numpy(Tr), torch.from_numpy(Ti)).to(
         device)
 
 
@@ -255,14 +330,11 @@ def _held_factored(n1: int, n2: int, device: torch.device) -> tuple:
 def fourstep_mag_fused_plain(Ar: torch.Tensor, Ai: torch.Tensor,
                              shift: bool = True) -> torch.Tensor:
     """Plain PyTorch version of :func:`fourstep_mag_fused`: stage 1 as the
-    Karatsuba matmuls of ``fourstep.stage1_planar`` with the DFT-n1
-    planes, the dense big twiddle T of ``fourstep._dif_planes``, then
-    :func:`rowfft_mag_plain` of the twiddled rows."""
-    from ..ops import fourstep
-
-    F, T = _dense_consts(*Ar.shape, Ar.device)
-    Br, Bi = fourstep.stage1_planar(*F, Ar, Ai)
-    C = torch.complex(Br, Bi) * T
+    Karatsuba matmuls of :func:`stage1_plain`, the dense big twiddle T of
+    ``fourstep._dif_planes``, then :func:`rowfft_mag_plain` of the
+    twiddled rows."""
+    Br, Bi = stage1_plain(Ar, Ai)
+    C = torch.complex(Br, Bi) * _dense_twiddle(*Ar.shape, Ar.device)
     return rowfft_mag_plain(C.real.contiguous(), C.imag.contiguous(), shift)
 
 
@@ -339,23 +411,26 @@ def natural_flatten(M: torch.Tensor) -> torch.Tensor:
 
 
 def dif_spectrum_mag_cuda(xw: torch.Tensor, n1: int = 0) -> torch.Tensor:
-    """|fftshift(FFT(xw))| of a 1-D signal by the DIF four-step: stage 1 as
-    three Karatsuba matmuls, then :func:`rowfft_mag` with the factored
-    twiddle, then :func:`natural_flatten`.  Counterpart of
+    """|fftshift(FFT(xw))| of a 1-D signal by the DIF four-step: stage 1,
+    then :func:`rowfft_mag` with the factored twiddle, then
+    :func:`natural_flatten`.  Stage 1 of a complex signal is
+    :func:`stage1_cuda` where :func:`stage1_supported` takes its geometry;
+    a real signal's, and any other, :func:`stage1_plain` (a real one's
+    two dots with the zero plane skipped).  Counterpart of
     ``spectrum_pallas.dif_spectrum_mag_pallas`` on ``supported`` lengths."""
     from ..ops import fourstep
 
     n = xw.shape[-1]
     n1, n2 = fourstep.factor(n, n1)
-    dev = xw.device
-    Fr, Fp, Fm = (torch.from_numpy(p).to(dev)
-                  for p in fourstep._dft_planes(n1))
     if xw.is_complex():
         xc = xw.to(torch.complex64)
-        Ar, Ai = xc.real.reshape(n1, n2), xc.imag.reshape(n1, n2)
+        Ar, Ai = (p.reshape(n1, n2).contiguous() for p in (xc.real, xc.imag))
     else:
         Ar, Ai = xw.to(torch.float32).reshape(n1, n2), None
-    Br, Bi = fourstep.stage1_planar(Fr, Fp, Fm, Ar, Ai)
-    Tfac = tuple(torch.from_numpy(p).to(dev)
+    if Ai is not None and stage1_supported(n1, n2):
+        Br, Bi = stage1_cuda(Ar, Ai)
+    else:
+        Br, Bi = stage1_plain(Ar, Ai)
+    Tfac = tuple(torch.from_numpy(p).to(xw.device)
                  for p in fourstep._dif_twiddle_factored(n1, n2))
     return natural_flatten(rowfft_mag(Br, Bi, shift=True, Tfac=Tfac))

@@ -8,8 +8,11 @@
    with the window as its epilogue) for float32 planes and real float32
    taps up to ``fir_cuda.MAX_TAPS``, else banded 128x128 Toeplitz matmuls
    (``ops.conv_ops``) and the multiply;
-2. stage 1 of the DIF four-step, a DFT-n1 over columns as three Karatsuba
-   matmuls (``ops.fourstep.stage1_planar``);
+2. stage 1 of the DIF four-step, a DFT-n1 over columns: one launch of
+   ``kernels.spectrum_cuda.stage1_cuda`` (K8, register FFTs down the
+   columns) at a power-of-two n1 in [8, 1024]
+   (``spectrum_cuda.stage1_supported``), else three Karatsuba matmuls
+   (``ops.fourstep.stage1_planar``);
 3. the row stage, ``kernels.spectrum_cuda.rowfft_mag`` (the CUDA kernel on
    the card), then one transpose into spectrum order.
 
@@ -75,34 +78,40 @@ def _check_budget(budget):
     """Accepts the JAX chain's budget grammar: "high" reduces every dot,
     "high-xla" and "high-kernel" only the dots outside and inside the
     Pallas kernel.  Every budget runs f32-exact here, which is within the
-    error each one allows: K1 and K2 have no dot (FP32 butterflies), and
-    the FIR's and stage 1's float32 matmuls are both faster and more
-    accurate on the H100 than a 3xTF32 split of them (PERF.md, Findings)."""
+    error each one allows: K1, K2, K7 and K8 have no dot (FP32 sums and
+    butterflies), and the float32 matmuls that run where K7 or K8 does
+    not take the taps or the geometry are both faster and more accurate
+    on the H100 than a 3xTF32 split of them (PERF.md, Findings)."""
     if budget not in BUDGETS:
         raise ValueError(
             f"unknown budget {budget!r}: expected None, 'high', "
             f"'high-xla' or 'high-kernel'")
 
 
-def _planar_chain(xr, xi, taps, bands, window, dft, Tfac, W, n1, n2):
-    """The chain after its constants; ``dft`` None takes the fused
-    spectrum.  Each stage is a span: ``dsp.fir`` (the FIR and the window,
-    one K7 launch where ``fir_cuda.takes`` the planes and taps, under its
-    own ``dsp.K7``; else the Toeplitz matmuls against ``bands``, None to
-    build them, and the window multiply), ``dsp.stage1``, the row
-    kernel's own (``dsp.K1``, or ``dsp.K2`` fused) and ``dsp.flatten``."""
+def _planar_chain(xr, xi, taps, bands, window, Tfac, W, n1, n2, fused):
+    """The chain after its constants.  Each stage is a span: ``dsp.fir``
+    (the FIR and the window, one K7 launch where ``fir_cuda.takes`` the
+    planes and taps, under its own ``dsp.K7``; else the Toeplitz matmuls
+    against ``bands``, None to build them, and the window multiply);
+    unless ``fused``, ``dsp.stage1`` (one K8 launch, under its own
+    ``dsp.K8``, where ``spectrum_cuda.stage1_supported`` takes the
+    geometry; else the Karatsuba matmuls of ``stage1_plain``) and
+    ``dsp.K1``, or ``dsp.K2`` when ``fused``; then ``dsp.flatten``."""
     with profiling.span("dsp.fir"):
         if fir_cuda.takes(xr, xi, taps):
             fr, fi = fir_cuda.fir_window_cuda(xr, xi, taps, window)
         else:
             fr, fi = fir_cuda.fir_window_plain(xr, xi, taps, window, bands)
         Ar, Ai = fr.reshape(n1, n2), fi.reshape(n1, n2)
-    if dft is None:
+    if fused:
         M = spectrum_cuda.fourstep_mag_fused(Ar, Ai, shift=True, W=W,
                                              Tfac=Tfac)
     else:
         with profiling.span("dsp.stage1"):
-            Br, Bi = fourstep.stage1_planar(*dft, Ar, Ai)
+            if spectrum_cuda.stage1_supported(n1, n2):
+                Br, Bi = spectrum_cuda.stage1_cuda(Ar, Ai)
+            else:
+                Br, Bi = spectrum_cuda.stage1_plain(Ar, Ai)
         M = spectrum_cuda.rowfft_mag(Br, Bi, shift=True, Tfac=Tfac, W=W)
     with profiling.span("dsp.flatten"):
         return spectrum_cuda.natural_flatten(M)
@@ -118,17 +127,13 @@ def _geometry(n: int, n1: int, fused: bool):
     return n1, n2
 
 
-def _constants(n1: int, n2: int, device, fused: bool):
-    """(dft, Tfac, W) planes on ``device``; the fused kernel computes its
-    own stage 1, so it takes Tfac and W alone (dft None)."""
+def _constants(n1: int, n2: int, device):
+    """(Tfac, W) planes on ``device``: the factored big twiddle and the
+    inner twiddle of the row stage."""
     W = spectrum_cuda.inner_twiddle(n2 // spectrum_cuda.LANES, n2, device)
     Tfac = tuple(torch.from_numpy(p).to(device)
                  for p in fourstep._dif_twiddle_factored(n1, n2))
-    if fused:
-        return None, Tfac, W
-    dft = tuple(torch.from_numpy(p).to(device)
-                for p in fourstep._dft_planes(n1))
-    return dft, Tfac, W
+    return Tfac, W
 
 
 def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
@@ -142,32 +147,30 @@ def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
     keeps the JAX chain's grammar, and every budget runs f32-exact
     (:func:`_check_budget`).
     ``fused=True`` runs stage 1 and the row stage as one launch
-    (``spectrum_cuda.fourstep_mag_fused``, K2) instead of the stage-1
-    matmuls and ``rowfft_mag`` (K1).  Builds the constants on every call
-    (the span ``dsp.constants`` in the call's ``dsp.chain``);
+    (``spectrum_cuda.fourstep_mag_fused``, K2) instead of stage 1 (K8, or
+    the matmuls) and ``rowfft_mag`` (K1).  Builds the constants on every
+    call (the span ``dsp.constants`` in the call's ``dsp.chain``);
     :class:`FirFftChainPlanar` holds them."""
     with profiling.span("dsp.chain", xr):
         n1, n2 = _geometry(xr.shape[-1], n1, fused)
         _check_budget(budget)
         with profiling.span("dsp.constants"):
             tf = taps.to(xr.dtype)
-            dft, Tfac, W = _constants(n1, n2, xr.device, fused)
+            Tfac, W = _constants(n1, n2, xr.device)
             # K7 reads the taps alone
             bands = (None if fir_cuda.takes(xr, xi, tf)
                      else conv_ops.toeplitz_bands(tf, n1 * n2))
             window = window.to(xr.dtype)
-        return _planar_chain(xr, xi, tf, bands, window, dft, Tfac, W, n1,
-                             n2)
+        return _planar_chain(xr, xi, tf, bands, window, Tfac, W, n1, n2,
+                             fused)
 
 
 class FirFftChainPlanar(torch.nn.Module):
     """:func:`fir_fft_chain_planar` with its constants as buffers: the
     Toeplitz band matrices where K7 does not take the taps (more than
-    ``fir_cuda.MAX_TAPS`` after clipping), the window, the inner twiddle,
-    the factored big
-    twiddle and, unless ``fused``, the DFT-n1 Karatsuba planes (the fused
-    kernel computes its own stage 1).  The signal length is the
-    window's.  ``forward(xr, xi)`` returns the (n,) magnitude spectrum."""
+    ``fir_cuda.MAX_TAPS`` after clipping), the window, the inner twiddle
+    and the factored big twiddle.  The signal length is the window's.
+    ``forward(xr, xi)`` returns the (n,) magnitude spectrum."""
 
     def __init__(self, taps: torch.Tensor, window: torch.Tensor,
                  n1: int = 0, fused: bool = False):
@@ -177,15 +180,12 @@ class FirFftChainPlanar(torch.nn.Module):
         self.n1, self.n2 = _geometry(n, n1, self.fused)
         dev = window.device
         taps = taps.to(device=dev, dtype=torch.float32)
-        dft, Tfac, W = _constants(self.n1, self.n2, dev, self.fused)
+        Tfac, W = _constants(self.n1, self.n2, dev)
         self.register_buffer("taps", taps)
         m_eff = conv_ops._clip_kernel(n, taps.shape[-1])[1]
         self.register_buffer("bands", None if fir_cuda.supported(n, m_eff)
                              else conv_ops.toeplitz_bands(taps, n))
         self.register_buffer("window", window.to(torch.float32))
-        if not self.fused:
-            for name, p in zip(("dft_r", "dft_p", "dft_m"), dft):
-                self.register_buffer(name, p)
         for name, p in zip(("tw_ar", "tw_ai", "tw_br", "tw_bi"), Tfac):
             self.register_buffer(name, p)
         self.register_buffer("w_r", W[0])
@@ -197,12 +197,10 @@ class FirFftChainPlanar(torch.nn.Module):
             if xr.shape != (n,) or xi.shape != (n,):
                 raise ValueError(f"expected two ({n},) planes, got "
                                  f"{tuple(xr.shape)} and {tuple(xi.shape)}")
-            dft = None if self.fused else (self.dft_r, self.dft_p,
-                                           self.dft_m)
             Tfac = (self.tw_ar, self.tw_ai, self.tw_br, self.tw_bi)
             return _planar_chain(xr, xi, self.taps, self.bands, self.window,
-                                 dft, Tfac, (self.w_r, self.w_i), self.n1,
-                                 self.n2)
+                                 Tfac, (self.w_r, self.w_i), self.n1,
+                                 self.n2, self.fused)
 
 
 def modulation_chain_planar(sr: torch.Tensor, si: torch.Tensor,

@@ -63,7 +63,7 @@ from basic_dsp_tpu_torch.kernels import _build  # noqa: E402
 from basic_dsp_tpu_torch.kernels import fir_cuda  # noqa: E402
 from basic_dsp_tpu_torch.kernels import overlap_save_cuda as osc  # noqa: E402
 from basic_dsp_tpu_torch.kernels import spectrum_cuda  # noqa: E402
-from basic_dsp_tpu_torch.ops import conv_ops, fourstep  # noqa: E402
+from basic_dsp_tpu_torch.ops import conv_ops  # noqa: E402
 
 N = 1 << 22
 TAPS = 128
@@ -260,14 +260,13 @@ def routes_for(taps, window, launch):
 def chain_with(chain, fir):
     """``chain``'s call with its FIR and window stage replaced by ``fir``."""
     n1, n2 = chain.n1, chain.n2
-    dft = (chain.dft_r, chain.dft_p, chain.dft_m)
     Tfac = (chain.tw_ar, chain.tw_ai, chain.tw_br, chain.tw_bi)
     W = (chain.w_r, chain.w_i)
 
     def call(xr, xi):
         fr, fi = fir(xr, xi)
-        Br, Bi = fourstep.stage1_planar(*dft, fr.reshape(n1, n2),
-                                        fi.reshape(n1, n2))
+        Br, Bi = spectrum_cuda.stage1_cuda(fr.reshape(n1, n2),
+                                           fi.reshape(n1, n2))
         M = spectrum_cuda.rowfft_mag(Br, Bi, shift=True, Tfac=Tfac, W=W)
         return spectrum_cuda.natural_flatten(M)
     return call

@@ -89,10 +89,10 @@ K2_ROWS_OFF = ("  if (e != cudaSuccess) return static_cast<int>(e);\n"
                "  if (e != cudaSuccess) return static_cast<int>(e);\n"
                "  if (n1 > 0) return 0;\n"
                "  return static_cast<int>(launch_rows(cr, ci,")
-K2_NO_T = ("      twiddle(vr.x, vi.x, a_r, a_i, b_r.x, b_i.x);\n"
-           "      twiddle(vr.y, vi.y, a_r, a_i, b_r.y, b_i.y);\n"
-           "      twiddle(vr.z, vi.z, a_r, a_i, b_r.z, b_i.z);\n"
-           "      twiddle(vr.w, vi.w, a_r, a_i, b_r.w, b_i.w);", "")
+K2_NO_T = ("        twiddle(vr.x, vi.x, a_r, a_i, b_r.x, b_i.x);\n"
+           "        twiddle(vr.y, vi.y, a_r, a_i, b_r.y, b_i.y);\n"
+           "        twiddle(vr.z, vi.z, a_r, a_i, b_r.z, b_i.z);\n"
+           "        twiddle(vr.w, vi.w, a_r, a_i, b_r.w, b_i.w);", "")
 K2_CUTS = {
     "as built": [],
     "T in the row stage (design b)": [

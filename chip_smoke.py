@@ -16,7 +16,9 @@ Phases (any failure raises and exits non-zero):
    ``fourstep_mag_fused`` (K2) against ``fourstep_mag_fused_plain`` at
    ten, among them two non-power-of-two n1 (the direct sum), every
    power-of-two n1 from 8 to 1024 (each a compiled stage-1 plan), the 4M
-   geometry and L2 = 1024,
+   geometry and L2 = 1024, ``stage1_cuda`` (K8) against ``stage1_planar``
+   in float64 at the 4M geometry and at n1 = 8 and 1024 (and against
+   ``stage1_plain``, its float32 run, at the 4M geometry),
    K3 in both modes, ``circular_conv_cuda`` against
    ``circular_conv_plain`` and ``blocked_linear_conv_cuda`` against
    ``blocked_linear_conv_plain``, at eight (n, taps, fft_len), among them
@@ -43,9 +45,11 @@ Phases (any failure raises and exits non-zero):
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    a. the spectrum chain: ``FirFftChainPlanar`` at n = 2^22 with 128
-      raised-cosine taps and a Hamming window (one K7 and one K1 launch),
+      raised-cosine taps and a Hamming window (one K7, one K8 and one K1
+      launch; its profiled call runs no ``aten::mm`` and no gemm kernel),
       checked against a float64 oracle (<= 5e-6 relative); then
-      ``fir_fft_chain`` and ``windowed_spectrum`` once each (no K7);
+      ``fir_fft_chain`` and ``windowed_spectrum`` once each (no K7, one K8
+      each: their complex stage 1);
    b. the long-tap convolution: ``conv_ops.convolve_signal_planar`` at
       n = 2^22 with 384 complex taps (fft_len 4096), against a float64
       oracle (<= 5e-6), one K3 launch, and its profile must show K3 and
@@ -71,7 +75,7 @@ Phases (any failure raises and exits non-zero):
       at 5e-6) once each; the module's profile must show K6 alone (no
       transpose);
    g. the fused spectrum chain: ``FirFftChainPlanar(..., fused=True)`` as
-      in a (one K7 and one K2 launch, no K1 launch), against the float64
+      in a (one K7 and one K2 launch, no K1 or K8 launch), against the float64
       oracle (<=
       5e-6); then ``fir_fft_chain_planar(..., fused=True)`` once;
    h. the typed vectors at full width: ``to_complex_time_vec`` of 2^22
@@ -90,8 +94,9 @@ Phases (any failure raises and exits non-zero):
       complex grid against a float64 einsum oracle (<= 5e-6); no kernel;
    j. the flagship API: ``fourstep.dit_spectrum_mag`` at 2^22 (<= 5e-6,
       no kernel); ``fir_fft_chain_planar`` with each budget (None, "high",
-      "high-xla", "high-kernel"), unfused (one K7 and one K1 launch each)
-      and fused (one K7 and one K2 launch each), against the float64
+      "high-xla", "high-kernel"), unfused (one K7, one K8 and one K1
+      launch each) and fused (one K7 and one K2 launch each), against the
+      float64
       oracle (<= 5e-6, every
       budget bit-equal to None: all run f32-exact); then budget None again
       with TF32 off afterwards;
@@ -170,7 +175,7 @@ Phases (any failure raises and exits non-zero):
       the whole-extent FFT, no K3), the resampled stream against the
       float64 linear resample delayed by ``output_delay`` and the filtered
       one against the float64 causal linear convolution (<= 5e-6); then
-      each of the seven wrappers (K3's through ``circular_conv_cuda`` and
+      each of the eight wrappers (K3's through ``circular_conv_cuda`` and
       ``blocked_linear_conv_cuda``) called with an input that requires
       grad must raise, and the same call under ``torch.no_grad()`` equal
       its plain version (<= 2e-6).  The ``kernels`` line's launches
@@ -228,6 +233,8 @@ Phases (any failure raises and exits non-zero):
    FIR and window it replaced (its plain version, with the chain's held
    band matrices) and K3 in circular mode on the same planes and taps
    (fft_len 4096), timed in turns beside it and by CUDA-graph replay;
+   K8's plain version, the Karatsuba matmuls it replaced, and its library
+   call ``torch.fft.fft`` down the columns;
    o. ``profiling``: ``time_op`` and ``throughput`` of ``FirFftChainPlanar``
       within 2x of phase 4's event median, and ``trace`` writing a
       non-empty Chrome trace into a temporary directory;
@@ -235,8 +242,8 @@ Phases (any failure raises and exits non-zero):
       counts set to 0 just before and read just after (``phase_t``):
       ``bench_torch.py``'s ``main()``, then with ``BENCH_FUSED=1``, each printing exactly one stdout line
       ``{"metric": "fir_fft_chain_throughput", "value", "unit",
-      "vs_baseline"}``, its one eager call launching K7 and K1 (K2 when
-      fused);
+      "vs_baseline"}``, its one eager call launching K7, K8 and K1 (K7
+      and K2 when fused);
       ``bench_all`` over the five configs and the overlap-save A/B
       (``BDSP_BENCH_AB=1``), ``--json`` into the work directory, each
       config launching the kernels of its row (K1, none, K4, K4, K6; K3 in
@@ -296,6 +303,9 @@ GEOMETRIES = [(8, 256), (8, 16384), (128, 32768), (16, 65536), (64, 131072)]
 FUSED_GEOMETRIES = [(8, 256), (24, 4096), (128, 32768), (64, 131072),
                     (16, 512), (32, 1024), (256, 2048), (512, 256),
                     (1024, 256), (1016, 256)]
+# K8: the chain's stage 1 at 2^22, the widest panel (n1 = 8, 128 columns)
+# and the narrowest (n1 = 1024, 4 columns).
+STAGE1_GEOMETRIES = [(8, 4096), (128, 32768), (1024, 4096)]
 CONV_TAPS = 384
 CONV_FFT_LEN = 4096
 # K3 (n, taps, fft_len): n below fft_len (700) and n not a multiple of 4
@@ -836,7 +846,8 @@ def phase_t(work):
     bkernels.reset_launch_counts()
     assert timing.tf32_off(), "TF32 must be off"
     saved = bt.default_config()     # the programs pin their knobs
-    for env, kernel in (({}, "K1"), ({"BENCH_FUSED": "1"}, "K2")):
+    for env, want in (({}, {"K7": 1, "K8": 1, "K1": 1}),
+                      ({"BENCH_FUSED": "1"}, {"K7": 1, "K2": 1})):
         out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rec = bench.main([], env=env)
@@ -857,7 +868,7 @@ def phase_t(work):
         assert line["unit"] == "Msamples/s" and line["value"] > 0
         assert 0 < line["vs_baseline"] <= 1.0, line
         assert rec["graph_ms"] > 0 and rec["eager_ms"] > 0
-        assert rec["launches"] == {"K7": 1, kernel: 1}, rec["launches"]
+        assert rec["launches"] == want, rec["launches"]
         print(f"t:   at {time.perf_counter() - t0:.2f} s of phase t")
 
     path = os.path.join(work, round_summary.BENCH_ALL)
@@ -1011,6 +1022,31 @@ def main(work):
     assert sc.fourstep_mag_fused.launches == len(FUSED_GEOMETRIES)
     assert sc.rowfft_mag.launches == row_launches
 
+    # K8 against stage1_planar: in float32 (the plain version, itself a
+    # dense DFT whose error grows with n1, ~1.8e-6 at 1024) and in float64
+    # on the same planes, which the tolerance holds it to
+    k8_abs_err_4m = None
+    for n1, n2 in STAGE1_GEOMETRIES:
+        Ar, Ai = planes(n1, n2)
+        got = torch.stack(sc.stage1_cuda(Ar, Ai))
+        ref = torch.stack(sc.stage1_plain(Ar, Ai))
+        ref64 = torch.stack(fourstep.stage1_planar(
+            *(p.double() for p in sc._held_dft(n1, dev)), Ar.double(),
+            Ai.double()))
+        torch.cuda.synchronize()
+        err, abs_err = planes_err(got, ref)
+        err64, _ = planes_err(got.double(), ref64)
+        print(f"stage1_cuda vs plain at ({n1}, {n2}): {err:.3e} relative "
+              f"to max; vs float64 {err64:.3e} (tol {KERNEL_TOL}); plain "
+              f"vs float64 {planes_err(ref.double(), ref64)[0]:.3e}")
+        assert got.shape == ref.shape == (2, n1, n2)
+        assert err64 <= KERNEL_TOL, (n1, n2, err64)
+        if (n1, n2) == (128, 32768):
+            assert err <= KERNEL_TOL, (n1, n2, err)
+            k8_abs_err_4m = abs_err
+    assert sc.stage1_cuda.launches == len(STAGE1_GEOMETRIES)
+    assert sc.rowfft_mag.launches == row_launches
+
     os_abs_err_4m = None
     for n, m, fl in OS_GEOMETRIES:
         xr, xi = planes(n)
@@ -1161,11 +1197,32 @@ def main(work):
     torch.cuda.synchronize()
     k1_launches = sc.rowfft_mag.launches
     k7_launches = fcu.fir_window_cuda.launches
+    k8_launches = sc.stage1_cuda.launches
     print(f"main path: FirFftChainPlanar n={N} (n1={chain.n1}, "
           f"n2={chain.n2}), rowfft_mag launches: {k1_launches}, "
-          f"fir_window_cuda launches: {k7_launches}")
+          f"fir_window_cuda launches: {k7_launches}, stage1_cuda launches: "
+          f"{k8_launches}")
     assert k1_launches >= 1, "the main path did not launch rowfft_mag"
     assert k7_launches == 1, "the chain's FIR and window: not one K7"
+    assert k8_launches == 1, "the chain's stage 1: not one K8"
+    first = (k1_launches, k7_launches, k8_launches)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        chain(xr, xi)
+        torch.cuda.synchronize()
+    ops = {e.key for e in prof.key_averages()}
+    print(f"main path: FirFftChainPlanar's profiled call: aten::mm "
+          f"{'aten::mm' in ops}, gemm kernels "
+          f"{sorted(k for k in ops if 'gemm' in k.lower())}")
+    assert "aten::mm" not in ops and not any("gemm" in k.lower()
+                                             for k in ops), sorted(ops)
+    # the profiled call launches what the first did, read from the counters
+    k1_launches = sc.rowfft_mag.launches
+    k7_launches = fcu.fir_window_cuda.launches
+    k8_launches = sc.stage1_cuda.launches
+    assert (k1_launches, k7_launches, k8_launches) == tuple(
+        2 * c for c in first), (first, k1_launches, k7_launches, k8_launches)
     assert out.shape == (N,) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
     err = rel_err(out.double(), ref)
@@ -1185,8 +1242,10 @@ def main(work):
     print(f"windowed_spectrum vs oracle: {err:.3e}")
     assert got.shape == (N,) and err <= CHAIN_TOL, err
     assert sc.rowfft_mag.launches == before + 2
-    # fir_fft_chain's FIR is conv_ops.toeplitz_conv on complex64: no K7
-    assert fcu.fir_window_cuda.launches == 1
+    # fir_fft_chain's FIR is conv_ops.toeplitz_conv on complex64: no K7;
+    # both spectra's complex stage 1 is K8
+    assert fcu.fir_window_cuda.launches == 2
+    assert sc.stage1_cuda.launches == 4
     del ref, got
 
     # 3b. main path: the long-tap convolution at full size, complex64 taps
@@ -1382,7 +1441,7 @@ def main(work):
     print(f"fir_fft_chain_planar(fused=True) vs oracle: {err:.3e}")
     assert got.shape == (N,) and err <= CHAIN_TOL, err
     assert sc.fourstep_mag_fused.launches == 2
-    assert sc.rowfft_mag.launches == 0
+    assert sc.rowfft_mag.launches == 0 and sc.stage1_cuda.launches == 0
     assert fcu.fir_window_cuda.launches == 2
     del ref, got, out
 
@@ -1552,6 +1611,8 @@ def main(work):
             assert counter.launches == 1 and launches[2] == 1, (
                 budget, fused, launches)
             assert fcu.fir_window_cuda.launches == 1, (budget, fused)
+            assert sc.stage1_cuda.launches == (0 if fused else 1), (
+                budget, fused)
             assert chc.channelize_demod_cuda.launches == 0
             assert err <= CHAIN_TOL, (budget, fused, err)
             assert torch.equal(outs[budget], outs[None]), (budget, fused)
@@ -2199,7 +2260,8 @@ def main(work):
           f"complex taps, Hamming: {err:.3e} from the float64 oracle (tol "
           f"{CHAIN_TOL}); launches {fired}")
     assert e_out.shape == (bentry.ENTRY_N,) and err <= CHAIN_TOL, err
-    assert fired["K1"] == 1 and sum(fired.values()) == 1, fired
+    assert fired["K1"] == fired["K8"] == 1 and sum(fired.values()) == 2, \
+        fired
 
     t0 = time.perf_counter()
     dry = bentry.dryrun_multichip(1)
@@ -2372,6 +2434,8 @@ def main(work):
         ("fir_window_cuda",
          lambda a: fcu.fir_window_cuda(a, gy, ghr, gw),
          lambda a: fcu.fir_window_plain(a, gy, ghr, gw), gx),
+        ("stage1_cuda", lambda a: sc.stage1_cuda(a, Ai),
+         lambda a: sc.stage1_plain(a, Ai), Ar),
     ]
     for name, kernel, plain, arg in refusals:
         leaf = arg.clone().requires_grad_()
@@ -2385,7 +2449,8 @@ def main(work):
             raise AssertionError(f"{name} accepted an input that requires "
                                  f"grad")
         assert (other_launches() + chc.channelize_demod_cuda.launches
-                + fcu.fir_window_cuda.launches) == 0
+                + fcu.fir_window_cuda.launches
+                + sc.stage1_cuda.launches) == 0
         with torch.no_grad():
             got = kernel(leaf)
             ref = plain(leaf)
@@ -2409,6 +2474,7 @@ def main(work):
     chan_launches += r_launches["K6"]
     fused_launches += r_launches["K2"]
     k7_launches += r_launches["K7"]
+    k8_launches += r_launches["K8"]
 
     s_launches = phase_s(work)
     k1_launches += s_launches["K1"]
@@ -2418,6 +2484,7 @@ def main(work):
     audio_launches += s_launches["K5"]
     chan_launches += s_launches["K6"]
     k7_launches += s_launches["K7"]
+    k8_launches += s_launches["K8"]
 
     # 4. times (CUDA events, median of REPS after warm-up)
     fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
@@ -2783,6 +2850,21 @@ def main(work):
         print(f"fir_window yardstick {label}: device "
               + ("did not capture" if ms is None else f"{ms * 1e3:.1f} "
                  f"us/call") + f" (CUDA-graph replay) on {smi}")
+    # K8 at the chain's shape: its plain version is the Karatsuba matmuls
+    # it replaced (held planes), its yardstick torch.fft down the columns.
+    # Operations: the column FFTs, 5 N log2 n1.
+    Ar, Ai = planes(128, 32768)
+    A8 = torch.complex(Ar, Ai)
+    measure("fourstep_stage1 (128, 32768)",
+            "basic_dsp_tpu_torch/csrc/rowfft_mag.cu",
+            "none (the JAX chain's stage 1 is XLA matmuls)", k8_launches,
+            k8_abs_err_4m,
+            {"plain": lambda: sc.stage1_plain(Ar, Ai),
+             "kernel": lambda: sc.stage1_cuda(Ar, Ai),
+             "library": lambda: torch.fft.fft(A8, dim=0)},
+            (Ar, Ai), (torch.empty(2, 128, 32768, device=dev),),
+            5 * N * 7)
+    del Ar, Ai, A8
     # o. profiling: time_op and throughput against phase 4's median, and a
     # trace on disk
     chain_name = paths[0][0]
@@ -2813,7 +2895,7 @@ def main(work):
     kernel_of = {"rowfft_mag": "K1", "fourstep_mag_fused": "K2",
                  "overlap_save": "K3", "resample_direct": "K4",
                  "resample_rowblock": "K5", "channelize_demod": "K6",
-                 "fir_window": "K7"}
+                 "fir_window": "K7", "fourstep_stage1": "K8"}
     assert [r["name"] for r in rows] == list(kernel_of)
     for row in rows:
         row["launches"] += (t_launches[kernel_of[row["name"]]]

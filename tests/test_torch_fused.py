@@ -5,14 +5,15 @@ relative to the maximum, the grade of tests/test_pallas_spectrum.py;
 against the port's unfused path to 1e-5 of the maximum (the dense and the
 factored twiddle differ by one rounding); ``fir_fft_chain_planar(...,
 fused=True)`` and ``FirFftChainPlanar(..., fused=True)`` against JAX's
-fused chain; the wrapper's refusals and launch counts; and a numpy model
-of the CUDA launch's index arithmetic (``csrc/rowfft_mag.cu``: the stage-1
-column panels and their register passes, the direct sum, the twiddle at
-the store, then the cluster row kernel that K1 is, with and without its
-twiddle) against
-the plain version, with the row kernel's geometry and bank checks.  The
-CUDA kernels themselves are held to the plain version on the card by
-chip_smoke.py."""
+fused chain; the wrapper's refusals and launch counts; stage 1 alone
+(K8, ``stage1_cuda``): its routes, its refusals and the unfused chain's
+stage 1 through it against JAX's chain; and a numpy model of the CUDA
+launches' index arithmetic (``csrc/rowfft_mag.cu``: the stage-1 column
+panels and their register passes, the direct sum, the twiddle at the
+store or none (K8), then the cluster row kernel that K1 is, with and
+without its twiddle) against the plain version, with the row kernel's
+geometry and bank checks.  The CUDA kernels themselves are held to the
+plain version on the card by chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -238,6 +239,120 @@ def test_cpu_launches_no_kernel():
     assert tsc.rowfft_mag.launches == row0 == 0
 
 
+# ------------------------------------------------- stage 1 alone (K8)
+
+@pytest.mark.parametrize("n1,n2", [(16, 1024), (128, 512), (1024, 4)])
+def test_stage1_cpu_route_is_the_plain_version(n1, n2):
+    """A CPU tensor takes ``stage1_plain``, the Karatsuba matmuls of
+    ``stage1_planar`` on the planes of ``_dft_planes``, bit for bit, and
+    launches nothing."""
+    before = tsc.stage1_cuda.launches
+    Ar, Ai = (torch.from_numpy(p) for p in _planes(n1, n2, 15))
+    F = (torch.from_numpy(p) for p in tfs._dft_planes(n1))
+    want = tfs.stage1_planar(*F, Ar, Ai)
+    for got in (tsc.stage1_cuda(Ar, Ai), tsc.stage1_plain(Ar, Ai)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tsc.stage1_cuda.launches == before == 0
+
+
+@pytest.mark.parametrize("n1,n2,takes", [
+    (8, 128, True), (8, 256, True), (32, 128, True), (64, 64, True),
+    (128, 32, True), (128, 32768, True), (256, 16, True), (1024, 4, True),
+    (1024, 131072, True), (4, 256, False), (2048, 256, False),
+    (12, 256, False), (24, 4096, False), (1016, 256, False),
+    (8, 64, False), (128, 48, False), (1024, 6, False), (128, 0, False)])
+def test_stage1_geometries(n1, n2, takes):
+    """K8 takes a power-of-two n1 in [8, 1024] (a compiled
+    ``stage1_panels<n1, false>`` each) and n2 a positive multiple of the
+    panel width (128 up to n1 = 32, 4096 / n1 above); the wrapper refuses
+    any other geometry before it looks at the device."""
+    assert tsc.stage1_supported(n1, n2) is takes
+    if not takes and n1 * n2 <= 1 << 20:
+        Ar, Ai = (torch.from_numpy(p) for p in _planes(n1, n2, 16))
+        with pytest.raises(ValueError):
+            tsc.stage1_cuda(Ar, Ai)
+
+
+def test_stage1_wrapper_rejects_what_the_kernel_does_not_take():
+    Ar, Ai = (torch.from_numpy(p) for p in _planes(8, 256, 17))
+    with pytest.raises(TypeError):
+        tsc.stage1_cuda(Ar.double(), Ai.double())
+    with pytest.raises(ValueError):
+        tsc.stage1_cuda(Ar, Ai[:, :128])
+    with pytest.raises(ValueError):
+        tsc.stage1_cuda(Ar.reshape(-1), Ai.reshape(-1))
+    wide_r, wide_i = (torch.from_numpy(p) for p in _planes(8, 512, 17))
+    with pytest.raises(ValueError):
+        tsc.stage1_cuda(wide_r[:, ::2], wide_i[:, ::2])
+    with pytest.raises(ValueError):
+        tsc.stage1_cuda(Ar.to("meta"), Ai.to("meta"))
+
+
+def _spy_stage1(monkeypatch):
+    """Records the shapes each call of ``stage1_cuda`` gets, and calls it;
+    returns the record and the wrapper itself."""
+    calls, real = [], tsc.stage1_cuda
+
+    def spy(Ar, Ai):
+        calls.append((tuple(Ar.shape), tuple(Ai.shape)))
+        return real(Ar, Ai)
+    monkeypatch.setattr(tsc, "stage1_cuda", spy)
+    return calls, real
+
+
+def test_unfused_chain_stage1_goes_through_the_wrapper(monkeypatch):
+    """The unfused chain's ``dsp.stage1`` calls ``stage1_cuda`` once a call
+    at n1 = 128, and still matches JAX's unfused chain; at n1 = 12, which
+    K8 does not take, it keeps the Karatsuba matmuls of ``stage1_plain``.
+    The module holds no DFT planes at either."""
+    calls, wrapper = _spy_stage1(monkeypatch)
+    xr, xi, taps, window = _chain_params()
+    ref = np.asarray(jpl.fir_fft_chain_planar(
+        *(jnp.asarray(a) for a in (xr, xi, taps, window)), interpret=True))
+    args = [torch.from_numpy(a) for a in (xr, xi, taps, window)]
+    chain = bt.FirFftChainPlanar(args[2], args[3])
+    assert not any(k.startswith("dft") for k, _ in chain.named_buffers())
+    got = chain(args[0], args[1])
+    assert calls == [((128, 512), (128, 512))]
+    assert _rel(got.numpy(), ref) <= TOL
+    assert torch.equal(bt.fir_fft_chain_planar(*args), got)
+    assert len(calls) == 2
+    small = [torch.from_numpy(a) for a in _chain_params(n=6 * 1024, m=7)]
+    chain12 = bt.FirFftChainPlanar(small[2], small[3], n1=12)
+    assert not any(k.startswith("dft") for k, _ in chain12.named_buffers())
+    got12 = chain12(small[0], small[1])
+    assert torch.equal(bt.fir_fft_chain_planar(*small, n1=12), got12)
+    assert len(calls) == 2
+    assert wrapper.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["complex", "real"])
+def test_windowed_spectrum_stage1_route(monkeypatch, kind):
+    """``dif_spectrum_mag_cuda`` sends a complex signal's stage 1 to
+    ``stage1_cuda`` and keeps a real signal's two dots; both equal the
+    matmul stage 1 on the CPU."""
+    calls, _ = _spy_stage1(monkeypatch)
+    xr, xi, _, window = _chain_params(n=1 << 15)
+    x = torch.from_numpy(xr if kind == "real"
+                         else (xr + 1j * xi).astype(np.complex64))
+    w = torch.from_numpy(window)
+    got = bt.windowed_spectrum(x, w)
+    assert calls == ([((128, 256), (128, 256))] if kind == "complex"
+                     else [])
+    xw = x * w.to(x.dtype)
+    F = (torch.from_numpy(p) for p in tfs._dft_planes(128))
+    if kind == "complex":
+        Ar, Ai = xw.real.reshape(128, 256), xw.imag.reshape(128, 256)
+    else:
+        Ar, Ai = xw.reshape(128, 256), None
+    Br, Bi = tfs.stage1_planar(*F, Ar, Ai)
+    Tfac = tuple(torch.from_numpy(p)
+                 for p in tfs._dif_twiddle_factored(128, 256))
+    want = tsc.natural_flatten(tsc.rowfft_mag(Br, Bi, shift=True,
+                                              Tfac=Tfac))
+    assert torch.equal(got, want)
+
+
 # --------------------------- numpy model of the CUDA launch's index arithmetic
 
 def _unit_root(k, n):
@@ -263,7 +378,10 @@ def _tables(plan):
 
 def _twiddle(vr, vi, Tfac, k1, j):
     """twiddle(): v * A[k1, j >> 7] * B[k1, j & 127], formed as the kernel
-    forms it (float32)."""
+    forms it (float32); v itself where ``Tfac`` is None (the store of
+    ``stage1_panels<n1, false>``, K8)."""
+    if Tfac is None:
+        return vr, vi
     Ar, Ai, Br, Bi = Tfac
     L2 = Ar.shape[1]
     ar, ai = Ar[k1, j >> 7], Ai[k1, j >> 7]
@@ -310,8 +428,9 @@ def _model_stage1(Ar, Ai, Tfac, log=None):
     (``stage1_geometry``), each copied in 16-byte chunks (every word of the
     buffer once) to col_word(j1, t), the passes of ``radix_plan(n1)`` down
     the columns (every panel at once: items w of panel q are q's own), then
-    whole 16-byte words out, each output once.  Shared accesses go to
-    ``log`` in item order.  Buffers start as NaN."""
+    whole 16-byte words out, each output once, twiddled by ``Tfac`` or,
+    where it is None, not (K8).  Shared accesses go to ``log`` in item
+    order.  Buffers start as NaN."""
     n1, n2 = Ar.shape
     l1 = _log2_exact(n1)
     if l1 < 0:
@@ -446,18 +565,32 @@ def _factored(n1, n2):
     return tfs._dif_twiddle_factored(n1, n2)
 
 
-@pytest.mark.parametrize("n1,n2", GEOMETRIES + [(40, 256), (64, 2048)])
-def test_stage1_model_matches_plain(n1, n2):
+# The store's twiddle on (K2; the ids the cases had before K8) and off
+# (K8: power-of-two n1 only, from the widest panel to the narrowest).
+STAGE1_MODEL_CASES = (
+    [pytest.param(n1, n2, True, id=f"{n1}-{n2}")
+     for n1, n2 in GEOMETRIES + [(40, 256), (64, 2048)]]
+    + [pytest.param(n1, n2, False, id=f"{n1}-{n2}-untwiddled")
+       for n1, n2 in [(8, 256), (16, 1024), (128, 512), (64, 2048),
+                      (256, 256), (1024, 64)]])
+
+
+@pytest.mark.parametrize("n1,n2,twiddled", STAGE1_MODEL_CASES)
+def test_stage1_model_matches_plain(n1, n2, twiddled):
     """Stage 1 as the kernels index it (stage1_panels' cp.async panels and
     register passes for a power-of-two n1, stage1_direct's sum for 24 and
-    40) against the plain stage 1 times the dense T."""
+    40) against the plain stage 1, times the dense T where the store
+    twiddles (K2), as ``stage1_planar`` returns it where it does not
+    (K8)."""
     Ar, Ai = _planes(n1, n2, 8)
-    cr, ci = _model_stage1(Ar, Ai, _factored(n1, n2))
+    cr, ci = _model_stage1(Ar, Ai, _factored(n1, n2) if twiddled else None)
     F = (torch.from_numpy(p) for p in tfs._dft_planes(n1))
     Br, Bi = tfs.stage1_planar(*F, torch.from_numpy(Ar), torch.from_numpy(Ai))
-    _, _, Tr, Ti = tfs._dif_planes(n1, n2)
-    C = (torch.complex(Br, Bi)
-         * torch.complex(torch.from_numpy(Tr), torch.from_numpy(Ti))).numpy()
+    C = torch.complex(Br, Bi)
+    if twiddled:
+        _, _, Tr, Ti = tfs._dif_planes(n1, n2)
+        C = C * torch.complex(torch.from_numpy(Tr), torch.from_numpy(Ti))
+    C = C.numpy()
     assert max(_rel(cr, C.real), _rel(ci, C.imag)) <= TOL
 
 

@@ -15,6 +15,7 @@ from basic_dsp_tpu.kernels import spectrum_pallas as jsp
 from basic_dsp_tpu.ops import fourstep as jfs
 from basic_dsp_tpu.windows import HammingWindow
 import basic_dsp_tpu_torch as bt
+from basic_dsp_tpu_torch.kernels import spectrum_cuda as tsc
 
 TOL = 2e-6
 N = 1 << 16
@@ -73,7 +74,9 @@ def test_module_matches_jax_on_the_same_constants(flagship):
         "_inner_consts": jsp._inner_consts(n2 // 128, n2, 64)}, "cpu")
     chain = bt.FirFftChainPlanar(p["taps"], p["window"])
     assert (chain.n1, chain.n2) == (n1, n2)
-    for got, want in [((chain.dft_r, chain.dft_p, chain.dft_m),
+    # stage 1 is stage1_cuda (K8), whose CPU route holds the DFT planes
+    assert not any(k.startswith("dft") for k, _ in chain.named_buffers())
+    for got, want in [(tsc._held_dft(n1, torch.device("cpu")),
                        p["_dft_planes"]),
                       ((chain.tw_ar, chain.tw_ai, chain.tw_br, chain.tw_bi),
                        p["_dif_twiddle_factored"]),

@@ -25,6 +25,9 @@ from dspbench import cells
 
 N = 1 << 16
 CHAIN = ["dsp.fir", "dsp.stage1", "dsp.K1", "dsp.flatten"]
+# the chain's kernel spans inside its stages: K7 in the FIR's, K8 in
+# stage 1's
+NESTED = {"dsp.K7": "dsp.fir", "dsp.K8": "dsp.stage1"}
 C, TAPS_PER_PHASE = 1024, 8
 
 
@@ -94,11 +97,14 @@ def test_chain_records_its_stages_under_one_root():
     assert root["name"] == "dsp.chain"
     assert recs[0] == root
     assert [r["name"] for r in children] == CHAIN
-    # the FIR and window are one K7 call inside dsp.fir
-    assert len(recs) == 1 + len(CHAIN) + 1
-    k7 = [r for r in recs if r["name"] == "dsp.K7"]
+    # the FIR and window are one K7 call inside dsp.fir, stage 1 one K8
+    # call inside dsp.stage1
+    assert len(recs) == 1 + len(CHAIN) + len(NESTED)
     by_index = {r["index"]: r for r in recs}
-    assert len(k7) == 1 and by_index[k7[0]["parent"]]["name"] == "dsp.fir"
+    for name, parent in NESTED.items():
+        inner = [r for r in recs if r["name"] == name]
+        assert len(inner) == 1
+        assert by_index[inner[0]["parent"]]["name"] == parent
     for r in recs:
         assert root["start_ns"] <= r["start_ns"] <= r["end_ns"] \
             <= root["end_ns"]
@@ -171,6 +177,7 @@ def _kernel_calls():
             xr, xi, channelizer._merged_tap_rows(_prototype(), C), C),
         "K7": lambda: fir_cuda.fir_window_cuda(
             xr, xi, h.real.contiguous(), torch.hamming_window(4096)),
+        "K8": lambda: spectrum_cuda.stage1_cuda(*A),
     }
 
 
@@ -197,7 +204,7 @@ def test_profiler_events_hold_each_span_by_name(monkeypatch):
     prof = _profiled(both)
     names = {e.name for e in prof.events()}
     recorded = {r["name"] for r in profiling.spans()}
-    assert recorded == {"dsp.chain", "dsp.channelize", "dsp.K6", "dsp.K7",
+    assert recorded == {"dsp.chain", "dsp.channelize", "dsp.K6", *NESTED,
                         *CHAIN}
     assert recorded <= names
 
@@ -428,5 +435,5 @@ def test_a_graph_capture_leaves_the_launch_counts(card):
     mod(*planes)
     del graph
     want = dict(before, K1=before["K1"] + 1, K6=before["K6"] + 1,
-                K7=before["K7"] + 1)
+                K7=before["K7"] + 1, K8=before["K8"] + 1)
     assert kernels.launch_counts() == want
