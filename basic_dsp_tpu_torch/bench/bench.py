@@ -44,6 +44,8 @@ import sys
 import numpy as np
 import torch
 
+from dspbench import floors
+
 from .. import config, pipelines
 from ..conv_types import RaisedCosineFunction
 from ..kernels import spectrum_cuda
@@ -92,11 +94,11 @@ def chain_loop(chain, xr, xi):
 def work(n: int, m: int):
     """(bytes, flops) the chain needs for a call: the planes, the window
     and the taps read once, the spectrum and the carry written once; the
-    FIR of real taps on complex data (``timing.fir_flops``: overlap-save's
+    FIR of real taps on complex data (``floors.fir_flops``: overlap-save's
     count at these sizes), the window (2 a sample), an FFT (5 log2 n) and
     the magnitude (3)."""
     nbytes = 8 * n + 4 * n + 4 * m + 4 * n + 4 * n
-    flops = (timing.fir_flops(m) + 2 + 5 * math.log2(n) + 3) * n
+    flops = (floors.fir_flops(m) + 2 + 5 * math.log2(n) + 3) * n
     return nbytes, flops
 
 
@@ -178,11 +180,11 @@ def main(argv=None, env=None) -> dict:
          f"{spread:.3f}x); eager loop {t.eager * 1e3:.4f} ms/iter")
 
     nbytes, flops = work(n, TAPS)
-    fl, bound, bms, fms = timing.floor_ms(nbytes, flops)
+    fl, bound, bms, fms = floors.floor_ms(nbytes, flops)
     form = formulation_flops(n, TAPS, chain.n1, fused)
     _log(f"floor: bytes {nbytes / 2 ** 20:.1f} MiB -> {bms:.4f} ms at "
-         f"{timing.PEAK_BYTES / 1e12} TB/s, operations {flops / 1e9:.3f} "
-         f"GFLOP -> {fms:.4f} ms at {timing.PEAK_FP32 / 1e12:.0f} TFLOP/s "
+         f"{floors.PEAK_BYTES / 1e12} TB/s, operations {flops / 1e9:.3f} "
+         f"GFLOP -> {fms:.4f} ms at {floors.PEAK_FP32 / 1e12:.0f} TFLOP/s "
          f"({timing.NUMERIC_MODE}): bound by {bound}, floor {fl:.4f} ms; "
          f"the formulation runs {sum(form.values()) / 1e9:.3f} GFLOP ("
          + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in form.items())

@@ -25,7 +25,7 @@ graph replay where its loop captures ("timing": "graph"), else as an eager
 loop between CUDA events ("eager", with the capture's error); bodies that
 copy constants from the host at every call (the Toeplitz bands of config
 2, the polyphase taps of config 3) do not capture.  Each record carries
-the reference's keys, the floor (``timing.floor_ms``, counted on the work:
+the reference's keys, the floor (``floors.floor_ms``, counted on the work:
 see ``configs``), the kernels one eager call launched, and the idle share
 of the eager loop, ``1 - graph_ms / eager_ms`` from CUDA events (a lower
 bound: the replay's gaps between kernels count as busy), null where the
@@ -52,6 +52,8 @@ import time
 
 import numpy as np
 import torch
+
+from dspbench import floors
 
 from .. import config, pipelines
 from ..conv_types import RaisedCosineFunction, SincFunction
@@ -119,7 +121,7 @@ def configs(inp: dict, device, ab: bool = False) -> list:
     """The five configs (and with ``ab`` the overlap-save A/B) on
     ``device``.  Floors count the work, not the formulation: inputs read
     once, outputs and the carry written once, and the floating-point
-    operations of the cheapest algorithm (a FIR ``timing.fir_flops``, the
+    operations of the cheapest algorithm (a FIR ``floors.fir_flops``, the
     fewer of the direct sum's and overlap-save's; a resampler 2 (2L + 1)
     an output and plane; an FFT 5 n log2 n, 2.5 for a real input)."""
     def dev(a):
@@ -134,7 +136,7 @@ def configs(inp: dict, device, ab: bool = False) -> list:
 
     out.append(Config(
         "windowed_fft_magnitude_1m", cfg1, (dev(inp["sine"]), w1), 50, n1,
-        16.0 * n1, n1 + timing.fft_flops(n1, real=True) + 3.0 * n1,
+        16.0 * n1, n1 + floors.fft_flops(n1, real=True) + 3.0 * n1,
         "x, w read, |X| and the carry written; window 1, real FFT, "
         "magnitude 3 a sample", ("K1",)))
 
@@ -148,7 +150,7 @@ def configs(inp: dict, device, ab: bool = False) -> list:
     out.append(Config(
         "rc_fir_4m", cfg2, (dev(inp["x_re"]), dev(inp["x_im"]), taps), 50,
         n2, 20.0 * n2 + 8 * RC_TAPS,
-        timing.fir_flops(RC_TAPS, complex_taps=True) * n2,
+        floors.fir_flops(RC_TAPS, complex_taps=True) * n2,
         "complex planes in and out; FIR of complex taps, overlap-save's "
         "count (the direct sum's 8 m a sample is more); the port runs the "
         "Toeplitz path", ()))
@@ -210,7 +212,7 @@ def configs(inp: dict, device, ab: bool = False) -> list:
             out.append(Config(
                 name, body, (dev(inp["x_re"]), dev(inp["x_im"]), h_long),
                 20, n2, 20.0 * n2 + 4 * OS_TAPS,
-                timing.fir_flops(OS_TAPS) * n2,
+                floors.fir_flops(OS_TAPS) * n2,
                 f"A/B: {nb} blocks of {OS_FFT_LEN}; FIR of real taps, "
                 f"overlap-save's count at its best length", kernels))
     return out
@@ -227,13 +229,13 @@ def run_config(cfg: Config, device, iters: int) -> dict:
 
     launched = timing.launches(call)
     t = timing.timed(cfg.body, *cfg.args, iters=iters)
-    fl, bound, bms, fms = timing.floor_ms(cfg.nbytes, cfg.flops)
+    fl, bound, bms, fms = floors.floor_ms(cfg.nbytes, cfg.flops)
     rec = {"metric": cfg.metric, "kernels": list(cfg.kernels)}
     model = {"bytes_mb": round(cfg.nbytes / 1e6, 3),
              "gflop": round(cfg.flops / 1e9, 4), "bytes_ms": bms,
              "flops_ms": fms, "note": cfg.note}
     if cfg.io_bytes is not None:
-        model["io_bound_ms"] = cfg.io_bytes / timing.PEAK_BYTES * 1e3
+        model["io_bound_ms"] = cfg.io_bytes / floors.PEAK_BYTES * 1e3
     if not on_card:
         rec.update({"device": "cpu", "rehearsal_ms": t.eager * 1e3,
                     "launches": launched, "model": model})
@@ -356,8 +358,8 @@ def main(argv=None, env=None) -> dict:
         print(json.dumps({k: rec[k] for k in keys}), flush=True)
     session = {"device": torch.cuda.get_device_name(dev) if on_card
                else "cpu", "card": card,
-               "hbm_gbps": timing.PEAK_BYTES / 1e9,
-               "fp32_tflops": timing.PEAK_FP32 / 1e12,
+               "hbm_gbps": floors.PEAK_BYTES / 1e9,
+               "fp32_tflops": floors.PEAK_FP32 / 1e12,
                "numeric_mode": timing.NUMERIC_MODE, "probe_us": probe_us,
                "knobs": dataclasses.asdict(KNOBS), "configs": results}
     if args.json:

@@ -1,7 +1,6 @@
-"""What the port's benchmark programs share: the slope timer, the floor
-model, the health probe and the card line (counterpart of the timing,
-floor and probe code of the JAX repository's ``bench.py`` and
-``bench_all.py``).
+"""What the port's benchmark programs share: the slope timer, the health
+probe and the card line (counterpart of the timing and probe code of the
+JAX repository's ``bench.py`` and ``bench_all.py``).
 
 A loop of ``iters`` calls and one of ``3 * iters`` calls are timed back to
 back, and the time a call is the slope between them, so the costs paid once
@@ -20,26 +19,20 @@ loop is timed two ways:
 On the CPU both loops run under ``time.perf_counter`` and there is no graph
 time: a CPU run rehearses the programs and measures nothing of the card.
 
-The floor is the least time the card could take for a call: the larger of
-the compulsory bytes (each input read once, each output and the carry
-written once) over the H100 SXM's 3.35 TB/s and the floating-point
-operations the cheapest algorithm needs (``fir_flops``: a FIR counts the
-fewer of the direct sum's and overlap-save's) over its 67 TFLOP/s of FP32
-outside the tensor cores (TF32 is off in the port), NVIDIA's published
-peaks at 700 W.
+The floor a program sets beside its time, the least time the card could
+take for a call, is the benchmark's roofline arithmetic
+(``dspbench/floors.py``), so that the programs and the benchmark share
+one yardstick.
 """
 from __future__ import annotations
 
 import collections
-import math
 import time
 
 import torch
 
 from .. import config
 
-PEAK_BYTES = 3.35e12   # H100 SXM HBM3, bytes/s
-PEAK_FP32 = 67e12      # H100 SXM FP32 outside the tensor cores, FLOP/s
 NUMERIC_MODE = "fp32, TF32 off"
 
 Slope = collections.namedtuple("Slope", "seconds spread")
@@ -184,36 +177,6 @@ def timed_loop(loop, device: torch.device, iters: int = 10,
     return Timing(eager.seconds, None if graph is None else graph.seconds,
                   eager.spread, None if graph is None else graph.spread,
                   no_graph)
-
-
-def fft_flops(n: int, real: bool = False) -> float:
-    """5 n log2 n for a complex FFT of n points, half of it for a real
-    input."""
-    return (2.5 if real else 5.0) * n * math.log2(n)
-
-
-def fir_flops(m: int, complex_taps: bool = False) -> float:
-    """The floating-point operations an output sample of an m-tap FIR on
-    complex data needs: the fewer of the direct sum's (4 m for real taps,
-    8 m for complex ones) and overlap-save's at its best power-of-two
-    length N > m (a complex FFT and its inverse, 5 N log2 N each, and the
-    product by the taps' transform, made once, 6 a bin, over the N - m + 1
-    outputs of a block)."""
-    direct = (8.0 if complex_taps else 4.0) * m
-    blocks = (1 << k for k in range(m.bit_length(), m.bit_length() + 16))
-    return min(direct, *((2 * fft_flops(N) + 6.0 * N) / (N - m + 1)
-                         for N in blocks))
-
-
-def floor_ms(nbytes: float, flops: float):
-    """``(floor_ms, bound, bytes_ms, flops_ms)``: the least time a call
-    could take on the card, the larger of ``nbytes`` over PEAK_BYTES and
-    ``flops`` over PEAK_FP32, and which of the two binds ("bytes" or
-    "operations"); the twin of the JAX repository's ``bench_all.floor_ms``
-    with the H100's figures."""
-    bt = nbytes / PEAK_BYTES * 1e3
-    ft = flops / PEAK_FP32 * 1e3
-    return max(bt, ft), ("bytes" if bt >= ft else "operations"), bt, ft
 
 
 PROBE_SHAPE = (512, 1024)

@@ -25,7 +25,7 @@
 // What bounds it on the H100.  The work's floor is bytes: at 2^22 samples
 // and 128 taps it must read 32 MiB of planes and 16 MiB of window and
 // write 32 MiB, 25 us at 3.35 TB/s (its operations, counted as the cheaper
-// of the direct sum and overlap-save, bench/timing.fir_flops, take 8 us).
+// of the direct sum and overlap-save, dspbench/floors.fir_flops, take 8 us).
 // This design is bound by its own FMAs first: the direct sum is 2 FMAs a
 // tap and output (both planes), 2.15 GFLOP, 32 us at 67 TFLOP/s.  It pays
 // them for accuracy: the overlap-save kernel (K3) with the window as its

@@ -118,7 +118,7 @@ Phases (any failure raises and exits non-zero):
       ``sharded_sum`` and ``sharded_statistics`` of the 2^22 signal (no
       kernel); each against its single-device function (<= 1e-6) and the
       float64 oracle (<= 5e-6; sums relative to sum |x|, sums of squares to
-      sum |x|^2); the process group ends after phase 4;
+      sum |x|^2); the process group ends just before phase 4;
    p. the rest of the multi-device layer on the same mesh:
       ``sharded_fft`` of 2^22 complex64 and of 2^22 real float32 samples,
       natural order and not ((n1, n2) sharded over rows),
@@ -135,10 +135,7 @@ Phases (any failure raises and exits non-zero):
       x1.5 through ``to_complex_time_vec_par(...).interpolatef`` (one K4
       launch); ``StreamingFir`` with cell 2's 384 taps over 16 sharded
       chunks of 2^16 (16 K3 launches) against the plain-chunk stream (<=
-      1e-6) and the float64 linear convolution (<= 5e-6); then each of
-      ``sharded_fft``, ``sharded_convolve_mat`` and the par vector's
-      ``convolve_signal`` timed in turns against its single-device
-      counterpart, with its device time and idle share.  K3's and K4's
+      1e-6) and the float64 linear convolution (<= 5e-6).  K3's and K4's
       launch counts in the ``kernels`` line include phase p's;
    q. the C ABI: ``libbasic_dsp_tpu_torch.so`` loaded with ctypes and
       initialised with ``BDSP_PLATFORM`` unset (every vector on the card;
@@ -203,41 +200,29 @@ Phases (any failure raises and exits non-zero):
       ``interpolate_lin`` / ``interpolate_hermite`` in four cases
       (<= 2e-4).  Every one of the two smokes' checks runs here; the
       ``kernels`` line's launches include phase s's;
-4. times with CUDA events (median of 20 after warm-up): every path (the
-   DIT spectrum among them, its planes held on the card after its first
-   call; k, l and m by chunk or call, and k and l's host time a chunk),
-   with ``torch.profiler`` device time per kernel and the idle share; the
-   fused
-   chain against the unfused one in turns; each kernel against its plain
-   version and its library call (one PyTorch call computing the same
-   function, where there is one) in turns, and its device time from a
-   CUDA-graph replay of its calls (``graph_ms``; the kernels line's
+4. the kernels line, the script's one timing output: each kernel (K1-K8)
+   at its main path's shape against its plain version and its library
+   call (one PyTorch call computing the same function, where there is
+   one), in turns (CUDA-event medians of 20 after warm-up); its device
+   time from a CUDA-graph replay of its calls (``graph_ms``; the row's
    ``device_ms``, null below the kernel's bound) beside what
-   ``torch.profiler`` reads, which has dropped kernel events on the card
-   (K3 also with its taps' spectrum H computed in the call, and against the block call ``ifft(fft(blocks) * H)`` that was its
-   yardstick before its library call became the whole-signal
-   ``ifft(fft(x) * Hn)``); the typed path of h against the same ops
-   called as functions, in turns (the typed layer's host overhead);
-   ``convolve_signal32`` through the C ABI against the typed call, in
-   turns, with device time and idle share, and the wall time of
-   ``from_data32`` and ``get_data32`` at 2^22 complex beside the typed
-   constructor and ``to_numpy``;
-   ``budget="high"`` against None, unfused and fused, in turns; phase
-   r's ``entry()`` step among the paths, the wall time of
-   ``slow_down_music`` (median of 3) and of phase r's ``multihost.run``;
-   and each
-   kernel's bound, the
-   larger of its compulsory bytes over 3.35 TB/s and its FP32 operations
-   over 67 TFLOP/s, from this run's shapes (a FIR's operations the cheaper
-   of the direct sum's and overlap-save's); K7's yardsticks, the Toeplitz
-   FIR and window it replaced (its plain version, with the chain's held
-   band matrices) and K3 in circular mode on the same planes and taps
-   (fft_len 4096), timed in turns beside it and by CUDA-graph replay;
-   K8's plain version, the Karatsuba matmuls it replaced, and its library
-   call ``torch.fft.fft`` down the columns;
+   ``torch.profiler`` reads, which has dropped kernel events on the card;
+   and its bound, the larger of its compulsory bytes over 3.35 TB/s and
+   its FP32 operations over 67 TFLOP/s (``dspbench/floors.py``, the
+   benchmark's roofline arithmetic), from this run's shapes (a FIR's
+   operations the cheaper of the direct sum's and overlap-save's).  K3
+   also with its taps' spectrum H computed in the call and against the
+   block call ``ifft(fft(blocks) * H)``; K7 beside its yardsticks, the
+   Toeplitz FIR and window it replaced (its plain version, with the
+   chain's held band matrices) and K3 in circular mode on the same planes
+   and taps (fft_len 4096), also by CUDA-graph replay; K8 beside its plain
+   version, the Karatsuba matmuls it replaced, and ``torch.fft.fft`` down
+   the columns.  The paths are timed by the benchmark's cells
+   (``dspbench/``), not here;
    o. ``profiling``: ``time_op`` and ``throughput`` of ``FirFftChainPlanar``
-      within 2x of phase 4's event median, and ``trace`` writing a
-      non-empty Chrome trace into a temporary directory;
+      within 2x of a CUDA-event median of the same call taken beside
+      them, and ``trace`` writing a non-empty Chrome trace into a
+      temporary directory;
    t. the benchmark programs (``basic_dsp_tpu_torch/bench/``), with the
       counts set to 0 just before and read just after (``phase_t``):
       ``bench_torch.py``'s ``main()``, then with ``BENCH_FUSED=1``, each printing exactly one stdout line
@@ -945,6 +930,7 @@ def main(work):
     from basic_dsp_tpu_torch.kernels import spectrum_cuda as sc
     from basic_dsp_tpu_torch.ops import conv_ops, fourstep, interp_ops
     from basic_dsp_tpu_torch.parallel import channelizer as chz
+    from dspbench import floors
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -1414,6 +1400,11 @@ def main(work):
     assert y.shape == (CHAN_C, S5) and err <= CHAIN_TOL, err
     assert chc.channelize_demod_cuda.launches == 3
     assert other_launches() == 0
+    # K6 stores (C, S) itself: the module's profile shows no other kernel
+    _, per_kernel = timing.device_ms(lambda: chan5(xr5, xi5))
+    print(f"ChannelizeAndDemodPlanar's profiled calls: kernels "
+          f"{sorted(k[:48] for k in per_kernel) or 'not seen'}")
+    assert all("channelize" in k for k in per_kernel), per_kernel
     del y5, z5, y, x5
 
     # 3g. main path: the fused spectrum chain at full size
@@ -1589,7 +1580,7 @@ def main(work):
           f"(tol {CHAIN_TOL}); kernel launches: {other_launches()}")
     assert dit.shape == (N,) and err <= CHAIN_TOL, err
     assert other_launches() == 0
-    del ref_nofir, dit
+    del xw, ref_nofir, dit
     ref = oracle(xr, xi, taps, window)
     for fused in (False, True):
         outs = {}
@@ -1671,7 +1662,6 @@ def main(work):
     audio_np = np.random.default_rng(0).standard_normal(
         AUDIO_CHUNK * AUDIO_CHUNKS).astype(np.float32)
     xl_audio = torch.from_numpy(audio_np).to(dev)
-    stream_rs = {}
     for name, factor, xin, chunk, kernel in (
             ("x1.5", 1.5, x3, STREAM_CHUNK, "resample_direct_cuda"),
             ("160/147", 160 / 147, xl_audio, AUDIO_CHUNK,
@@ -1706,7 +1696,6 @@ def main(work):
         print(f"StreamingResampler {name} vs float64 linear resample delayed "
               f"by {d}: {err:.3e} relative to max (tol {CHAIN_TOL})")
         assert err <= CHAIN_TOL, (name, err)
-        stream_rs[name] = (rs, xin[:chunk].contiguous())
         del outs, got, ref
 
     # 3m. the sharded functions on a one-rank NCCL mesh
@@ -2021,40 +2010,7 @@ def main(work):
     os_launches += p_conv + p_stream
     cfg3_launches += p_k4
 
-    # phase p's times: each new function in turns against its
-    # single-device counterpart, CUDA-event medians and profiler device
-    # time with the idle share
-    vp = bt.to_complex_time_vec_par(xh_np, mesh)
-    for name, fns in (
-            ("p: sharded_fft 2^22 complex64, mesh of 1",
-             {"single": lambda: torch.fft.fft(x),
-              "sharded": lambda: sfft.sharded_fft(x, mesh)}),
-            (f"p: sharded_convolve_mat ({MAT_ROWS}, {MAT_N}) complex64, "
-             f"({MAT_ROWS}, {MAT_ROWS}, {MIMO_TAPS}) grid, mesh of 1",
-             {"single": lambda: tmatrix._convolve_mat(
-                 xm_c, torch.from_numpy(grid_c).to(dev), True),
-              "sharded": lambda: bt.parallel.sharded_convolve_mat(
-                  xm_c, grid_c, mesh)}),
-            (f"p: convolve_signal 2^22, {CONV_TAPS} raised-cosine taps, par "
-             f"vector (mesh of 1) vs plain vector",
-             {"single": lambda: vh.convolve_signal(imp_rc),
-              "sharded": lambda: vp.convolve_signal(imp_rc)})):
-        med = in_turns(name, fns, smi)
-        for label, fn in fns.items():
-            dev_ms, per_kernel = timing.device_ms(fn)
-            if dev_ms > 0:
-                print(f"{name}, {label}: device {dev_ms:.4f} ms/call "
-                      f"(torch.profiler, 10 calls), idle share "
-                      f"{1 - dev_ms / med[label]:.3f} of the "
-                      f"{med[label]:.4f} ms event median; kernels "
-                      + ", ".join(f"{k[:48]} {v * 1e3:.1f} us" for k, v in
-                                  sorted(per_kernel.items(),
-                                         key=lambda kv: -kv[1])[:6])
-                      + f" on {smi}")
-            else:
-                print(f"{name}, {label}: device time not measured (the "
-                      f"profiler showed no device time)")
-    del vp, xm_c, X, X64
+    del xm_c, X, X64
 
     # 3q. the C ABI: the port's native library, loaded with ctypes into
     # this process with BDSP_PLATFORM unset, so that every vector lives on
@@ -2109,6 +2065,7 @@ def main(work):
           f"{SHARD_TOL}), vs float64 oracle {errs[1]:.3e} (tol {CHAIN_TOL})")
     assert errs[0] <= SHARD_TOL and errs[1] <= CHAIN_TOL, errs
     clib.delete_vector32(q_sig)
+    clib.delete_vector32(q_taps)
     del yq
 
     x3_np = x3.cpu().numpy()
@@ -2486,229 +2443,17 @@ def main(work):
     k7_launches += s_launches["K7"]
     k8_launches += s_launches["K8"]
 
-    # 4. times (CUDA events, median of REPS after warm-up)
-    fft_ms = median_ms(lambda: conv_ops.overlap_save(x, h, True,
-                                                     CONV_FFT_LEN))
-    print(f"overlap_save on torch.fft (same convolution, complex in and "
-          f"out): {fft_ms:.4f} ms/call on {smi}")
-    paths = [
-        ("config #1: FirFftChainPlanar, 2^22, 128 taps", N,
-         lambda: chain(xr, xi)),
-        ("config #1 fused: FirFftChainPlanar(fused=True), 2^22, 128 taps",
-         N, lambda: chain_f(xr, xi)),
-        (f"cell 2: convolve_signal_planar, 2^22, {CONV_TAPS} complex taps, "
-         f"fft_len {CONV_FFT_LEN}", N,
-         lambda: conv_ops.convolve_signal_planar(xr, xi, h)),
-        ("config #3: interpolatef x1.5, 2^20 complex", CFG3_N * 3 // 2,
-         lambda: interp_ops.interpolatef(x3, sinc, 1.5, 0.0, 10, 1.0)),
-        ("config #4: ModulationChainPlanar, 2^17 symbols x 2 planes",
-         2 * 10 * CFG4_SYMBOLS, lambda: mod(sym_r, sym_i)),
-        ("audio: interpolatef 160/147, 2^20 real", audio_len,
-         lambda: interp_ops.interpolatef(xa, sinc, 160 / 147, 0.0, 10, 1.0)),
-        ("config #5: channelize_and_demod_planar, 2^22 into 1024 channels",
-         CHAN_N, lambda: bt.channelize_and_demod_planar(xr5, xi5, proto5,
-                                                        CHAN_C)),
-        ("config #5: ChannelizeAndDemodPlanar (taps held)", CHAN_N,
-         lambda: chan5(xr5, xi5)),
-        ("flagship: fourstep.dit_spectrum_mag, 2^22 (planes held)", N,
-         lambda: fourstep.dit_spectrum_mag(xw)),
-    ]
-    chunk_k = xk[:STREAM_CHUNK].contiguous()
-    state_k = fir.init_state(torch.complex64)
-    rs15, chunk15 = stream_rs["x1.5"]
-    rs_audio, chunk_audio = stream_rs["160/147"]
-    state15, state_audio = rs15.init_state(), rs_audio.init_state(
-        torch.float32)
-    paths += [
-        (f"k: StreamingFir.process, one chunk of {STREAM_CHUNK} complex, "
-         f"{CONV_TAPS} taps", STREAM_CHUNK,
-         lambda: fir.process(chunk_k, state_k)),
-        (f"l: StreamingResampler.process x1.5, one chunk of {STREAM_CHUNK} "
-         f"complex", STREAM_CHUNK * 3 // 2,
-         lambda: rs15.process(chunk15, state15)),
-        (f"l: StreamingResampler.process 160/147, one chunk of {AUDIO_CHUNK} "
-         f"real", AUDIO_CHUNK * 160 // 147,
-         lambda: rs_audio.process(chunk_audio, state_audio)),
-        (f"m: sharded_convolve_signal, 2^22, {CONV_TAPS} taps, mesh of 1", N,
-         lambda: shd.sharded_convolve_signal(x, h, mesh)),
-        ("m: sharded_interpolatef x1.5, 2^20 complex, mesh of 1",
-         CFG3_N * 3 // 2,
-         lambda: shd.sharded_interpolatef(x3, sinc, 1.5, 0.0, 10, mesh)),
-        ("m: sharded_channelize_and_demod, config #5, mesh of 1", CHAN_N,
-         lambda: bt.sharded_channelize_and_demod(x5, proto5, CHAN_C, mesh)),
-        ("m: sharded_sum, 2^22 complex, mesh of 1", N,
-         lambda: shd.sharded_sum(x, mesh)),
-        ("m: sharded_statistics, 2^22 complex, mesh of 1 (host fetch)", N,
-         lambda: shd.sharded_statistics(x, mesh)),
-        (f"r: entry(): fir_fft_chain, {bentry.ENTRY_N}, "
-         f"{bentry.ENTRY_TAPS} complex taps (K1)", bentry.ENTRY_N,
-         lambda: e_fn(*e_args)),
-    ]
-    path_ms = {}
-    for name, outputs, fn in paths:
-        ms = path_ms[name] = median_ms(fn)
-        print(f"{name}: {ms:.4f} ms/call, "
-              f"{outputs / ms / 1e3:.1f} Msamples/s out on {smi}")
-        dev_ms, per_kernel = timing.device_ms(fn)
-        if "taps held" in name and dev_ms > 0:
-            # K6 stores (C, S) itself: the module runs no other kernel
-            assert all("channelize" in k for k in per_kernel), per_kernel
-        if dev_ms > 0:
-            print(f"{name}: device {dev_ms:.4f} ms/call (torch.profiler, "
-                  f"10 calls), idle share {1 - dev_ms / ms:.3f} of the "
-                  f"{ms:.4f} ms event time; kernels "
-                  + ", ".join(f"{k[:48]} {v * 1e3:.1f} us" for k, v in
-                              sorted(per_kernel.items(),
-                                     key=lambda kv: -kv[1])))
-        else:
-            print(f"{name}: device time not measured (the profiler showed "
-                  f"no device time)")
-    # k and l chunk by chunk as a stream runs them: the host's time to
-    # issue a chunk (perf_counter over the loop, no synchronize inside) and
-    # the wall time a chunk (to the synchronize after the last)
-    for name, proc, xin, chunk, st0 in (
-            ("k: StreamingFir", fir.process, xk, STREAM_CHUNK, state_k),
-            ("l: StreamingResampler x1.5", rs15.process, x3, STREAM_CHUNK,
-             state15),
-            ("l: StreamingResampler 160/147", rs_audio.process, xl_audio,
-             AUDIO_CHUNK, state_audio)):
-        nchunks = xin.shape[-1] // chunk
-        for _ in range(2):           # the second run is the one reported
-            state = st0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for k in range(nchunks):
-                _, state = proc(xin[k * chunk:(k + 1) * chunk], state)
-            t_host = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            t_wall = time.perf_counter() - t0
-        print(f"{name}: {nchunks} chunks of {chunk}, host "
-              f"{t_host / nchunks * 1e6:.1f} us to issue a chunk, wall "
-              f"{t_wall / nchunks * 1e6:.1f} us a chunk "
-              f"({xin.shape[-1] / t_wall / 1e6:.1f} Msamples/s in) on {smi}")
     dist.destroy_process_group()
-    # r's examples and harness by the wall clock, WAV I/O and process
-    # starts included
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        slow_down_music.main(src, slow)
-        walls.append(time.perf_counter() - t0)
-    print(f"r: slow_down_music, 60 s of 44.1 kHz stereo: wall "
-          f"{np.median(walls) * 1e3:.1f} ms (median of 3, runs "
-          f"{[round(w * 1e3, 1) for w in walls]} ms: read, one K4, write) "
-          f"on {smi}")
-    print(f"r: multihost.run(1, 1, {N}, {CONV_TAPS}): wall {mh_s:.2f} s "
-          f"(a host process and its rank started, five checks with their "
-          f"oracles, 2 x 22 timed calls); its sharded FIR "
-          f"{mh['timing']['sharded_fir_mesh_ms']:.4f} ms a call (CUDA "
-          f"events, 20 calls) on {smi}")
-    chains = in_turns("config #1 chain, 2^22, 128 taps",
-                      {"unfused": lambda: chain(xr, xi),
-                       "fused": lambda: chain_f(xr, xi)}, smi)
-    print(f"config #1 chain: unfused {N / chains['unfused'] / 1e3:.1f}, "
-          f"fused {N / chains['fused'] / 1e3:.1f} Msamples/s on {smi}")
 
-    # The typed layer against the same ops called as functions.
-    hamming = bt.HammingWindow()
-
-    def functions_path():
-        y = conv_ops.convolve_signal(xh, h, True)
-        w = hamming.sample(N, dtype=torch.float32, device=dev)
-        return torch.abs(bt.fft_ops.fft_shifted(y * w))
-
-    def typed_path():
-        return vh.convolve_signal(imp).windowed_fft(hamming).magnitude()
-
-    typed = in_turns(f"typed path (convolve_signal, {CONV_TAPS} taps -> "
-                     f"windowed_fft -> magnitude, 2^22) against the same ops "
-                     f"as functions", {"functions": functions_path,
-                                       "typed": typed_path}, smi)
-    print(f"typed layer: {(typed['typed'] - typed['functions']) * 1e3:.1f} "
-          f"us a call above the functions on {smi}")
-    for label, fn in (("functions", functions_path), ("typed", typed_path)):
-        dev_ms, _ = timing.device_ms(fn)
-        print(f"typed path, {label}: device {dev_ms:.4f} ms/call "
-              f"(torch.profiler, 10 calls)")
-
-    # q's times: convolve_signal32 through the C ABI against the typed
-    # call, in turns (each C call on a clone of the signal's handle, since a
-    # C call replaces its handle's vector), and the wall time of from_data32
-    # and get_data32 at 2^22 complex beside the typed constructor and
-    # to_numpy
-    q_sig = c_vec(xh_np)
-
-    def c_convolve():
-        handle = clib.clone32(q_sig)
-        clib.convolve_signal32(handle, q_taps)
-        clib.delete_vector32(handle)
-
-    name = (f"q: convolve_signal 2^22, {CONV_TAPS} complex taps, C ABI "
-            f"(convolve_signal32) vs the typed call")
-    fns = {"typed": lambda: vh.convolve_signal(imp), "C ABI": c_convolve}
-    med = in_turns(name, fns, smi)
-    print(f"q: the C ABI's convolve_signal32: "
-          f"{(med['C ABI'] - med['typed']) * 1e3:.1f} us a call above the "
-          f"typed call on {smi}")
-    for label, fn in fns.items():
-        dev_ms, per_kernel = timing.device_ms(fn)
-        if dev_ms > 0:
-            print(f"{name}, {label}: device {dev_ms:.4f} ms/call "
-                  f"(torch.profiler, 10 calls), idle share "
-                  f"{1 - dev_ms / med[label]:.3f} of the {med[label]:.4f} ms "
-                  f"event median; kernels "
-                  + ", ".join(f"{k[:48]} {v * 1e3:.1f} us" for k, v in
-                              sorted(per_kernel.items(),
-                                     key=lambda kv: -kv[1])[:6]))
-        else:
-            print(f"{name}, {label}: device time not measured (the profiler "
-                  f"showed no device time)")
-    q_out = np.empty(2 * N, np.float32)
-    q_ptr = q_out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-
-    def from_data():
-        clib.delete_vector32(c_vec(xh_np))
-
-    for label, fn in (
-            ("from_data32", from_data),
-            ("to_complex_time_vec(numpy)",
-             lambda: bt.to_complex_time_vec(xh_np, device=dev)),
-            ("get_data32", lambda: clib.get_data32(q_sig, q_ptr, 2 * N)),
-            ("to_numpy", lambda: vh.to_numpy())):
-        times = []
-        for rep in range(REPS + 3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            if rep >= 3:
-                times.append(time.perf_counter() - t0)
-        ms = float(np.median(times)) * 1e3
-        print(f"q: {label} of 2^22 complex64 (32 MiB): wall {ms:.4f} ms "
-              f"(median of {REPS}, host clock to a synchronize), "
-              f"{8 * N / ms / 1e6:.2f} GB/s on {smi}")
-    clib.delete_vector32(q_sig)
-    clib.delete_vector32(q_taps)
-
-    # budget="high" against None (both f32-exact), in turns.
-    for fused in (False, True):
-        in_turns(f"fir_fft_chain_planar(fused={fused}) budget, 2^22, 128 "
-                 f"taps", {
-                     "None": lambda: bt.fir_fft_chain_planar(
-                         xr, xi, taps, window, fused=fused),
-                     "high": lambda: bt.fir_fft_chain_planar(
-                         xr, xi, taps, window, budget="high", fused=fused)},
-                 smi)
-    assert torch.backends.cuda.matmul.allow_tf32 is False
-
-    # Each kernel at its main path's shape: kernel, plain version and
-    # library call in turns, and its bound from the same tensors.
+    # 4. the kernels line: each kernel at its main path's shape, kernel,
+    # plain version and library call in turns, and its bound from the same
+    # tensors by the benchmark's roofline arithmetic.
     rows = []
 
     def measure(name, source, replaces, launches, max_abs_err, fns, inputs,
                 output, flops):
         med = in_turns(name, fns, smi)
-        bound_ms, bound_by = timing.floor_ms(nbytes(*inputs, *output),
+        bound_ms, bound_by = floors.floor_ms(nbytes(*inputs, *output),
                                              flops)[:2]
         print(f"{name}: bound {bound_ms * 1e3:.2f} us ({bound_by}), "
               f"kernel at {bound_ms / med['kernel']:.3f} of it on {smi}")
@@ -2831,7 +2576,7 @@ def main(work):
     # Toeplitz FIR and window it replaced (its plain version, with held
     # band matrices) and K3 in circular mode on the same planes.  Its
     # operations count the cheaper of the direct sum and overlap-save, as
-    # every FIR floor does (timing.fir_flops): its bound is bytes.
+    # every FIR floor does (floors.fir_flops): its bound is bytes.
     H7 = osc.spectrum(taps.to(torch.complex64), CONV_FFT_LEN)
     bands7 = conv_ops.toeplitz_bands(taps, N)
     fir_fns = {
@@ -2844,7 +2589,7 @@ def main(work):
             "none (the JAX chain's FIR is XLA matmuls)", k7_launches,
             k7_abs_err_4m, fir_fns, (xr, xi, taps, window),
             (torch.empty(2, N, device=dev),),
-            (timing.fir_flops(TAPS) + 2) * N)
+            (floors.fir_flops(TAPS) + 2) * N)
     for label in ("plain", "K3 circular"):
         ms = graph_ms(fir_fns[label])
         print(f"fir_window yardstick {label}: device "
@@ -2865,15 +2610,15 @@ def main(work):
             (Ar, Ai), (torch.empty(2, 128, 32768, device=dev),),
             5 * N * 7)
     del Ar, Ai, A8
-    # o. profiling: time_op and throughput against phase 4's median, and a
-    # trace on disk
-    chain_name = paths[0][0]
+    # o. profiling: time_op and throughput against a CUDA-event median of
+    # the same call, and a trace on disk
+    chain_ms = median_ms(lambda: chain(xr, xi))
     t_op = profiling.time_op(chain, xr, xi, iters=REPS)
     t_put = profiling.throughput(chain, N, xr, xi, iters=REPS)
-    ratio = t_op["per_iter_s"] * 1e3 / path_ms[chain_name]
+    ratio = t_op["per_iter_s"] * 1e3 / chain_ms
     print(f"profiling.time_op FirFftChainPlanar: "
-          f"{t_op['per_iter_s'] * 1e3:.4f} ms/iter over {REPS}, {ratio:.3f} of phase 4's event median "
-          f"{path_ms[chain_name]:.4f} ms; throughput "
+          f"{t_op['per_iter_s'] * 1e3:.4f} ms/iter over {REPS}, {ratio:.3f} "
+          f"of the event median {chain_ms:.4f} ms; throughput "
           f"{t_put['msamples_per_s']:.1f} Msamples/s on {smi}")
     assert 0.5 <= ratio <= 2.0, ratio
     assert t_put["msamples_per_s"] > 0

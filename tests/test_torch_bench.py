@@ -15,8 +15,9 @@ programs of the same names, on the CPU.
   synthetic sessions, and the refusal of a capture above its floor;
 - ``bench_scaling.comm_bytes`` against the reference's
   ``_build_workloads`` models;
-- the floor model against hand counts, a FIR's operations the fewer of
-  the direct sum's and overlap-save's;
+- the floor model (``dspbench/floors.py``, which the programs read)
+  against hand counts, a FIR's operations the fewer of the direct sum's
+  and overlap-save's;
 - a CUDA-graph capture leaving the kernels' launch counts;
 - ``timing.device_ms`` summing kernels and not the spans' user
   annotations (a fake profiler window);
@@ -45,6 +46,7 @@ import torch
 
 from basic_dsp_tpu_torch.bench import (bench, bench_all, bench_scaling,
                                        round_summary, timing)
+from dspbench import floors
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SHIFT = 8
@@ -244,13 +246,13 @@ OS_384 = (2 * 5 * 4096 * 12 + 6 * 4096) / (4096 - 384 + 1)     # N = 4096
     (128, False, OS_128), (128, True, OS_128), (384, False, OS_384),
     (8, False, 4 * 8), (8, True, 8 * 8), (1, False, 4.0)])
 def test_fir_flops_is_the_cheaper_algorithm(m, complex_taps, want):
-    assert math.isclose(timing.fir_flops(m, complex_taps), want,
+    assert math.isclose(floors.fir_flops(m, complex_taps), want,
                         rel_tol=1e-12)
 
 
 def test_floor_model_against_hand_counts(inp):
-    assert timing.floor_ms(3.35e9, 0.0) == (1.0, "bytes", 1.0, 0.0)
-    assert timing.floor_ms(0.0, 67e9) == (1.0, "operations", 0.0, 1.0)
+    assert floors.floor_ms(3.35e9, 0.0) == (1.0, "bytes", 1.0, 0.0)
+    assert floors.floor_ms(0.0, 67e9) == (1.0, "operations", 0.0, 1.0)
     n, m = 1 << 22, 128
     nbytes, flops = bench.work(n, m)
     # planes 32 MiB, window 16, taps 512 B in; spectrum 16 MiB out; carry 16
@@ -258,11 +260,11 @@ def test_floor_model_against_hand_counts(inp):
     # the FIR by overlap-save (121.0 a sample; the direct sum's 512 is
     # more), window 2, FFT 5 x 22, magnitude 3
     assert math.isclose(flops, (OS_128 + 2 + 5 * 22 + 3) * n, rel_tol=1e-12)
-    fl, bound, bms, fms = timing.floor_ms(nbytes, flops)
+    fl, bound, bms, fms = floors.floor_ms(nbytes, flops)
     assert bound == "bytes" and math.isclose(fl, 0.02504, rel_tol=1e-3)
     assert math.isclose(fms, 0.014775, rel_tol=1e-3)
     # rc_fir_4m at full size: 20 bytes a sample, bound by them too
-    fl, bound, _, fms = timing.floor_ms(20 * n + 8 * m, OS_128 * n)
+    fl, bound, _, fms = floors.floor_ms(20 * n + 8 * m, OS_128 * n)
     assert bound == "bytes" and math.isclose(fl, 0.02504, rel_tol=1e-3)
     assert math.isclose(fms, 0.007575, rel_tol=1e-3)
     by = {c.metric: c for c in bench_all.configs(inp, "cpu", ab=True)}
@@ -271,7 +273,7 @@ def test_floor_model_against_hand_counts(inp):
     assert chan.nbytes == 16 * n5 + 4 * 8192
     assert chan.flops == (32 + 5 * 10 + 6) * n5
     # the bytes-read bound at full size: 32 MiB in, 16 MiB out, ~15 us
-    assert math.isclose(12 * (1 << 22) / timing.PEAK_BYTES * 1e6, 15.02,
+    assert math.isclose(12 * (1 << 22) / floors.PEAK_BYTES * 1e6, 15.02,
                         rel_tol=1e-3)
     n2 = inp["x_re"].shape[-1]
     assert math.isclose(by["rc_fir_4m"].flops, OS_128 * n2, rel_tol=1e-12)

@@ -141,17 +141,28 @@ def _imports(path):
             yield node.module or ""
 
 
-def test_port_imports_no_jax():
-    """Static scan of every module of the port and of chip_smoke.py, which
-    drives it on the card (sys.modules cannot tell: the test process
-    imports JAX for the reference)."""
+@pytest.mark.parametrize("banned", ["jax", "dspbench"])
+def test_port_imports_no_jax(banned):
+    """Static scan (sys.modules cannot tell: the test process imports JAX
+    for the reference and the benchmark's references):
+
+    - jax: no module of the port, nor chip_smoke.py, which drives it on
+      the card, imports JAX or the JAX package;
+    - dspbench: no module of the port outside ``bench/`` imports the
+      benchmark, whose roofline arithmetic (``dspbench/floors.py``) only
+      the port's benchmark programs read."""
     root = pathlib.Path(bt.__file__).resolve().parent
     files = sorted(p for p in root.rglob("*.py")
                    if "_build" not in p.relative_to(root).parts)
     assert len(files) >= 15
     assert root / "kernels" / "spectrum_cuda.py" in files
-    files.append(root.parent / "chip_smoke.py")
+    if banned == "jax":
+        files.append(root.parent / "chip_smoke.py")
+        tops = ("jax", "jaxlib", "basic_dsp_tpu")
+    else:
+        assert "dspbench" in _imports(root / "bench" / "bench.py")
+        files = [p for p in files if p.relative_to(root).parts[0] != "bench"]
+        tops = ("dspbench",)
     for path in files:
         for name in _imports(path):
-            top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "basic_dsp_tpu"), (path, name)
+            assert name.split(".")[0] not in tops, (path, name)
