@@ -9,8 +9,9 @@ version for a CPU tensor.
 
 Ported so far: the flagship FIR + FFT spectrum chain
 (:func:`pipelines.fir_fft_chain_planar`, :class:`FirFftChainPlanar`) and
-what it runs on, with kernel ``kernels.spectrum_cuda.rowfft_mag`` and, with
-``fused=True``, ``kernels.spectrum_cuda.fourstep_mag_fused``; and the
+what it runs on, with kernel ``kernels.spectrum_cuda.rowfft_mag`` (and
+``rowfft_mag_natural``: K1, then its transpose into spectrum order) and,
+with ``fused=True``, ``kernels.spectrum_cuda.fourstep_mag_fused``; and the
 convolution family of ``ops.conv_ops`` (the ``convolve_signal`` dispatch,
 its planar entry, overlap-save, analytic-function convolution, frequency
 multiplication, correlation) with the lookup tables of ``conv_types`` and
@@ -88,7 +89,9 @@ from .kernels.resample_cuda import (resample_direct_cuda,
 from .kernels.spectrum_cuda import (dif_spectrum_mag_cuda,
                                     fourstep_mag_fused,
                                     fourstep_mag_fused_plain, natural_flatten,
-                                    rowfft_mag, rowfft_mag_plain, supported)
+                                    rowfft_mag, rowfft_mag_natural,
+                                    rowfft_mag_natural_plain,
+                                    rowfft_mag_plain, supported)
 from .ops import conv_ops, fft_ops, fourstep, interp_ops, reorg_ops
 from . import parallel
 from .parallel import (ChannelizeAndDemodPlanar, channelize_and_demod,
@@ -156,7 +159,8 @@ __all__ = [
     "natural_flatten", "overlap_save_cuda", "parallel",
     "polyphase_channelizer", "reorg_ops", "resample_direct_cuda",
     "resample_direct_plain", "resample_rowblock_cuda",
-    "resample_rowblock_plain", "rowfft_mag", "rowfft_mag_plain",
+    "resample_rowblock_plain", "rowfft_mag", "rowfft_mag_natural",
+    "rowfft_mag_natural_plain", "rowfft_mag_plain",
     "set_default_config", "set_matmul_precision",
     "sharded_channelize_and_demod", "supported",
     "windowed_spectrum",

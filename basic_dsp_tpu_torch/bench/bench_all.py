@@ -138,7 +138,7 @@ def configs(inp: dict, device, ab: bool = False) -> list:
         "windowed_fft_magnitude_1m", cfg1, (dev(inp["sine"]), w1), 50, n1,
         16.0 * n1, n1 + floors.fft_flops(n1, real=True) + 3.0 * n1,
         "x, w read, |X| and the carry written; window 1, real FFT, "
-        "magnitude 3 a sample", ("K1",)))
+        "magnitude 3 a sample", ("K1n",)))
 
     n2 = inp["x_re"].shape[-1]
     taps = dev(inp["rc_taps"])

@@ -8,7 +8,9 @@
 // T[k1, j1*128 + j2] = A[k1, j1] * B[k1, j2] (A: (n1, L2), B: (n1, 128)).
 // Output: M (n1, L2, 128) f32 with
 //     M[k1, k1', k2s] = |D[k1, k1' + L2 * ((k2s + shift_cols) % 128)]|,
-// D the length-n2 DFT of each twiddled row.
+// D the length-n2 DFT of each twiddled row; rowfft_mag_natural adds
+// natural_order, which puts them in natural spectrum order, the (n1 * n2,)
+// f32 vector with M[k1, k1', k2s] at (k2s * L2 + k1') * n1 + k1.
 //
 // Each row is split along its own factorisation j = j1*128 + j2,
 // k = k1' + L2*k2:  D[k1' + L2 k2] = sum_j2 w_128^(j2 k2) w_n2^(j2 k1')
@@ -29,10 +31,13 @@
 //   L2 = 256, 16 of 8, a non-portable cluster size, at L2 = 512 and 1024).
 //   Block b owns the j2 columns b*NC .. b*NC + NC - 1: it reads them once,
 //   all its loads in flight together as cp.async copies (NC*4-byte
-//   segments of each j1 row, 64 bytes at L2 = 256), applies T in place,
-//   runs the length-L2 FFT down j1 for each column with the register-resident
-//   Stockham passes of csrc/fft_core.cuh (radix 16, then the rest), and
-//   keeps the result in its shared memory.
+//   segments of each j1 row, 64 bytes at L2 = 256), with each thread's
+//   factors of T in registers (the R values A[k1, j1] of its item of the
+//   first pass and B[k1, j2] of its column), runs the length-L2 FFT down
+//   j1 for each column with the register-resident Stockham passes of
+//   csrc/fft_core.cuh (radix 16, then the rest), the first pass
+//   multiplying each point by T as it reads it (no pass of its own over
+//   the slab), and keeps the result in its shared memory.
 // * cluster.sync().  Then block b takes the L2 / CS rows k1' = b*L2/CS ..:
 //   it gathers each row's 128 j2 values from the cluster's shared memories
 //   through distributed shared memory (map_shared_rank), times W[k1', j2].
@@ -85,23 +90,23 @@
 //            from the factored planes that K1 reads (0.4 MiB at 2^22);
 //   rows:    the cluster kernel, untwiddled.
 // Every twiddle comes from a table rounded once from double: no sincospi
-// per element.  Stage 1 applies T because the other design, T left to the
-// row kernel on load as K1 does, is slower on the H100: its in-place T
-// pass is a phase of its own (probes/phase_cuts.py K2 times both, and the
-// row stage after stage 1 and after an L2 flush).  Error grade: f32, as
-// K1 (no tensor cores: TF32 would round to ~1e-3).
+// per element.  Stage 1 applies T; the other design leaves T to the row
+// kernel's first pass, as K1 does (probes/phase_cuts.py K2 times both,
+// and the row stage after stage 1 and after an L2 flush).  Error grade:
+// f32, as K1 (no tensor cores: TF32 would round to ~1e-3).
 //
 // fourstep_stage1 (K8): stage 1 alone for the unfused chain, which runs
-// K1 with T on load after it.  Replaces no TPU kernel: the JAX chain
-// leaves stage 1 to XLA as the Karatsuba matmuls of
-// basic_dsp_tpu/ops/fourstep.py, which the port ran on cuBLAS as three
-// FP32 SIMT sgemms (3.2 GFLOP at 2^22, a dense O(n1) DFT) and three
-// elementwise passes over 16 MiB planes.  What bounds it on the H100:
-// bytes, 32 MiB of A in and 32 MiB of B out at 2^22 (~20 us at 3.35
-// TB/s); the column FFTs are ~0.15 GFLOP.  It is stage1_panels<n1>
-// above with the store's twiddle compiled out (a template argument, so
-// K2's instantiation keeps its code): B[k1, j] = sum_j1 w_n1^(k1 j1)
-// A[j1, j], stored untwiddled, for a power-of-two n1 in [8, 1024].
+// K1 with T after it (rowfft_mag_natural_launch, the spectrum in natural
+// order).  Replaces no TPU kernel: the JAX chain leaves stage 1 to XLA as
+// the Karatsuba matmuls of basic_dsp_tpu/ops/fourstep.py, which the port
+// ran on cuBLAS as three FP32 SIMT sgemms (3.2 GFLOP at 2^22, a dense
+// O(n1) DFT) and three elementwise passes over 16 MiB planes.  What
+// bounds it on the H100: bytes, 32 MiB of A in and 32 MiB of B out at
+// 2^22 (~20 us at 3.35 TB/s); the column FFTs are ~0.15 GFLOP.  It is
+// stage1_panels<n1> above with the store's twiddle compiled out (a
+// template argument, so K2's instantiation keeps its code): B[k1, j] =
+// sum_j1 w_n1^(k1 j1) A[j1, j], stored untwiddled, for a power-of-two n1
+// in [8, 1024].
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -202,9 +207,72 @@ struct RowLayout {
   __device__ __forceinline__ int lin(int e) const { return e; }
 };
 
+// The first pass of step 1 (radix R, stride 1, fft_core::pass's indexing
+// and arithmetic) with the big twiddle applied as it reads its points:
+// item w = threadIdx.x (at most one a thread, every geometry) of column t
+// reads x[r] = X[i + r n] and multiplies it by T = A[k1, i + r n] * B[k1,
+// c0 + t] (tar[r], tai[r] and tbr, tbi: the caller's registers) with
+// twiddle(), the products a pass of T over the slab would form.
+template <int R, int LOG2N, class Layout>
+__device__ __forceinline__ void pass_twiddled(
+    const Layout& lay, const float* sr, const float* si, float* dr,
+    float* di, const float (&tar)[R], const float (&tai)[R], float tbr,
+    float tbi, int ntrans) {
+  constexpr int n = 1 << LOG2N;
+  const int w = threadIdx.x;
+  if (w >= ntrans << LOG2N) return;
+  int t, i;
+  lay.item(w, LOG2N, t, i);
+  const int row = lay.row(t);
+  const int li = lay.lin(i);
+  float xr[R], xi[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int a = row + (li ^ lay.lin(r * n));
+    xr[r] = sr[a];
+    xi[r] = si[a];
+    twiddle(xr[r], xi[r], tar[r], tai[r], tbr, tbi);
+  }
+  fft_core::dft_regs<R, -1>(xr, xi);
+  const int lb = lay.lin(i * R);
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int a = row + (lb ^ lay.lin(q));
+    dr[a] = xr[q];
+    di[a] = xi[q];
+  }
+}
+
+// fft_core::run_16<-1, LOG2_L2> down step 1's columns with T applied in
+// its first pass (pass_twiddled), the later passes fft_core::run's.
+// Returns 1 when the result is in (yr, yi), 0 when in (xr, xi).
+template <int LOG2_L2, int R, class Layout>
+__device__ __forceinline__ int run_16_twiddled(
+    const Layout& col, float* xr, float* xi, float* yr, float* yi,
+    const float2* tw, const float (&tar)[R], const float (&tai)[R],
+    float tbr, float tbi, int nc) {
+  static_assert(LOG2_L2 <= 12, "plan_16 of at most three passes");
+  pass_twiddled<R, LOG2_L2 - fft_core::ilog2(R)>(col, xr, xi, yr, yi, tar,
+                                                 tai, tbr, tbi, nc);
+  __syncthreads();
+  if constexpr (LOG2_L2 <= 4) {
+    return 1;
+  } else if constexpr (LOG2_L2 <= 8) {
+    return 1 - fft_core::run<-1, LOG2_L2, 16, (1 << (LOG2_L2 - 4))>(
+                   col, yr, yi, xr, xi, tw, nc);
+  } else {
+    return 1 - fft_core::run<-1, LOG2_L2, 16, 16, (1 << (LOG2_L2 - 8))>(
+                   col, yr, yi, xr, xi, tw, nc);
+  }
+}
+
 // One cluster of CS blocks per row k1 (grid: (CS, n1)); see the note at
-// the top.
-template <int LOG2_L2>
+// the top.  FOLD: T applied in step 1's first pass, tar..tbi required;
+// else the rows as given (K2's rows).  The FOLD-false branch for a tar
+// given, T in a pass of its own over the slab, is reached by no launch
+// (launch_geometry takes FOLD for it); it stays so that K2's rows compile
+// to the code that probes/k2_parity.py holds them to.
+template <int LOG2_L2, bool FOLD>
 __global__ void __launch_bounds__(RowGeometry<LOG2_L2>::kThreads,
                                   RowGeometry<LOG2_L2>::kMinBlocks)
 rowfft_cluster(const float* __restrict__ br, const float* __restrict__ bi,
@@ -239,9 +307,9 @@ rowfft_cluster(const float* __restrict__ br, const float* __restrict__ bi,
 
   // Step 1: the (L2, NC) column slab of both planes as 16-byte cp.async
   // copies, all in flight at once (a row's NC columns are contiguous in
-  // both memories); then T in place.  blockDim.x is a multiple of NC, so
-  // a thread keeps one column t (and its factor B[k1, j2] of T) and steps
-  // down the rows j1.
+  // both memories).  With FOLD, each thread's factors of T load into
+  // registers meanwhile: its first-pass item w = threadIdx.x is column t =
+  // w mod NC and elements i + r L2 / R, i = w / NC.
   constexpr int per_row = nc >> 2;             // 16-byte chunks of a row
   constexpr int chunks = L2 * per_row;
   for (int q = threadIdx.x; q < 2 * chunks; q += blockDim.x) {
@@ -254,21 +322,43 @@ rowfft_cluster(const float* __restrict__ br, const float* __restrict__ bi,
                      (plane ? bi : br) + g);
   }
   cp_async::commit();
+  constexpr int R1 = 1 << plan1.log2r(0);      // the first pass's radix
+  constexpr int n_first = L2 / R1;
+  static_assert(nc * n_first <= G::kThreads, "a first-pass item a thread");
+  [[maybe_unused]] float fa_r[R1], fa_i[R1], fb_r = 0.0f, fb_i = 0.0f;
+  if constexpr (FOLD) {
+    if (static_cast<int>(threadIdx.x) < nc * n_first) {
+      const int i = threadIdx.x >> log2nc;
+      fb_r = tbr[k1 * kLanes + c0 + (threadIdx.x & (nc - 1))];
+      fb_i = tbi[k1 * kLanes + c0 + (threadIdx.x & (nc - 1))];
+#pragma unroll
+      for (int r = 0; r < R1; ++r) {
+        fa_r[r] = tar[k1 * L2 + i + r * n_first];
+        fa_i[r] = tai[k1 * L2 + i + r * n_first];
+      }
+    }
+  }
   cp_async::wait_all();
   __syncthreads();
-  if (tar != nullptr) {
-    const int t = threadIdx.x & (nc - 1);
-    const float b_r = tbr[k1 * kLanes + c0 + t];
-    const float b_i = tbi[k1 * kLanes + c0 + t];
-    for (int j1 = threadIdx.x >> log2nc; j1 < L2;
-         j1 += blockDim.x >> log2nc) {
-      const int a = col.word(j1, t);
-      twiddle(xr[a], xi[a], tar[k1 * L2 + j1], tai[k1 * L2 + j1], b_r, b_i);
+  int in_y;
+  if constexpr (FOLD) {
+    in_y = run_16_twiddled<LOG2_L2>(col, xr, xi, yr, yi, tw1, fa_r, fa_i,
+                                    fb_r, fb_i, nc);
+  } else {
+    if (tar != nullptr) {
+      const int t = threadIdx.x & (nc - 1);
+      const float b_r = tbr[k1 * kLanes + c0 + t];
+      const float b_i = tbi[k1 * kLanes + c0 + t];
+      for (int j1 = threadIdx.x >> log2nc; j1 < L2;
+           j1 += blockDim.x >> log2nc) {
+        const int a = col.word(j1, t);
+        twiddle(xr[a], xi[a], tar[k1 * L2 + j1], tai[k1 * L2 + j1], b_r,
+                b_i);
+      }
+      __syncthreads();
     }
-    __syncthreads();
+    in_y = fft_core::run_16<-1, LOG2_L2>(col, xr, xi, yr, yi, tw1, nc);
   }
-  const int in_y = fft_core::run_16<-1, LOG2_L2>(col, xr, xi, yr, yi, tw1,
-                                                 nc);
   const float* hr = in_y ? yr : xr;          // H'[k1', t] at col.word
   const float* hi = in_y ? yi : xi;
   float* gr = in_y ? xr : yr;                // the other buffer
@@ -318,6 +408,40 @@ rowfft_cluster(const float* __restrict__ br, const float* __restrict__ bi,
     const int k2 = ((idx & (kLanes - 1)) + shift_cols) & (kLanes - 1);
     const float vr = dr[r * kRowWords + k2], vi = di[r * kRowWords + k2];
     o[idx] = sqrtf(vr * vr + vi * vi);
+  }
+}
+
+// The (n1, L2, 128) magnitudes M of rowfft_cluster in natural spectrum
+// order: out[(k2s * L2 + k1') * n1 + k1] = M[k1, k1', k2s].  For each k1'
+// (grid z) this is the transpose of the (n1, 128) slice M[:, k1', :], in
+// tiles of kTile rows k1 by kTile columns k2s through shared memory
+// (rows padded to kTile + 1 words: conflict-free both ways), read as
+// 128-byte runs of k2s and written as 128-byte runs of k1, whole sectors
+// on both sides.  rowfft_cluster itself cannot store this order whole:
+// a cluster holds one row k1, so its stores in this order are 4 bytes
+// n1 * 4 bytes apart, a partial sector each, 4M of them at 2^22, which
+// cost more than this pass (PERF.md, Findings).
+constexpr int kTile = 32;
+constexpr int kTileRows = 8;    // threads (kTile, kTileRows)
+__global__ void __launch_bounds__(kTile * kTileRows)
+natural_order(const float* __restrict__ m, float* __restrict__ out, int n1,
+              int L2) {
+  __shared__ float tile[kTile][kTile + 1];
+  const int k2s0 = blockIdx.x * kTile;
+  const int k10 = blockIdx.y * kTile;
+  const int k1p = blockIdx.z;
+  for (int j = threadIdx.y; j < kTile; j += kTileRows) {
+    if (k10 + j < n1) {
+      tile[j][threadIdx.x] = m[(static_cast<size_t>(k10 + j) * L2 + k1p)
+                               * kLanes + k2s0 + threadIdx.x];
+    }
+  }
+  __syncthreads();
+  if (k10 + static_cast<int>(threadIdx.x) < n1) {
+    for (int j = threadIdx.y; j < kTile; j += kTileRows) {
+      out[(static_cast<size_t>(k2s0 + j) * L2 + k1p) * n1 + k10
+          + threadIdx.x] = tile[threadIdx.x][j];
+    }
   }
 }
 
@@ -500,7 +624,8 @@ cudaError_t set_smem(Kernel* kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// The row stage for L2 = 2^LOG2_L2 as one cluster launch on `s`.
+// The row stage for L2 = 2^LOG2_L2 as one cluster launch on `s`, T folded
+// into step 1's first pass where tar is given.
 template <int LOG2_L2>
 cudaError_t launch_geometry(const float* br, const float* bi,
                             const float* tar, const float* tai,
@@ -508,7 +633,8 @@ cudaError_t launch_geometry(const float* br, const float* bi,
                             const float* wr, const float* wi, float* out,
                             int n1, int shift_cols, cudaStream_t s) {
   using G = RowGeometry<LOG2_L2>;
-  auto* kernel = rowfft_cluster<LOG2_L2>;
+  auto* kernel = rowfft_cluster<LOG2_L2, false>;
+  if (tar != nullptr) kernel = rowfft_cluster<LOG2_L2, true>;
   cudaError_t e = set_smem(kernel, G::kSmem);
   if (e != cudaSuccess) return e;
   if (G::kCS > 8) {
@@ -591,6 +717,26 @@ int rowfft_mag_launch(const float* br, const float* bi,
   return static_cast<int>(launch_rows(
       br, bi, tar, tai, tbr, tbi, wr, wi, out, n1, L2, shift_cols,
       static_cast<cudaStream_t>(stream)));
+}
+
+// rowfft_mag_launch into the (n1, L2, 128) scratch `rows`, then
+// natural_order from it into `out`: the (n1 * L2 * 128,) spectrum in
+// natural order, M[k1, k1', k2s] at (k2s * L2 + k1') * n1 + k1.  Both
+// allocated by the caller.  Returns the cudaError_t of the launches (0 on
+// success); does not synchronise.
+int rowfft_mag_natural_launch(const float* br, const float* bi,
+                              const float* tar, const float* tai,
+                              const float* tbr, const float* tbi,
+                              const float* wr, const float* wi, float* rows,
+                              float* out, int n1, int L2, int shift_cols,
+                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = launch_rows(br, bi, tar, tai, tbr, tbi, wr, wi, rows, n1,
+                              L2, shift_cols, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(kLanes / kTile, (n1 + kTile - 1) / kTile, L2);
+  natural_order<<<grid, dim3(kTile, kTileRows), 0, s>>>(rows, out, n1, L2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches stage 1 and the row stage on `stream`: the (n1, L2, 128)

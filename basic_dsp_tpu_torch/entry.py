@@ -3,7 +3,8 @@
 
 ``entry()`` returns the flagship forward step, the FIR + windowed FFT
 magnitude chain, with its inputs: on the card it launches the stage-1
-kernel K8 and the row-FFT kernel K1 once each.
+kernel K8 and the row-FFT kernel K1 (its entry in spectrum order, K1n)
+once each.
 
 ``dryrun_multichip(n)`` runs the whole sharded pipeline once on a mesh of
 ``n`` ranks, at the JAX dry run's shapes (per-shard length 256, 31 taps):

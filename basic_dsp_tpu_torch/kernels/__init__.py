@@ -9,11 +9,12 @@ rather than return a result that autograd cannot see through."""
 
 
 def wrappers() -> dict:
-    """The eight kernel wrappers by kernel: K1 to K6 (the JAX package's six
+    """The kernel wrappers by kernel: K1 to K6 (the JAX package's six
     Pallas kernels, in the order of the port's records), K7 (the chain's
     FIR and window) and K8 (the unfused chain's stage 1), which the JAX
-    package leaves to XLA.  Each counts the kernels it launches in its
-    ``launches`` attribute."""
+    package leaves to XLA, and K1n, K1's entry in natural spectrum order
+    (K1, then its transpose; the unfused chain's row stage).  Each counts
+    the kernels it launches in its ``launches`` attribute."""
     from . import channelizer_cuda, fir_cuda, overlap_save_cuda
     from . import resample_cuda, spectrum_cuda
     return {"K1": spectrum_cuda.rowfft_mag,
@@ -23,7 +24,8 @@ def wrappers() -> dict:
             "K5": resample_cuda.resample_rowblock_cuda,
             "K6": channelizer_cuda.channelize_demod_cuda,
             "K7": fir_cuda.fir_window_cuda,
-            "K8": spectrum_cuda.stage1_cuda}
+            "K8": spectrum_cuda.stage1_cuda,
+            "K1n": spectrum_cuda.rowfft_mag_natural}
 
 
 def launch_counts() -> dict:

@@ -5,17 +5,20 @@
 four-step, applies the factored big twiddle, runs each row's length-n2
 FFT, folds the global fftshift into a 64-column rotation and returns
 magnitudes, in the layout (n1, L2, 128) of the JAX kernel's
-``permuted=False`` output.  :func:`fourstep_mag_fused` (K2) takes the
-windowed planes before stage 1 and runs both stages into the same
-layout: a column-FFT kernel, then the row kernel with the factored big
-twiddle.  :func:`stage1_cuda` (K8) is stage 1 alone, the DFT-n1 down the
-columns untwiddled, for the unfused chain that runs K1 after it.
+``permuted=False`` output; :func:`rowfft_mag_natural` follows the same
+launch with a tiled transpose into natural spectrum order, the (n,)
+vector that :func:`natural_flatten` copies them into.
+:func:`fourstep_mag_fused` (K2) takes the windowed planes before stage 1
+and runs both stages into the JAX layout: a column-FFT kernel, then the
+row kernel with the factored big twiddle.  :func:`stage1_cuda` (K8) is
+stage 1 alone, the DFT-n1 down the columns untwiddled, for the unfused
+chain that runs K1 after it.
 
 For a CUDA tensor each launches ``csrc/rowfft_mag.cu`` (the source says
 how and why) or raises; for a CPU tensor it runs its plain PyTorch
-version (:func:`rowfft_mag_plain`, :func:`fourstep_mag_fused_plain`,
-:func:`stage1_plain`).  The library is built at the first launch, never
-at import.
+version (:func:`rowfft_mag_plain`, :func:`rowfft_mag_natural_plain`,
+:func:`fourstep_mag_fused_plain`, :func:`stage1_plain`).  The library
+is built at the first launch, never at import.
 """
 from __future__ import annotations
 
@@ -137,6 +140,8 @@ def _lib() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.rowfft_mag_launch.argtypes = [vp] * 9 + [ci, ci, ci, vp]
     lib.rowfft_mag_launch.restype = ci
+    lib.rowfft_mag_natural_launch.argtypes = [vp] * 10 + [ci, ci, ci, vp]
+    lib.rowfft_mag_natural_launch.restype = ci
     lib.fourstep_mag_fused_launch.argtypes = [vp] * 11 + [ci, ci, ci, vp]
     lib.fourstep_mag_fused_launch.restype = ci
     lib.fourstep_stage1_launch.argtypes = [vp] * 4 + [ci, ci, vp]
@@ -144,6 +149,60 @@ def _lib() -> ctypes.CDLL:
     lib.rowfft_mag_error_string.argtypes = [ci]
     lib.rowfft_mag_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def rowfft_mag_natural_plain(Br: torch.Tensor, Bi: torch.Tensor,
+                             shift: bool = True, Tfac=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rowfft_mag_natural`:
+    :func:`natural_flatten` of :func:`rowfft_mag_plain`, the (n1 * n2,)
+    magnitudes in natural spectrum order."""
+    return natural_flatten(rowfft_mag_plain(Br, Bi, shift, Tfac))
+
+
+def _rows(wrapper, natural, Br, Bi, shift, Tfac, W) -> torch.Tensor:
+    """:func:`rowfft_mag` (``natural`` False) or
+    :func:`rowfft_mag_natural`: the checks, the CPU's plain version, the
+    launch, and one added to ``wrapper.launches`` after it."""
+    name = "rowfft_mag_natural" if natural else "rowfft_mag"
+    if Br.dim() != 2 or Br.shape != Bi.shape:
+        raise ValueError(f"Br, Bi must be equal 2-D shapes, got "
+                         f"{tuple(Br.shape)} and {tuple(Bi.shape)}")
+    n1, n2 = Br.shape
+    if not supported(n1, n2):
+        raise ValueError(f"{name}: unsupported geometry ({n1}, {n2})")
+    L2 = n2 // LANES
+    dev = Br.device
+    _check_planes("Br/Bi", (Br, Bi), [(n1, n2)] * 2, dev)
+    if Tfac is not None:
+        _check_planes("Tfac", Tfac, [(n1, L2)] * 2 + [(n1, LANES)] * 2, dev)
+    if not Br.is_cuda:
+        if dev.type == "cpu":
+            plain = rowfft_mag_natural_plain if natural else rowfft_mag_plain
+            return plain(Br, Bi, shift, Tfac)
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    _build.refuse_grad(name, Br, Bi, Tfac, W)
+    if W is None:
+        W = _held_twiddle(L2, n2, dev)
+    _check_planes("W", W, [(L2, LANES)] * 2, dev)
+    lib = _lib()
+    Br, Bi = _build.aligned(Br), _build.aligned(Bi)   # cp.async rows
+    M = torch.empty((n1, L2, LANES), dtype=torch.float32, device=dev)
+    tf = [p.data_ptr() for p in Tfac] if Tfac is not None else [None] * 4
+    head = (Br.data_ptr(), Bi.data_ptr(), *tf, W[0].data_ptr(),
+            W[1].data_ptr(), M.data_ptr())
+    tail = (n1, L2, LANES // 2 if shift else 0)
+    if natural:
+        out = torch.empty(n1 * n2, dtype=torch.float32, device=dev)
+        rc = _build.launch(dev, lib.rowfft_mag_natural_launch, *head,
+                           out.data_ptr(), *tail)
+    else:
+        out = M
+        rc = _build.launch(dev, lib.rowfft_mag_launch, *head, *tail)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.rowfft_mag_error_string(rc).decode())
+    _build.count_launch(wrapper)
+    return out
 
 
 @profiling.spanned("dsp.K1")
@@ -159,46 +218,35 @@ def rowfft_mag(Br: torch.Tensor, Bi: torch.Tensor, shift: bool = True,
     when None.
 
     Returns (n1, L2, 128) f32, M[k1, k1', k2s] = |X_row[k1' + L2 *
-    ((k2s + 64) % 128)]| (no rotation when ``shift`` is False); flatten
-    with :func:`natural_flatten`.  A CPU tensor takes
-    :func:`rowfft_mag_plain`; a CUDA tensor launches the kernel and adds
-    one to ``rowfft_mag.launches``.
+    ((k2s + 64) % 128)]| (no rotation when ``shift`` is False), the JAX
+    kernel's layout; flatten with :func:`natural_flatten`, or take
+    :func:`rowfft_mag_natural`, which transposes on the card.  A CPU
+    tensor takes :func:`rowfft_mag_plain`; a CUDA tensor launches the
+    kernel and adds one to ``rowfft_mag.launches``.
     """
-    if Br.dim() != 2 or Br.shape != Bi.shape:
-        raise ValueError(f"Br, Bi must be equal 2-D shapes, got "
-                         f"{tuple(Br.shape)} and {tuple(Bi.shape)}")
-    n1, n2 = Br.shape
-    if not supported(n1, n2):
-        raise ValueError(f"rowfft_mag: unsupported geometry ({n1}, {n2})")
-    L2 = n2 // LANES
-    dev = Br.device
-    _check_planes("Br/Bi", (Br, Bi), [(n1, n2)] * 2, dev)
-    if Tfac is not None:
-        _check_planes("Tfac", Tfac, [(n1, L2)] * 2 + [(n1, LANES)] * 2, dev)
-    if not Br.is_cuda:
-        if dev.type == "cpu":
-            return rowfft_mag_plain(Br, Bi, shift, Tfac)
-        raise ValueError(f"rowfft_mag: no kernel for device {dev}")
-    _build.refuse_grad("rowfft_mag", Br, Bi, Tfac, W)
-    if W is None:
-        W = _held_twiddle(L2, n2, dev)
-    _check_planes("W", W, [(L2, LANES)] * 2, dev)
-    lib = _lib()
-    Br, Bi = _build.aligned(Br), _build.aligned(Bi)   # cp.async rows
-    out = torch.empty((n1, L2, LANES), dtype=torch.float32, device=dev)
-    tf = [p.data_ptr() for p in Tfac] if Tfac is not None else [None] * 4
-    rc = _build.launch(
-        dev, lib.rowfft_mag_launch, Br.data_ptr(), Bi.data_ptr(), *tf,
-        W[0].data_ptr(), W[1].data_ptr(), out.data_ptr(), n1, L2,
-        LANES // 2 if shift else 0)
-    if rc != 0:
-        raise RuntimeError("rowfft_mag kernel launch failed: "
-                           + lib.rowfft_mag_error_string(rc).decode())
-    _build.count_launch(rowfft_mag)
-    return out
+    return _rows(rowfft_mag, False, Br, Bi, shift, Tfac, W)
 
 
 rowfft_mag.launches = 0
+
+
+@profiling.spanned("dsp.K1")
+def rowfft_mag_natural(Br: torch.Tensor, Bi: torch.Tensor,
+                       shift: bool = True, Tfac=None,
+                       W=None) -> torch.Tensor:
+    """:func:`rowfft_mag` with the magnitudes in natural spectrum order:
+    the (n1 * n2,) f32 vector ``natural_flatten(rowfft_mag(...))``, bit for
+    bit.  Arguments as :func:`rowfft_mag`.  A CPU tensor takes
+    :func:`rowfft_mag_natural_plain`; a CUDA tensor launches, from one C
+    entry, K1 into an (n1, L2, 128) scratch and ``natural_order``, a
+    transpose in tiles through shared memory that reads and writes whole
+    sectors (``csrc/rowfft_mag.cu``), and adds one to
+    ``rowfft_mag_natural.launches``, not to ``rowfft_mag.launches``.
+    """
+    return _rows(rowfft_mag_natural, True, Br, Bi, shift, Tfac, W)
+
+
+rowfft_mag_natural.launches = 0
 
 
 def fused_supported(n1: int, n2: int) -> bool:
@@ -406,18 +454,19 @@ fourstep_mag_fused.launches = 0
 
 def natural_flatten(M: torch.Tensor) -> torch.Tensor:
     """Flatten a :func:`rowfft_mag` (n1, L2, 128) magnitude block to the
-    natural shifted-spectrum order: flat index (k2s*L2 + k1')*n1 + k1."""
+    natural shifted-spectrum order: flat index (k2s*L2 + k1')*n1 + k1 (a
+    PyTorch copy; :func:`rowfft_mag_natural` runs K1's own transpose)."""
     return M.permute(2, 1, 0).reshape(-1)
 
 
 def dif_spectrum_mag_cuda(xw: torch.Tensor, n1: int = 0) -> torch.Tensor:
     """|fftshift(FFT(xw))| of a 1-D signal by the DIF four-step: stage 1,
-    then :func:`rowfft_mag` with the factored twiddle, then
-    :func:`natural_flatten`.  Stage 1 of a complex signal is
-    :func:`stage1_cuda` where :func:`stage1_supported` takes its geometry;
-    a real signal's, and any other, :func:`stage1_plain` (a real one's
-    two dots with the zero plane skipped).  Counterpart of
-    ``spectrum_pallas.dif_spectrum_mag_pallas`` on ``supported`` lengths."""
+    then :func:`rowfft_mag_natural` with the factored twiddle.  Stage 1 of
+    a complex signal is :func:`stage1_cuda` where :func:`stage1_supported`
+    takes its geometry; a real signal's, and any other,
+    :func:`stage1_plain` (a real one's two dots with the zero plane
+    skipped).  Counterpart of ``spectrum_pallas.dif_spectrum_mag_pallas``
+    on ``supported`` lengths."""
     from ..ops import fourstep
 
     n = xw.shape[-1]
@@ -433,4 +482,4 @@ def dif_spectrum_mag_cuda(xw: torch.Tensor, n1: int = 0) -> torch.Tensor:
         Br, Bi = stage1_plain(Ar, Ai)
     Tfac = tuple(torch.from_numpy(p).to(xw.device)
                  for p in fourstep._dif_twiddle_factored(n1, n2))
-    return natural_flatten(rowfft_mag(Br, Bi, shift=True, Tfac=Tfac))
+    return rowfft_mag_natural(Br, Bi, shift=True, Tfac=Tfac)

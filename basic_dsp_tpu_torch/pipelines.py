@@ -13,13 +13,14 @@
    columns) at a power-of-two n1 in [8, 1024]
    (``spectrum_cuda.stage1_supported``), else three Karatsuba matmuls
    (``ops.fourstep.stage1_planar``);
-3. the row stage, ``kernels.spectrum_cuda.rowfft_mag`` (the CUDA kernel on
-   the card), then one transpose into spectrum order.
+3. the row stage, ``kernels.spectrum_cuda.rowfft_mag_natural`` (K1 on the
+   card, storing the spectrum in natural order).
 
 With ``fused=True`` steps 2 and 3 are one launch,
 ``kernels.spectrum_cuda.fourstep_mag_fused`` (stage 1, then the row stage
-with the factored big twiddle).  :class:`FirFftChainPlanar` holds the chain's
-constants as buffers, so a call computes and does not rebuild them.
+with the factored big twiddle), then one transpose into spectrum order.
+:class:`FirFftChainPlanar` holds the chain's constants as buffers, so a
+call computes and does not rebuild them.
 
 ``modulation_chain_planar`` (config #4) pulse-shapes two PRBS symbol
 planes with raised-cosine taps through the polyphase resampler
@@ -96,7 +97,8 @@ def _planar_chain(xr, xi, taps, bands, window, Tfac, W, n1, n2, fused):
     unless ``fused``, ``dsp.stage1`` (one K8 launch, under its own
     ``dsp.K8``, where ``spectrum_cuda.stage1_supported`` takes the
     geometry; else the Karatsuba matmuls of ``stage1_plain``) and
-    ``dsp.K1``, or ``dsp.K2`` when ``fused``; then ``dsp.flatten``."""
+    ``dsp.K1`` (``rowfft_mag_natural``, the spectrum stored in natural
+    order), or ``dsp.K2`` when ``fused``, then ``dsp.flatten``."""
     with profiling.span("dsp.fir"):
         if fir_cuda.takes(xr, xi, taps):
             fr, fi = fir_cuda.fir_window_cuda(xr, xi, taps, window)
@@ -106,15 +108,15 @@ def _planar_chain(xr, xi, taps, bands, window, Tfac, W, n1, n2, fused):
     if fused:
         M = spectrum_cuda.fourstep_mag_fused(Ar, Ai, shift=True, W=W,
                                              Tfac=Tfac)
-    else:
-        with profiling.span("dsp.stage1"):
-            if spectrum_cuda.stage1_supported(n1, n2):
-                Br, Bi = spectrum_cuda.stage1_cuda(Ar, Ai)
-            else:
-                Br, Bi = spectrum_cuda.stage1_plain(Ar, Ai)
-        M = spectrum_cuda.rowfft_mag(Br, Bi, shift=True, Tfac=Tfac, W=W)
-    with profiling.span("dsp.flatten"):
-        return spectrum_cuda.natural_flatten(M)
+        with profiling.span("dsp.flatten"):
+            return spectrum_cuda.natural_flatten(M)
+    with profiling.span("dsp.stage1"):
+        if spectrum_cuda.stage1_supported(n1, n2):
+            Br, Bi = spectrum_cuda.stage1_cuda(Ar, Ai)
+        else:
+            Br, Bi = spectrum_cuda.stage1_plain(Ar, Ai)
+    return spectrum_cuda.rowfft_mag_natural(Br, Bi, shift=True, Tfac=Tfac,
+                                            W=W)
 
 
 def _geometry(n: int, n1: int, fused: bool):
@@ -148,8 +150,8 @@ def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
     (:func:`_check_budget`).
     ``fused=True`` runs stage 1 and the row stage as one launch
     (``spectrum_cuda.fourstep_mag_fused``, K2) instead of stage 1 (K8, or
-    the matmuls) and ``rowfft_mag`` (K1).  Builds the constants on every
-    call (the span ``dsp.constants`` in the call's ``dsp.chain``);
+    the matmuls) and ``rowfft_mag_natural`` (K1).  Builds the constants on
+    every call (the span ``dsp.constants`` in the call's ``dsp.chain``);
     :class:`FirFftChainPlanar` holds them."""
     with profiling.span("dsp.chain", xr):
         n1, n2 = _geometry(xr.shape[-1], n1, fused)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Whether K2's stage 1 (``stage1_panels`` in ``csrc/rowfft_mag.cu``) and
-K2's output are the same as in another tree of the repo, on an NVIDIA GPU.
+"""Whether the kernels of ``csrc/rowfft_mag.cu`` that K2 launches, and
+K1's output, are the same as in another tree of the repo, and K1's device
+time in both, on an NVIDIA GPU.
 
     python3 basic_dsp_tpu_torch/probes/k2_parity.py OTHER
 
@@ -11,24 +12,32 @@ history can take it so), or a git revision, which the probe unpacks with
 
 1. Builds both trees' ``rowfft_mag.cu`` with the package's nvcc flags and
    ``-Xptxas -v``, into ``basic_dsp_tpu_torch/_build/parity/`` (each tree
-   with its own ``csrc`` headers), and compares each ``stage1_panels``
-   instantiation that K2 launches (the store's twiddle on; a tree from
-   before that template argument names it by n1 alone): the registers,
-   stack frame and spill bytes ptxas reports, and the SASS that
-   ``cuobjdump -sass`` prints, instruction for instruction with the
-   addresses stripped.  It also prints ptxas's counts for the
-   instantiations without the twiddle (K8's), which only this tree may
-   have.
-2. Runs ``fourstep_mag_fused`` (K2) from each tree's package, each in a
-   process of its own, at the ten geometries of ``chip_smoke.py``'s
-   phase 1 on the same seeded planes, and compares the outputs bit for
-   bit.
+   with its own ``csrc`` headers), and compares each instantiation that
+   K2 launches: ``stage1_panels`` with the store's twiddle on (a tree from
+   before that template argument names it by n1 alone) and the row kernel
+   ``rowfft_cluster`` untwiddled (a tree from before the FOLD argument
+   names it by L2 alone): the registers, stack frame and spill bytes
+   ptxas reports, and the SASS that ``cuobjdump -sass`` prints,
+   instruction for instruction with the addresses stripped.  It also
+   prints ptxas's counts for the instantiations only one tree may have
+   (K8's stage 1, K1's folded twiddle).
+2. Runs ``fourstep_mag_fused`` (K2) and ``rowfft_mag`` (K1, with the
+   factored twiddle) from each tree's package, each tree in a process of
+   its own, at the ten geometries of ``chip_smoke.py``'s phase 1 on the
+   same seeded planes, and compares the outputs bit for bit.
+3. Times K1 at the chain's (128, 32768) in each tree, one tree at a time
+   in turns (other, this, this, other): ``rowfft_mag`` with the twiddle,
+   ``natural_flatten`` of it, and ``rowfft_mag_natural`` where the tree
+   has it, each the median over CUDA-graph replays of 8 calls that cycle
+   through 4 input pairs (128 MiB, beyond the 50 MB L2), in us a call.
 
-Prints one line per check and exits 1 on any difference.
+Prints one line per check and exits 1 on any difference of steps 1-2.
 """
 import concurrent.futures
+import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tarfile
@@ -44,6 +53,9 @@ GEOMETRIES = [(8, 256), (24, 4096), (128, 32768), (64, 131072), (16, 512),
 # a stage1_panels instantiation's mangled name: n1's log2, then the
 # store's twiddle where the tree has that argument
 PANELS = re.compile(r"stage1_panelsILi(\d+)E(?:Lb([01])E)?E")
+# a rowfft_cluster instantiation's: L2's log2, then FOLD where the tree
+# has it
+ROWS = re.compile(r"rowfft_clusterILi(\d+)E(?:Lb([01])E)?E")
 REGS = re.compile(r"Used (\d+) registers")
 STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                    r"(\d+) bytes spill loads")
@@ -66,11 +78,22 @@ def _other_tree(arg: str, out: Path) -> Path:
 
 
 def _key(name: str):
-    """(log2 n1, twiddle) of a ``stage1_panels`` symbol, else None."""
+    """("stage1", log2 n1, twiddle) of a ``stage1_panels`` symbol,
+    ("rows", log2 L2, fold) of a ``rowfft_cluster`` one (fold False for a
+    tree without it: its one row kernel folds nothing), else None."""
     m = PANELS.search(name)
-    if m is None:
-        return None
-    return int(m.group(1)), m.group(2) != "0"
+    if m is not None:
+        return "stage1", int(m.group(1)), m.group(2) != "0"
+    m = ROWS.search(name)
+    if m is not None:
+        return "rows", int(m.group(1)), m.group(2) == "1"
+    return None
+
+
+def _k2_keys(keys) -> list:
+    """The instantiations K2 launches: stage 1 twiddled, rows unfolded."""
+    return sorted(k for k in keys
+                  if (k[0] == "stage1") == k[2])
 
 
 def _build(tag: str, tree: Path, out: Path, nvcc: str, flags: list) -> tuple:
@@ -112,28 +135,92 @@ def _build(tag: str, tree: Path, out: Path, nvcc: str, flags: list) -> tuple:
     return {k: tuple(v) for k, v in ptxas.items()}, sass
 
 
-def _dump(tree: str, path: str) -> None:
-    """K2's outputs from ``tree``'s package at GEOMETRIES, saved to
-    ``path``."""
+def _import(tree: str):
     sys.path.insert(0, tree)
     import numpy as np
     import torch
     from basic_dsp_tpu_torch.kernels import spectrum_cuda as sc
+    from basic_dsp_tpu_torch.ops import fourstep
 
     assert Path(sc.__file__).resolve().is_relative_to(Path(tree)), sc.__file__
-    outs = []
+    return np, torch, sc, fourstep
+
+
+def _dump(tree: str, path: str) -> None:
+    """K2's and K1's outputs from ``tree``'s package at GEOMETRIES, saved
+    to ``path``."""
+    np, torch, sc, fourstep = _import(tree)
+    outs = {"K2": [], "K1": []}
     for n1, n2 in GEOMETRIES:
         rng = np.random.default_rng(n1 * 7 + n2)
         Ar, Ai = (torch.from_numpy(rng.standard_normal((n1, n2), np.float32))
                   .cuda() for _ in range(2))
-        outs.append(sc.fourstep_mag_fused(Ar, Ai, shift=True).cpu())
+        outs["K2"].append(sc.fourstep_mag_fused(Ar, Ai, shift=True).cpu())
+        T = tuple(torch.from_numpy(p).cuda()
+                  for p in fourstep._dif_twiddle_factored(n1, n2))
+        outs["K1"].append(sc.rowfft_mag(Ar, Ai, shift=True, Tfac=T).cpu())
     assert sc.fourstep_mag_fused.launches == len(GEOMETRIES)
+    assert sc.rowfft_mag.launches == len(GEOMETRIES)
     torch.save(outs, path)
+
+
+def _graph_us(torch, fn, inputs, calls=8, reps=15) -> float:
+    """Device us a call of ``fn(*inputs[i])``: ``calls`` calls cycling
+    through ``inputs`` captured in a CUDA graph, the median of ``reps``
+    replays between CUDA events."""
+    def loop():
+        return [fn(*inputs[c % len(inputs)]) for c in range(calls)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        loop()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        held = loop()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / calls)
+    del held, graph
+    return statistics.median(times)
+
+
+def _time(tree: str) -> None:
+    """Prints a JSON line of K1's device us at (128, 32768) from
+    ``tree``'s package."""
+    np, torch, sc, fourstep = _import(tree)
+    n1, n2 = 128, 32768
+    rng = np.random.default_rng(1)
+    inputs = []
+    T = tuple(torch.from_numpy(p).cuda()
+              for p in fourstep._dif_twiddle_factored(n1, n2))
+    W = sc.inner_twiddle(n2 // 128, n2, torch.device("cuda"))
+    for _ in range(4):
+        inputs.append(tuple(
+            torch.from_numpy(rng.standard_normal((n1, n2), np.float32))
+            .cuda() for _ in range(2)))
+    got = {"K1": _graph_us(torch, lambda a, b: sc.rowfft_mag(a, b, True, T,
+                                                             W), inputs),
+           "K1 and flatten": _graph_us(torch, lambda a, b: sc.natural_flatten(
+               sc.rowfft_mag(a, b, True, T, W)), inputs)}
+    if hasattr(sc, "rowfft_mag_natural"):
+        got["K1n"] = _graph_us(torch, lambda a, b: sc.rowfft_mag_natural(
+            a, b, True, T, W), inputs)
+    print(json.dumps(got))
 
 
 def main(argv) -> int:
     if len(argv) == 4 and argv[1] == "--dump":
         _dump(argv[2], argv[3])
+        return 0
+    if len(argv) == 3 and argv[1] == "--time":
+        _time(argv[2])
         return 0
     if len(argv) != 2:
         print(__doc__)
@@ -168,33 +255,50 @@ def main(argv) -> int:
                                    f"{proc.stderr[-4000:]}")
 
     same = True
-    k2_keys = sorted(k for k in ptx_o if k[1])
-    if not k2_keys:
-        print("no stage1_panels instantiation found in the other tree")
+    k2_keys = _k2_keys(ptx_o)
+    if not any(k[0] == "stage1" for k in k2_keys) or not any(
+            k[0] == "rows" for k in k2_keys):
+        print("no stage1_panels or rowfft_cluster instantiation found in "
+              "the other tree")
         same = False
     for key in k2_keys:
-        n1 = 1 << key[0]
         a, b = sass_o.get(key), sass_t.get(key)
         eq_ptx = ptx_o[key] == ptx_t.get(key)
         eq_sass = a is not None and a == b
         same &= eq_ptx and eq_sass
-        print(f"stage1_panels<n1={n1}, twiddle>: ptxas (registers, stack, "
-              f"spill stores, spill loads) other {ptx_o[key]}, this "
-              f"{ptx_t.get(key)}, same {eq_ptx}; SASS other "
-              f"{None if a is None else len(a)} instructions, this "
-              f"{None if b is None else len(b)}, identical {eq_sass}",
+        what = (f"stage1_panels<n1={1 << key[1]}, twiddle>" if key[0] ==
+                "stage1" else f"rowfft_cluster<L2={1 << key[1]}> untwiddled "
+                "(K2's rows)")
+        print(f"{what}: ptxas (registers, stack, spill stores, spill loads) "
+              f"other {ptx_o[key]}, this {ptx_t.get(key)}, same {eq_ptx}; "
+              f"SASS other {None if a is None else len(a)} instructions, "
+              f"this {None if b is None else len(b)}, identical {eq_sass}",
               flush=True)
-    for key in sorted(k for k in ptx_t if not k[1]):
-        print(f"stage1_panels<n1={1 << key[0]}, no twiddle> (K8): ptxas "
-              f"{ptx_t[key]}, SASS {len(sass_t.get(key, []))} instructions")
+    for tag, ptx, sass in (("other", ptx_o, sass_o), ("this", ptx_t, sass_t)):
+        for key in sorted(set(ptx) - set(k2_keys)):
+            print(f"{tag}: {key}: ptxas {ptx[key]}, SASS "
+                  f"{len(sass.get(key, []))} instructions")
 
     got_o = torch.load(out / "k2_other.pt")
     got_t = torch.load(out / "k2_this.pt")
-    bits = [bool(torch.equal(a, b)) for a, b in zip(got_o, got_t)]
-    same &= len(bits) == len(GEOMETRIES) and all(bits)
-    for (n1, n2), eq in zip(GEOMETRIES, bits):
-        print(f"K2 at ({n1}, {n2}): bit for bit {eq}")
-    print(f"K2 parity: {'same' if same else 'DIFFERENT'}", flush=True)
+    for kernel in ("K2", "K1"):
+        bits = [bool(torch.equal(a, b))
+                for a, b in zip(got_o[kernel], got_t[kernel])]
+        same &= len(bits) == len(GEOMETRIES) and all(bits)
+        for (n1, n2), eq in zip(GEOMETRIES, bits):
+            print(f"{kernel} at ({n1}, {n2}): bit for bit {eq}")
+    print(f"K2 and K1 parity: {'same' if same else 'DIFFERENT'}", flush=True)
+
+    for tag in ("other", "this", "this", "other"):
+        proc = subprocess.run([sys.executable, __file__, "--time",
+                               str(trees[tag])], capture_output=True,
+                              text=True)
+        if proc.returncode:
+            raise RuntimeError(f"K1 timing of {tag} failed:\n"
+                               f"{proc.stderr[-4000:]}")
+        print(f"K1 at (128, 32768), {tag}, device us a call (CUDA-graph "
+              f"replay, 4 input pairs): {proc.stdout.strip()} on {smi}",
+              flush=True)
     return 0 if same else 1
 
 

@@ -40,9 +40,10 @@ from basic_dsp_tpu_torch.parallel import channelizer as chz  # noqa: E402
 OUT = _build.BUILD_DIR / "cuts"
 REPS = 50
 
-K1_FFT1 = ("const int in_y = fft_core::run_16<-1, LOG2_L2>(col, xr, xi, yr, "
-           "yi, tw1,\n                                                 nc);",
-           "const int in_y = 0;")
+# K1 with the twiddle: the step-1 FFT with T in its first pass
+K1_FFT1 = ("in_y = run_16_twiddled<LOG2_L2>(col, xr, xi, yr, yi, tw1, fa_r, "
+           "fa_i,\n                                    fb_r, fb_i, nc);",
+           "in_y = 0;")
 K1_FFT2 = ("const int in_f = fft_core::run_16<-1, 7>(RowLayout<G::kLog2Rows>{}, "
            "gr,\n                                           gi, fr, fi, tw2, "
            "rows);", "const int in_f = 0;")
@@ -191,7 +192,7 @@ K3_CUTS = {
     "no H loads": [("G::kHShared ? hs[i + q * PM] : __ldg(h + i + q * PM);",
                     "make_float2(0.5f, 0.25f);")],
     "H from L2, not shared memory": [
-        ("static constexpr bool kHShared = LOG2N <= 13;",
+        ("static constexpr bool kHShared = !BANK && LOG2N <= 13;",
          "static constexpr bool kHShared = false;")],
     "no twiddle table fill": [("  fft_core::TwoLevel<LOG2N>::fill(tab);\n",
                                "")],
@@ -200,7 +201,7 @@ K3_CUTS = {
     "three blocks an SM (85 registers), H from L2": [
         ("static constexpr int kMinBlocks = LOG2N <= 12 ? 2 : 1;",
          "static constexpr int kMinBlocks = LOG2N <= 12 ? 3 : 1;"),
-        ("static constexpr bool kHShared = LOG2N <= 13;",
+        ("static constexpr bool kHShared = !BANK && LOG2N <= 13;",
          "static constexpr bool kHShared = false;")],
 }
 

@@ -13,6 +13,9 @@ Phases (any failure raises and exits non-zero):
    compiler), all started together;
 2. kernels vs plain, on the card, <= 2e-6 relative to the maximum:
    ``rowfft_mag`` (K1) against ``rowfft_mag_plain`` at five geometries,
+   ``rowfft_mag_natural`` (K1's entry in spectrum order) against
+   ``natural_flatten(rowfft_mag(...))`` bit for bit at those and the
+   ten below, and without the twiddle or the shift at the 4M geometry,
    ``fourstep_mag_fused`` (K2) against ``fourstep_mag_fused_plain`` at
    ten, among them two non-power-of-two n1 (the direct sum), every
    power-of-two n1 from 8 to 1024 (each a compiled stage-1 plan), the 4M
@@ -45,18 +48,20 @@ Phases (any failure raises and exits non-zero):
 3. main paths, each with every launch count set to 0 just before it and
    read just after:
    a. the spectrum chain: ``FirFftChainPlanar`` at n = 2^22 with 128
-      raised-cosine taps and a Hamming window (one K7, one K8 and one K1
-      launch; its profiled call runs no ``aten::mm`` and no gemm kernel),
+      raised-cosine taps and a Hamming window (one K7, one K8 and one K1n
+      launch, no ``rowfft_mag`` launch; its profiled call runs no
+      ``aten::mm``, no gemm kernel, one ``rowfft_cluster`` with the
+      twiddle folded, one ``natural_order`` and no elementwise copy),
       checked against a float64 oracle (<= 5e-6 relative); then
       ``fir_fft_chain`` and ``windowed_spectrum`` once each (no K7, one K8
-      each: their complex stage 1);
+      and one K1n each: their complex stage 1 and the row stage);
    b. the long-tap convolution: ``conv_ops.convolve_signal_planar`` at
       n = 2^22 with 384 complex taps (fft_len 4096), against a float64
       oracle (<= 5e-6), one K3 launch, and its profile must show K3 and
       the ops of the taps' spectrum H alone; then ``convolve_signal``
       once, and
       ``fir_fft_chain`` with 384 raised-cosine taps (its overlap-save FIR
-      runs on ``torch.fft``, its spectrum through ``rowfft_mag``);
+      runs on ``torch.fft``, its spectrum through ``rowfft_mag_natural``);
    c. config #3: ``interp_ops.interpolatef`` of 2^20 complex samples x 1.5
       with ``SincFunction``, conv_len 10 (K4);
    d. config #4: ``ModulationChainPlanar(0.35, 10.0, 0.0, 10)`` on 2^17
@@ -94,7 +99,7 @@ Phases (any failure raises and exits non-zero):
       complex grid against a float64 einsum oracle (<= 5e-6); no kernel;
    j. the flagship API: ``fourstep.dit_spectrum_mag`` at 2^22 (<= 5e-6,
       no kernel); ``fir_fft_chain_planar`` with each budget (None, "high",
-      "high-xla", "high-kernel"), unfused (one K7, one K8 and one K1
+      "high-xla", "high-kernel"), unfused (one K7, one K8 and one K1n
       launch each) and fused (one K7 and one K2 launch each), against the
       float64
       oracle (<= 5e-6, every
@@ -200,11 +205,12 @@ Phases (any failure raises and exits non-zero):
       ``interpolate_lin`` / ``interpolate_hermite`` in four cases
       (<= 2e-4).  Every one of the two smokes' checks runs here; the
       ``kernels`` line's launches include phase s's;
-4. the kernels line, the script's one timing output: each kernel (K1-K8)
-   at its main path's shape against its plain version and its library
-   call (one PyTorch call computing the same function, where there is
-   one), in turns (CUDA-event medians of 20 after warm-up); its device
-   time from a CUDA-graph replay of its calls (``graph_ms``; the row's
+4. the kernels line, the script's one timing output: each kernel (K1-K8,
+   and K1n, K1's entry in spectrum order, beside its yardstick K1 and the
+   flatten's copy) at its main path's shape against its plain version and
+   its library call (one PyTorch call computing the same function, where
+   there is one), in turns (CUDA-event medians of 20 after warm-up); its
+   device time from a CUDA-graph replay of its calls (``graph_ms``; the row's
    ``device_ms``, null below the kernel's bound) beside what
    ``torch.profiler`` reads, which has dropped kernel events on the card;
    and its bound, the larger of its compulsory bytes over 3.35 TB/s and
@@ -270,6 +276,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -831,7 +838,7 @@ def phase_t(work):
     bkernels.reset_launch_counts()
     assert timing.tf32_off(), "TF32 must be off"
     saved = bt.default_config()     # the programs pin their knobs
-    for env, want in (({}, {"K7": 1, "K8": 1, "K1": 1}),
+    for env, want in (({}, {"K7": 1, "K8": 1, "K1n": 1}),
                       ({"BENCH_FUSED": "1"}, {"K7": 1, "K2": 1})):
         out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -955,7 +962,8 @@ def main(work):
     reset_counts = bkernels.reset_launch_counts
 
     def other_launches():
-        return (sc.rowfft_mag.launches + sc.fourstep_mag_fused.launches
+        return (sc.rowfft_mag.launches + sc.rowfft_mag_natural.launches
+                + sc.fourstep_mag_fused.launches
                 + osc.conv_blocks_cuda.launches
                 + rsc.resample_direct_cuda.launches
                 + rsc.resample_rowblock_cuda.launches)
@@ -990,6 +998,26 @@ def main(work):
         assert err <= KERNEL_TOL, (n1, n2, err)
         if (n1, n2) == (128, 32768):
             abs_err_4m = float((got - ref).abs().max())
+
+    # K1's natural entry: the same launch storing in spectrum order, bit
+    # for bit what the flatten of rowfft_mag's layout gives
+    k1n_abs_err_4m = None
+    natural_cases = [(n1, n2, True, True) for n1, n2 in dict.fromkeys(
+        GEOMETRIES + FUSED_GEOMETRIES)] + [(128, 32768, False, False)]
+    for n1, n2, shift, twiddled in natural_cases:
+        Br, Bi = planes(n1, n2)
+        T = tfac(n1, n2) if twiddled else None
+        got = sc.rowfft_mag_natural(Br, Bi, shift=shift, Tfac=T)
+        ref = sc.natural_flatten(sc.rowfft_mag(Br, Bi, shift=shift, Tfac=T))
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, ref))
+        print(f"rowfft_mag_natural vs natural_flatten(rowfft_mag) at ({n1}, "
+              f"{n2}), shift {shift}, Tfac {twiddled}: bit for bit {same}")
+        assert got.shape == (n1 * n2,) and same, (n1, n2, shift, twiddled)
+        if (n1, n2, twiddled) == (128, 32768, True):
+            plain = sc.rowfft_mag_natural_plain(Br, Bi, True, T)
+            k1n_abs_err_4m = float((got - plain).abs().max())
+    assert sc.rowfft_mag_natural.launches == len(natural_cases)
 
     k2_abs_err_4m = None
     row_launches = sc.rowfft_mag.launches
@@ -1181,17 +1209,18 @@ def main(work):
     reset_counts()
     out = chain(xr, xi)
     torch.cuda.synchronize()
-    k1_launches = sc.rowfft_mag.launches
+    k1n_launches = sc.rowfft_mag_natural.launches
     k7_launches = fcu.fir_window_cuda.launches
     k8_launches = sc.stage1_cuda.launches
     print(f"main path: FirFftChainPlanar n={N} (n1={chain.n1}, "
-          f"n2={chain.n2}), rowfft_mag launches: {k1_launches}, "
-          f"fir_window_cuda launches: {k7_launches}, stage1_cuda launches: "
-          f"{k8_launches}")
-    assert k1_launches >= 1, "the main path did not launch rowfft_mag"
+          f"n2={chain.n2}), rowfft_mag_natural launches: {k1n_launches}, "
+          f"rowfft_mag launches: {sc.rowfft_mag.launches}, fir_window_cuda "
+          f"launches: {k7_launches}, stage1_cuda launches: {k8_launches}")
+    assert k1n_launches == 1, "the chain's row stage: not one K1n"
+    assert sc.rowfft_mag.launches == 0, "the chain launched rowfft_mag"
     assert k7_launches == 1, "the chain's FIR and window: not one K7"
     assert k8_launches == 1, "the chain's stage 1: not one K8"
-    first = (k1_launches, k7_launches, k8_launches)
+    first = (k1n_launches, k7_launches, k8_launches)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1203,12 +1232,28 @@ def main(work):
           f"{sorted(k for k in ops if 'gemm' in k.lower())}")
     assert "aten::mm" not in ops and not any("gemm" in k.lower()
                                              for k in ops), sorted(ops)
+    # the row stage: one K1 launch with T folded, one natural_order
+    # transpose, and no PyTorch copy into spectrum order
+    rows_k = [(e.key, e.count) for e in prof.key_averages()
+              if "rowfft_cluster" in e.key or "natural_order" in e.key]
+    copies = sorted(k for k in ops if "elementwise_kernel" in k)
+    print(f"main path: FirFftChainPlanar's profiled call: row-stage kernels "
+          f"{[(k[:64], c) for k, c in rows_k]}, elementwise kernels "
+          f"{copies}")
+    assert sorted(c for _, c in rows_k) == [1, 1], rows_k
+    assert any(re.search(r"rowfft_cluster<\d+, true>", k)
+               for k, _ in rows_k), rows_k
+    assert any("natural_order" in k for k, _ in rows_k), rows_k
+    assert not copies, copies
     # the profiled call launches what the first did, read from the counters
-    k1_launches = sc.rowfft_mag.launches
+    k1n_launches = sc.rowfft_mag_natural.launches
     k7_launches = fcu.fir_window_cuda.launches
     k8_launches = sc.stage1_cuda.launches
-    assert (k1_launches, k7_launches, k8_launches) == tuple(
-        2 * c for c in first), (first, k1_launches, k7_launches, k8_launches)
+    assert (k1n_launches, k7_launches, k8_launches) == tuple(
+        2 * c for c in first), (first, k1n_launches, k7_launches,
+                                k8_launches)
+    assert sc.rowfft_mag.launches == 0
+    k1_launches = 0
     assert out.shape == (N,) and out.dtype == torch.float32
     assert bool(torch.isfinite(out).all())
     err = rel_err(out.double(), ref)
@@ -1216,7 +1261,7 @@ def main(work):
           f"(tol {CHAIN_TOL})")
     assert err <= CHAIN_TOL, err
 
-    before = sc.rowfft_mag.launches
+    before = sc.rowfft_mag_natural.launches
     got = bt.fir_fft_chain(torch.complex(xr, xi), taps, window)
     torch.cuda.synchronize()
     err = rel_err(got.double(), ref)
@@ -1227,7 +1272,8 @@ def main(work):
     err = rel_err(got.double(), oracle(xr, xi, taps, window, fir=False))
     print(f"windowed_spectrum vs oracle: {err:.3e}")
     assert got.shape == (N,) and err <= CHAIN_TOL, err
-    assert sc.rowfft_mag.launches == before + 2
+    assert sc.rowfft_mag_natural.launches == before + 2
+    assert sc.rowfft_mag.launches == 0
     # fir_fft_chain's FIR is conv_ops.toeplitz_conv on complex64: no K7;
     # both spectra's complex stage 1 is K8
     assert fcu.fir_window_cuda.launches == 2
@@ -1275,14 +1321,14 @@ def main(work):
         assert set(path_ops) - set(k3_ops) <= set(h_ops), (path_ops, h_ops)
     del conv_ref, got, cr, ci
     taps_long = rc_taps(CONV_TAPS, dev)
-    before = sc.rowfft_mag.launches
+    before = sc.rowfft_mag_natural.launches
     got = bt.fir_fft_chain(torch.complex(xr, xi), taps_long, window)
     torch.cuda.synchronize()
     err = rel_err(got.double(), oracle(xr, xi, taps_long, window))
     print(f"fir_fft_chain, {CONV_TAPS} taps (torch.fft overlap-save FIR) "
           f"vs oracle: {err:.3e}")
     assert got.shape == (N,) and err <= CHAIN_TOL, err
-    assert sc.rowfft_mag.launches == before + 1
+    assert sc.rowfft_mag_natural.launches == before + 1
     del got
 
     # 3c. main path: config #3, x1.5 of 2^20 complex samples (Sinc, L 10)
@@ -1584,17 +1630,19 @@ def main(work):
     ref = oracle(xr, xi, taps, window)
     for fused in (False, True):
         outs = {}
-        counter = sc.fourstep_mag_fused if fused else sc.rowfft_mag
+        counter = (sc.fourstep_mag_fused if fused
+                   else sc.rowfft_mag_natural)
         for budget in BUDGETS:
             reset_counts()
             outs[budget] = bt.fir_fft_chain_planar(xr, xi, taps, window,
                                                    budget=budget, fused=fused)
             torch.cuda.synchronize()
-            launches = (sc.rowfft_mag.launches,
+            launches = (sc.rowfft_mag_natural.launches,
                         sc.fourstep_mag_fused.launches, other_launches())
             err = rel_err(outs[budget].double(), ref)
             print(f"main path: fir_fft_chain_planar(budget={budget!r}, "
-                  f"fused={fused}) rowfft_mag launches: {launches[0]}, "
+                  f"fused={fused}) rowfft_mag_natural launches: "
+                  f"{launches[0]}, "
                   f"fourstep_mag_fused launches: {launches[1]}, K1-K5 together: "
                   f"{launches[2]}; vs float64 oracle: {err:.3e} relative to "
                   f"max (tol {CHAIN_TOL}); allow_tf32 after: "
@@ -2217,7 +2265,7 @@ def main(work):
           f"complex taps, Hamming: {err:.3e} from the float64 oracle (tol "
           f"{CHAIN_TOL}); launches {fired}")
     assert e_out.shape == (bentry.ENTRY_N,) and err <= CHAIN_TOL, err
-    assert fired["K1"] == fired["K8"] == 1 and sum(fired.values()) == 2, \
+    assert fired["K1n"] == fired["K8"] == 1 and sum(fired.values()) == 2, \
         fired
 
     t0 = time.perf_counter()
@@ -2365,6 +2413,8 @@ def main(work):
     refusals = [
         ("rowfft_mag", lambda a: sc.rowfft_mag(a, Bi),
          lambda a: sc.rowfft_mag_plain(a, Bi), Br),
+        ("rowfft_mag_natural", lambda a: sc.rowfft_mag_natural(a, Bi),
+         lambda a: sc.rowfft_mag_natural_plain(a, Bi), Br),
         ("fourstep_mag_fused", lambda a: sc.fourstep_mag_fused(a, Ai),
          lambda a: sc.fourstep_mag_fused_plain(a, Ai), Ar),
         ("conv_blocks_cuda (circular_conv_cuda)",
@@ -2425,6 +2475,7 @@ def main(work):
           f"dry run's and the multi-host rank's as their records report "
           f"them)")
     k1_launches += r_launches["K1"]
+    k1n_launches += r_launches["K1n"]
     os_launches += r_launches["K3"]
     cfg3_launches += r_launches["K4"]
     audio_launches += r_launches["K5"]
@@ -2435,6 +2486,7 @@ def main(work):
 
     s_launches = phase_s(work)
     k1_launches += s_launches["K1"]
+    k1n_launches += s_launches["K1n"]
     fused_launches += s_launches["K2"]
     os_launches += s_launches["K3"]
     cfg3_launches += s_launches["K4"]
@@ -2491,6 +2543,25 @@ def main(work):
              "library": lambda: torch.fft.fft(C, dim=-1)},
             (Br, Bi, *T, *W), (torch.empty(n1, L2, 128, device=dev),),
             N * (6 + 5 * np.log2(n2) + 4))
+    # K1's natural entry: the same bytes and operations, the magnitudes
+    # stored in spectrum order; yardstick, the path it replaces (K1, then
+    # the flatten's copy)
+    k1n_fns = {
+        "plain": lambda: sc.rowfft_mag_natural_plain(Br, Bi, True, T),
+        "kernel": lambda: sc.rowfft_mag_natural(Br, Bi, True, T, W),
+        "library": lambda: torch.fft.fft(C, dim=-1),
+        "K1 and flatten": lambda: sc.natural_flatten(
+            sc.rowfft_mag(Br, Bi, True, T, W))}
+    measure("rowfft_mag_natural (128, 32768)",
+            "basic_dsp_tpu_torch/csrc/rowfft_mag.cu",
+            "basic_dsp_tpu/kernels/spectrum_pallas.py:471 and the "
+            "natural_flatten copy", k1n_launches, k1n_abs_err_4m, k1n_fns,
+            (Br, Bi, *T, *W), (torch.empty(N, device=dev),),
+            N * (6 + 5 * np.log2(n2) + 4))
+    ms = graph_ms(k1n_fns["K1 and flatten"])
+    print(f"rowfft_mag_natural yardstick K1 and flatten: device "
+          + ("did not capture" if ms is None else f"{ms * 1e3:.1f} us/call")
+          + f" (CUDA-graph replay) on {smi}")
     Ar, Ai = planes(n1, n2)
     A = torch.complex(Ar, Ai).reshape(-1)
     measure("fourstep_mag_fused (128, 32768)",
@@ -2637,7 +2708,8 @@ def main(work):
     # t. the benchmark programs, after phase 4's timings; u. K3's bank
     t_launches = phase_t(work)
     u_launches = phase_u(work)
-    kernel_of = {"rowfft_mag": "K1", "fourstep_mag_fused": "K2",
+    kernel_of = {"rowfft_mag": "K1", "rowfft_mag_natural": "K1n",
+                 "fourstep_mag_fused": "K2",
                  "overlap_save": "K3", "resample_direct": "K4",
                  "resample_rowblock": "K5", "channelize_demod": "K6",
                  "fir_window": "K7", "fourstep_stage1": "K8"}

@@ -283,7 +283,7 @@ def test_floor_model_against_hand_counts(inp):
     assert by["interpolatef_1_5x_1m"].flops == 2 * 21 * 2 * 1.5 * (n2 >> 2)
     assert by["overlap_save_kernel_384tap_4m"].kernels == ("K3",)
     assert [c.kernels for c in by.values()][:5] == [
-        ("K1",), (), ("K4",), ("K4",), ("K6",)]
+        ("K1n",), (), ("K4",), ("K4",), ("K6",)]
 
 
 def test_the_flagship_chain_loop_feeds_back(inp):

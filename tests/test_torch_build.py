@@ -3,7 +3,8 @@ _build.py) on the CPU: a library's path is keyed by its source, by every
 ``csrc/*.cuh`` header beside it and by the nvcc flags, so an edit to a
 shared header rebuilds every library.  No kernel is compiled here; the C
 ABI library is, with the host compiler, and its build refuses a Python
-without a shared libpython."""
+without a shared libpython.  The timing probe's source edits
+(``probes/phase_cuts.py``) are held to the sources they edit."""
 import shutil
 
 import pytest
@@ -70,3 +71,23 @@ def test_interop_build_refuses_a_python_without_libpython(monkeypatch):
     monkeypatch.setattr(_build.sysconfig, "get_config_vars", lambda: cfg)
     with pytest.raises(RuntimeError, match="no shared libpython"):
         _build._interop_flags()
+
+
+@pytest.mark.parametrize("tag,source", [
+    ("K1", "rowfft_mag"), ("K2", "rowfft_mag"), ("K3", "overlap_save"),
+    ("K6", "channelizer"), ("RS", "resample")])
+def test_phase_cuts_edits_match_their_source(tag, source):
+    """Each source edit of ``probes/phase_cuts.py`` (a phase cut out for
+    timing on the card) names text its kernel source holds: the probe
+    stops on the card where one does not."""
+    import importlib.util
+    path = _build.CSRC.parent / "probes" / "phase_cuts.py"
+    spec = importlib.util.spec_from_file_location("phase_cuts", path)
+    cuts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cuts)
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    edits = getattr(cuts, f"{tag}_CUTS")
+    assert edits["as built"] == []
+    for label, pairs in edits.items():
+        for old, _ in pairs:
+            assert old in text, (tag, label, old[:60])

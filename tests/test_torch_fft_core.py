@@ -65,13 +65,16 @@ def pass_table(p, R, sign):
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
-def stockham(src, dst, plan, sign, log2N, ntrans, item, addr, log=None):
+def stockham(src, dst, plan, sign, log2N, ntrans, item, addr, log=None,
+             on_load=None):
     """fft_core::run: the passes of ``plan`` over ``ntrans`` transforms,
     ping-ponging between the (re, im) planes src and dst (numpy (2, words)
     arrays, updated in place).  ``item(w, log2n)`` -> (t, i), ``addr(t,
     e)`` -> word.  Each pass's reads and writes go to ``log`` as (kind,
-    addresses in item order).  Returns 0 when the result is in src, 1 when
-    in dst."""
+    addresses in item order).  ``on_load(t, e, re, im)`` -> (re, im), when
+    given, transforms each point of the first pass as it is read (element
+    e of transform t).  Returns 0 when the result is in src, 1 when in
+    dst."""
     bufs = [src, dst]
     p, cur = 1, 0
     for R in plan:
@@ -83,6 +86,9 @@ def stockham(src, dst, plan, sign, log2N, ntrans, item, addr, log=None):
         a_in = [addr(t, i + r * n) for r in range(R)]
         xr = [bufs[cur][0, a] for a in a_in]
         xi = [bufs[cur][1, a] for a in a_in]
+        if p == 1 and on_load is not None:
+            for r in range(R):
+                xr[r], xi[r] = on_load(t, i + r * n, xr[r], xi[r])
         if p > 1:
             cr, ci = pass_table(p, R, sign)
             for r in range(1, R):

@@ -11,8 +11,11 @@ stage 1 through it against JAX's chain; and a numpy model of the CUDA
 launches' index arithmetic (``csrc/rowfft_mag.cu``: the stage-1 column
 panels and their register passes, the direct sum, the twiddle at the
 store or none (K8), then the cluster row kernel that K1 is, with and
-without its twiddle) against the plain version, with the row kernel's
-geometry and bank checks.  The CUDA kernels themselves are held to the
+without its twiddle, which its first pass applies as it reads, and
+natural_order, the tiled transpose that puts its output in spectrum
+order) against the plain version and the flatten, with the row kernel's
+geometry and bank checks; and the unfused chain's row stage through
+K1's natural entry.  The CUDA kernels themselves are held to the
 plain version on the card by chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
@@ -353,6 +356,31 @@ def test_windowed_spectrum_stage1_route(monkeypatch, kind):
     assert torch.equal(got, want)
 
 
+def test_unfused_chain_stores_the_spectrum_in_natural_order(monkeypatch):
+    """The unfused chain's row stage is ``rowfft_mag_natural``, once a
+    call, with the chain's own twiddle planes; ``rowfft_mag`` is not on
+    its path.  The fused chain keeps K2 and the flatten."""
+    calls = []
+    natural = tsc.rowfft_mag_natural
+
+    def spy(*args, **kwargs):
+        calls.append((args[0].shape, kwargs["Tfac"] is not None))
+        return natural(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("not on the unfused chain's path")
+    monkeypatch.setattr(tsc, "rowfft_mag_natural", spy)
+    monkeypatch.setattr(tsc, "rowfft_mag", refuse)
+    xr, xi, taps, window = (torch.from_numpy(a) for a in _chain_params())
+    chain = bt.FirFftChainPlanar(taps, window)
+    got = chain(xr, xi)
+    assert calls == [((128, 512), True)] and got.shape == (1 << 16,)
+    assert torch.equal(bt.fir_fft_chain_planar(xr, xi, taps, window), got)
+    assert len(calls) == 2
+    fused = bt.FirFftChainPlanar(taps, window, fused=True)(xr, xi)
+    assert len(calls) == 2 and _rel(fused.numpy(), got.numpy()) <= 1e-5
+
+
 # --------------------------- numpy model of the CUDA launch's index arithmetic
 
 def _unit_root(k, n):
@@ -487,13 +515,15 @@ def _col_word(e, t, lnc, mask):
 def _model_rows(Cr, Ci, shift, Tfac=None, log=None):
     """rowfft_cluster, untwiddled unless ``Tfac``: for each row k1, a
     cluster of CS blocks.  Block b copies columns b*NC .. b*NC + NC - 1 of
-    the row in 16-byte chunks (cp.async; every word once), applies T in
-    place, runs the length-L2 passes down j1 between its two
-    buffers; then (cluster.sync) gathers rows k1' = b*L2/CS .. of H' from
-    the blocks that hold their columns, times W; then (cluster.sync, after
-    which the step-1 results are poisoned with NaN: nothing may read them)
-    the 128-point passes, the rotation and the magnitude.  Buffers start
-    as NaN.  Returns (n1, L2, 128) and how often each output was written."""
+    the row in 16-byte chunks (cp.async; every word once), runs the
+    length-L2 passes down j1 between its two buffers, the first pass
+    multiplying each point by T = A[k1, j1] B[k1, j2] as it reads it
+    (pass_twiddled, FOLD); then (cluster.sync) gathers rows k1' = b*L2/CS
+    .. of H' from the blocks that hold their columns, times W; then
+    (cluster.sync, after which the step-1 results are poisoned with NaN:
+    nothing may read them) the 128-point passes, the rotation and the
+    magnitude.  Buffers start as NaN.  Returns (n1, L2, 128) and how often
+    each output was written."""
     n1, n2 = Cr.shape
     L2 = n2 // LANES
     NC, CS = tsc.cols_per_block(L2), tsc.cluster_blocks(L2)
@@ -522,16 +552,14 @@ def _model_rows(Cr, Ci, shift, Tfac=None, log=None):
                 copied[d:d + 4] += 1
             a = _col_word(j1, t, lnc, mask)
             assert (copied[a] == 1).all() and copied.sum() == a.size
-            if Tfac is not None:                 # T in place
-                j2 = b * NC + t
-                Ar, Ai, Btr, Bti = Tfac
-                tr = Ar[k1, j1] * Btr[k1, j2] - Ai[k1, j1] * Bti[k1, j2]
-                ti = Ar[k1, j1] * Bti[k1, j2] + Ai[k1, j1] * Btr[k1, j2]
-                vr, vi = X[0, a], X[1, a]
-                X[0, a], X[1, a] = vr * tr - vi * ti, vr * ti + vi * tr
+            on_load = None
+            if Tfac is not None:                 # T as the first pass reads
+                def on_load(tt, e, vr, vi, b=b, k1=k1):
+                    return _twiddle(vr, vi, Tfac, k1, e * LANES + b * NC + tt)
             in_y = stockham(X, Y, tsc.radix_plan(L2), -1, l2, NC,
                             lambda w, _: (w & (NC - 1), w >> lnc),
-                            lambda tt, e: _col_word(e, tt, lnc, mask), log)
+                            lambda tt, e: _col_word(e, tt, lnc, mask), log,
+                            on_load)
             held.append((Y, X) if in_y else (X, Y))
         g = np.arange(rows * LANES)
         r, j2 = g >> 7, g & (LANES - 1)
@@ -559,6 +587,42 @@ def _model_rows(Cr, Ci, shift, Tfac=None, log=None):
                 D[0, a] ** 2 + D[1, a] ** 2)
             np.add.at(writes, (k1, b * rows + r, g & (LANES - 1)), 1)
     return out, writes
+
+
+TILE, TILE_ROWS = 32, 8     # natural_order's tile and thread rows
+
+
+def _model_natural_order(M):
+    """natural_order: grid (128 / TILE, ceil(n1 / TILE), L2) of (TILE,
+    TILE_ROWS) threads; each block reads its (TILE k1, TILE k2s) tile of
+    the slice M[:, k1', :] row by row into a (TILE, TILE + 1) shared tile
+    and writes it out k1 fastest.  Returns the (n1 * L2 * 128,) vector and
+    how often each element was written; the tile's reads and writes go to
+    a log of shared-memory words, warp by warp."""
+    n1, L2, _ = M.shape
+    flat = M.reshape(-1)
+    out = np.full(n1 * L2 * LANES, np.nan, np.float32)
+    writes = np.zeros(out.shape, np.int64)
+    log = []
+    tx = np.arange(TILE)
+    for k2s0 in range(0, LANES, TILE):
+        for k10 in range(0, -(-n1 // TILE) * TILE, TILE):
+            for k1p in range(L2):
+                tile = np.full((TILE, TILE + 1), np.nan, np.float32)
+                for ty in range(TILE_ROWS):
+                    for j in range(ty, TILE, TILE_ROWS):   # a warp: tx
+                        if k10 + j < n1:
+                            tile[j, tx] = flat[((k10 + j) * L2 + k1p) * LANES
+                                               + k2s0 + tx]
+                            log.append(j * (TILE + 1) + tx)
+                ok = k10 + tx < n1
+                for ty in range(TILE_ROWS):
+                    for j in range(ty, TILE, TILE_ROWS):
+                        o = ((k2s0 + j) * L2 + k1p) * n1 + k10 + tx[ok]
+                        out[o] = tile[tx[ok], j]
+                        np.add.at(writes, o, 1)
+                        log.append(tx[ok] * (TILE + 1) + j)
+    return out, writes, log
 
 
 def _factored(n1, n2):
@@ -646,6 +710,24 @@ def test_row_kernel_model_with_twiddle_matches_rowfft_plain(n1, n2):
     assert _rel(got, ref.numpy()) <= TOL
 
 
+@pytest.mark.parametrize("n1,L2", [(1, 2), (8, 4), (40, 2), (64, 8),
+                                   (128, 4), (3, 16)])
+def test_natural_order_model_is_the_flatten(n1, L2):
+    """natural_order, K1's natural entry's second launch, as it indexes:
+    every element of the (n1 * L2 * 128,) output written once and equal bit
+    for bit to ``natural_flatten`` of K1's (n1, L2, 128) layout, at n1
+    below, at and above one tile (partial tiles masked), and its shared
+    tile read and written free of bank conflicts."""
+    rng = np.random.default_rng(n1 * L2)
+    M = rng.random((n1, L2, LANES), dtype=np.float32)
+    got, writes, log = _model_natural_order(M)
+    assert (writes == 1).all()
+    want = tsc.natural_flatten(torch.from_numpy(M)).numpy()
+    np.testing.assert_array_equal(got, want)
+    for a in log:
+        assert len(set((np.asarray(a) % 32).tolist())) == np.size(a)
+
+
 @pytest.mark.parametrize("L2", [2, 64, 128, 256, 512, 1024])
 def test_row_kernel_geometry(L2):
     """Clusters of at most 16 blocks whose two buffers fit a block's 227
@@ -659,6 +741,10 @@ def test_row_kernel_geometry(L2):
     smem = 16 * words + 8 * tables
     assert smem <= 232448
     assert (3 * (smem + 1024) <= 233472) == (L2 <= 512)
+    # step 1's first pass (radix R1, T applied as it reads): one item a
+    # thread, 256 threads up to L2 = 512, 512 at 1024
+    R1 = tsc.radix_plan(L2)[0]
+    assert NC * L2 // R1 <= (256 if L2 <= 512 else 512)
     if L2 >= 256:
         log = []
         Br, Bi = _planes(1, L2 * LANES, 12)

@@ -1,8 +1,10 @@
 """PyTorch port, kernels/spectrum_cuda: the plain version of the row
 kernel against the JAX Pallas kernel ``rowfft_mag`` run in interpret mode
 (factored twiddle, ``permuted=False``) to 2e-6 relative to the maximum,
-and the wrapper's checks and CPU dispatch.  The CUDA kernel itself is
-held to the plain version on the card by chip_smoke.py."""
+and the wrapper's checks and CPU dispatch; the same for its entry in
+natural spectrum order (``rowfft_mag_natural``), whose plain version is
+``natural_flatten`` of ``rowfft_mag_plain``.  The CUDA kernel
+itself is held to the plain version on the card by chip_smoke.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -118,3 +120,90 @@ def test_dif_spectrum_mag_cuda_matches_jax_pallas(real):
     got = tsc.dif_spectrum_mag_cuda(torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape == (n,)
     assert np.max(np.abs(got - ref)) / np.max(ref) <= TOL
+
+
+# (n1, n2): L2 = 2 (one block a row, a single first pass), 16, 32 and 256
+# (the 4M geometry's row length, eight blocks a row)
+NATURAL_GEOMETRIES = [(8, 256), (3, 2048), (16, 4096), (8, 32768)]
+
+
+@pytest.mark.parametrize("twiddled", [True, False], ids=["Tfac", "no_Tfac"])
+@pytest.mark.parametrize("shift", [True, False])
+@pytest.mark.parametrize("n1,n2", NATURAL_GEOMETRIES)
+def test_rowfft_mag_natural_plain_is_the_flattened_plain(n1, n2, shift,
+                                                         twiddled):
+    """The natural entry's plain version is ``natural_flatten`` of
+    ``rowfft_mag_plain`` bit for bit, contiguous: the two entries differ
+    only in where the magnitudes land."""
+    Br, Bi = _t(_planes(n1, n2, n1 + n2))
+    Tfac = _t(tfs._dif_twiddle_factored(n1, n2)) if twiddled else None
+    got = tsc.rowfft_mag_natural_plain(Br, Bi, shift, Tfac)
+    want = tsc.natural_flatten(tsc.rowfft_mag_plain(Br, Bi, shift, Tfac))
+    assert got.shape == (n1 * n2,) and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n1,n2", [(8, 2048), (8, 32768)])
+def test_rowfft_mag_natural_matches_jax_kernel_flattened(n1, n2):
+    """The natural entry on the CPU against the JAX kernel's
+    ``permuted=False`` output put in spectrum order by its
+    ``natural_flatten``, to the f32 grade."""
+    Br, Bi = _planes(n1, n2, n2 + 1)
+    Tfac = jfs._dif_twiddle_factored(n1, n2)
+    ref = np.asarray(jsp.natural_flatten(jsp.rowfft_mag(
+        jnp.asarray(Br), jnp.asarray(Bi), shift=True, Tfac=Tfac,
+        permuted=False, interpret=True)))
+    got = tsc.rowfft_mag_natural(torch.from_numpy(Br), torch.from_numpy(Bi),
+                                 shift=True, Tfac=_t(Tfac)).numpy()
+    assert got.shape == ref.shape == (n1 * n2,)
+    assert np.max(np.abs(got - ref)) / np.max(ref) <= TOL
+
+
+def test_natural_wrapper_on_cpu_runs_plain_without_counting():
+    n1, n2 = 8, 2048
+    Br, Bi = _t(_planes(n1, n2, 1))
+    Tfac = _t(tfs._dif_twiddle_factored(n1, n2))
+    before = tsc.rowfft_mag.launches
+    got = tsc.rowfft_mag_natural(Br, Bi, shift=True, Tfac=Tfac)
+    assert torch.equal(got, tsc.rowfft_mag_natural_plain(Br, Bi, True, Tfac))
+    assert tsc.rowfft_mag_natural.launches == 0
+    assert tsc.rowfft_mag.launches == before
+
+
+def test_natural_wrapper_rejects_what_the_kernel_does_not_take():
+    n1, n2 = 8, 2048
+    Br, Bi = _t(_planes(n1, n2, 2))
+    Tfac = _t(tfs._dif_twiddle_factored(n1, n2))
+    with pytest.raises(TypeError):
+        tsc.rowfft_mag_natural(Br.double(), Bi.double())
+    for bad in [(Br, Bi[:, :1024]), (Br[:, ::2], Bi[:, ::2]),
+                (Br[:, :1920], Bi[:, :1920]),
+                (Br.reshape(-1), Bi.reshape(-1)),
+                (Br.to("meta"), Bi.to("meta"))]:
+        with pytest.raises(ValueError):
+            tsc.rowfft_mag_natural(*bad)
+    with pytest.raises(ValueError):
+        tsc.rowfft_mag_natural(Br, Bi, Tfac=Tfac[:3])
+    with pytest.raises(ValueError):
+        tsc.rowfft_mag_natural(Br, Bi, Tfac=(Tfac[0].T, *Tfac[1:]))
+
+
+def test_dif_spectrum_mag_cuda_takes_the_natural_entry(monkeypatch):
+    """The 1-D spectrum's row stage is K1's natural entry, once; the
+    wrapper in the JAX layout is not called."""
+    calls = []
+    natural = tsc.rowfft_mag_natural
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return natural(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("not on this path")
+    monkeypatch.setattr(tsc, "rowfft_mag_natural", spy)
+    monkeypatch.setattr(tsc, "rowfft_mag", refuse)
+    x = torch.from_numpy(_planes(1, 1 << 15, 4)[0].reshape(-1))
+    got = tsc.dif_spectrum_mag_cuda(x, 128)
+    assert calls == [(128, 256)]
+    want = torch.abs(torch.fft.fftshift(torch.fft.fft(x.double())))
+    assert float((got - want).abs().max() / want.max()) <= TOL
