@@ -22,9 +22,14 @@ Spans (``profiling``; no-ops unless a profiler is active): each
 kernel runs) and ``dsp.assemble`` (the valid outputs sliced out and
 assembled).  ``StreamingFir.chunks`` and ``StreamingFir.rows`` count the
 chunks and the rows (chunks x P) processed, outside CUDA-graph captures.
+Each ``StreamingResampler.process`` is a root ``dsp.resample_stream`` over
+``dsp.rotate`` (the rotated extension and the new tail) and the resampler
+(``dsp.K4`` or ``dsp.K5``); ``StreamingResampler.chunks`` and
+``StreamingResampler.rows`` count its chunks and their channels.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -261,7 +266,16 @@ class StreamingResampler:
     the one concatenation that builds the extension builds the rotation,
     and the stencil needs no shift argument.  The taps are sampled in
     float32 on ``device`` (the card when None).
+
+    A block of channels streams as one: a (C, S) chunk with a (C, T) tail
+    (``init_state(channels=C)``) is one rotation and one kernel launch of
+    C rows a chunk.  The new state's tail is a view of the rotated
+    extension, which it keeps alive (S + T samples a channel) until the
+    next chunk.
     """
+
+    chunks = 0
+    rows = 0
 
     def __init__(self, fun, factor: float, delay: float = 0.0,
                  conv_len: int = 10, device=None):
@@ -274,6 +288,7 @@ class StreamingResampler:
             raise ValueError("StreamingResampler needs concrete real taps")
         self.taps, self.offs = taps, offs
         self.P, self.Q, self.L = P, Q, L
+        self.c = interp_ops._choose_c(P, Q)
         W = interp_ops._band_W(P, Q, L, 128)
         # Tail length: window lookback (2L) and the band matrix's reach
         # (W - 128), rounded so (T - L) % Q == 0 keeps the output grid
@@ -283,26 +298,55 @@ class StreamingResampler:
         #: concatenated-output delay vs the whole-buffer linear resample
         self.output_delay = (self.T - L) // Q * P
 
-    def init_state(self, dtype=torch.complex64, device=None) -> ResamplerState:
+    def init_state(self, dtype=torch.complex64, device=None,
+                   channels=()) -> ResamplerState:
+        """Zero tail of ``T`` samples of ``dtype`` on ``device`` (the taps'
+        when None) for chunks of leading shape ``channels`` (an int or a
+        tuple; () for 1-D chunks): (*channels, T)."""
+        lead = (channels,) if isinstance(channels, int) else tuple(channels)
         dev = self.taps.device if device is None else device
-        return ResamplerState(tail=torch.zeros((self.T,), dtype=dtype,
+        return ResamplerState(tail=torch.zeros(lead + (self.T,), dtype=dtype,
                                                device=dev))
 
     def process(self, chunk: torch.Tensor,
                 state: ResamplerState) -> Tuple[torch.Tensor, ResamplerState]:
-        """Processes one chunk of ``S`` samples (``S % (128*Q) == 0``);
-        returns (out, new_state) with ``len(out) == S*P//Q``."""
+        """Processes one chunk of shape (..., S) (``S % (128*Q) == 0``), a
+        channel a row, with a tail of shape (..., T); returns (out,
+        new_state) with ``out.shape[-1] == S*P//Q``.  Every channel of the
+        chunk resamples in the one kernel launch."""
         S = chunk.shape[-1]
         span = 128 * self.Q
         if S % span != 0:
             raise ValueError(f"chunk length {S} must be divisible by "
                              f"128*Q = {span}")
-        tail, L, T = state.tail.to(chunk.dtype), self.L, self.T
-        rotated = torch.cat([tail[L:], chunk, tail[:L]])
-        out = interp_ops._interpolatef_direct(
-            rotated, self.taps, self.P, self.Q, self.offs, L,
-            S * self.P // self.Q, interp_ops._choose_c(self.P, self.Q))
-        new_tail = (chunk[S - T:] if S >= T
-                    else torch.cat([tail[S:], chunk]))
-        return out.to(chunk.dtype), ResamplerState(
-            tail=new_tail.to(state.tail.dtype, copy=True))
+        L, T = self.L, self.T
+        if state.tail.shape != chunk.shape[:-1] + (T,):
+            raise ValueError(
+                f"StreamingResampler: a tail of shape "
+                f"{tuple(state.tail.shape)} does not carry chunks of shape "
+                f"{tuple(chunk.shape)}: init_state(channels="
+                f"{tuple(chunk.shape[:-1])})")
+        # the casts only where the state keeps another dtype than the
+        # chunk's (a no-op `to` still costs the host a dispatch)
+        cast = state.tail.dtype != chunk.dtype
+        with profiling.span("dsp.resample_stream", chunk):
+            with profiling.span("dsp.rotate"):
+                tail = state.tail.to(chunk.dtype) if cast else state.tail
+                rotated = torch.cat([tail[..., L:], chunk, tail[..., :L]],
+                                    dim=-1)
+                # the next tail, the last T samples of [tail, chunk]: a view
+                # of the extension this call made (no copy, and none of
+                # the caller's chunk held)
+                new_tail = (rotated[..., S - L:S - L + T] if S >= L
+                            else torch.cat([tail[..., S:], chunk], dim=-1))
+                if cast:
+                    new_tail = new_tail.to(state.tail.dtype)
+            out = interp_ops._interpolatef_direct(
+                rotated, self.taps, self.P, self.Q, self.offs, L,
+                S * self.P // self.Q, self.c)
+        if not (chunk.is_cuda and torch.cuda.is_current_stream_capturing()):
+            StreamingResampler.chunks += 1
+            StreamingResampler.rows += math.prod(chunk.shape[:-1])
+        if out.dtype != chunk.dtype:
+            out = out.to(chunk.dtype)
+        return out, ResamplerState(tail=new_tail)

@@ -35,7 +35,8 @@ Phases (any failure raises and exits non-zero):
    kernel (one phase a lane, phases walked, P > 32, a reload, the direct
    stencil, the extended shapes of phases l and m), and
    ``resample_rowblock_cuda`` (K5) at four, among them an n that 147
-   does not divide and phase l's extended chunk; ``channelize_demod_cuda``
+   does not divide and phase l's extended chunk, the latter also on the
+   64 rows of the audio block; ``channelize_demod_cuda``
    (K6) against ``channelize_demod_plain`` at five (C, S, taps per phase),
    among them config #5's with no prefix and with phase m's zero one, and
    a ragged S with a non-zero prefix, with ``demod`` True (angles, by the
@@ -112,7 +113,10 @@ Phases (any failure raises and exits non-zero):
    l. ``streaming.StreamingResampler``: x1.5 (Sinc, conv_len 10) of config
       #3's 2^20 complex samples in 16 chunks of 2^16 (16 K4 launches), and
       160/147 of 7 chunks of 150528 real samples (7 K5 launches: the
-      row-block geometry fits the extended chunk); each concatenation
+      row-block geometry fits the extended chunk); a (64, 150528) block
+      of real channels in 3 chunks (3 K5 launches, the counters
+      ``StreamingResampler.chunks`` 3 and ``.rows`` 192), its channel 0
+      bit-equal to that channel streamed alone; each concatenation
       against the float64 zero-padded linear resample delayed by
       ``output_delay`` (<= 5e-6);
    m. the sharded functions on a one-rank NCCL mesh (``init_process_group``
@@ -345,6 +349,7 @@ CFG3_N = 1 << 20
 CFG4_SYMBOLS = 1 << 17
 AUDIO_N = 1 << 20
 AUDIO_CHUNK, AUDIO_CHUNKS = 150528, 7     # 8 * 128 * 147 samples a chunk
+AUDIO_CHANNELS, AUDIO_BLOCK_CHUNKS = 64, 3   # the audio cell's MADI block
 CHAN_N = 1 << 22
 CHAN_C = 1024
 CHAN_TAPS = 8
@@ -1123,7 +1128,9 @@ def main(work):
             taps_k, offs = taps_np, (0,) * P
         out_len = evened(n, P, Q) if out_len is None else out_len
         wrapper = getattr(rsc, f"resample_{kind}_cuda")
-        for nrows in (1, 2):
+        audio = (kind, P, Q, n) == ("rowblock", 160, 147,
+                                    AUDIO_CHUNK + t_audio)
+        for nrows in (1, 2) + ((AUDIO_CHANNELS,) if audio else ()):
             rows = torch.from_numpy(
                 rng.standard_normal((nrows, n), np.float32)).to(dev)
             got = wrapper(rows, taps_k, P, Q, offs, L, out_len)
@@ -1147,7 +1154,7 @@ def main(work):
                 (got - ref).abs().max())
     assert rsc.resample_direct_cuda.launches == 2 * n_direct
     assert rsc.resample_rowblock_cuda.launches == 2 * (len(resample_checks)
-                                                       - n_direct)
+                                                       - n_direct) + 1
     del got, ref, rows
 
     k6_abs_err = None
@@ -1745,6 +1752,58 @@ def main(work):
               f"by {d}: {err:.3e} relative to max (tol {CHAIN_TOL})")
         assert err <= CHAIN_TOL, (name, err)
         del outs, got, ref
+
+    # a block of 64 real channels at 160/147: one K5 launch a chunk for
+    # every row, channel 0 bit-equal to that channel streamed alone
+    rs = streaming.StreamingResampler(sinc, 160 / 147, 0.0, 10, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xb = torch.randn((AUDIO_CHANNELS, AUDIO_CHUNK * AUDIO_BLOCK_CHUNKS),
+                     generator=gen, device=dev)
+    reset_counts()
+    chunks0 = streaming.StreamingResampler.chunks
+    rows0 = streaming.StreamingResampler.rows
+    state = rs.init_state(torch.float32, channels=AUDIO_CHANNELS)
+    one = rs.init_state(torch.float32)
+    outs, outs0 = [], []
+    for k in range(AUDIO_BLOCK_CHUNKS):
+        blk = xb[:, k * AUDIO_CHUNK:(k + 1) * AUDIO_CHUNK]
+        out, state = rs.process(blk, state)
+        outs.append(out)
+    torch.cuda.synchronize()
+    block_launches = rsc.resample_rowblock_cuda.launches
+    block_chunks = streaming.StreamingResampler.chunks - chunks0
+    block_rows = streaming.StreamingResampler.rows - rows0
+    assert other_launches() == block_launches
+    for k in range(AUDIO_BLOCK_CHUNKS):
+        out, one = rs.process(xb[0, k * AUDIO_CHUNK:(k + 1) * AUDIO_CHUNK],
+                              one)
+        outs0.append(out)
+    torch.cuda.synchronize()
+    got, got0 = torch.cat(outs, dim=-1), torch.cat(outs0)
+    out_len = AUDIO_CHUNK * AUDIO_BLOCK_CHUNKS * rs.P // rs.Q
+    print(f"main path: StreamingResampler 160/147, a block of "
+          f"{AUDIO_CHANNELS} real channels in {AUDIO_BLOCK_CHUNKS} chunks of "
+          f"{AUDIO_CHUNK}: resample_rowblock_cuda launches {block_launches}, "
+          f"StreamingResampler.chunks {block_chunks}, rows {block_rows}")
+    assert block_launches == block_chunks == AUDIO_BLOCK_CHUNKS
+    assert block_rows == AUDIO_CHANNELS * AUDIO_BLOCK_CHUNKS
+    assert rsc.resample_rowblock_cuda.launches == 2 * AUDIO_BLOCK_CHUNKS
+    assert got.shape == (AUDIO_CHANNELS, out_len)
+    assert got.dtype == torch.float32 and state.tail.dtype == torch.float32
+    assert torch.equal(got[0], got0), "block row 0 != channel 0 alone"
+    d = rs.output_delay
+    gap = top = 0.0
+    for r in range(0, AUDIO_CHANNELS, 16):
+        ref = resample_oracle(xb[r:r + 16], sinc, rs.P, rs.Q, 10,
+                              out_len - d, circular=False)
+        gap = max(gap, float((got[r:r + 16, d:].double() - ref).abs().max()))
+        top = max(top, float(ref.abs().max()))
+        del ref
+    err = gap / top
+    print(f"StreamingResampler 160/147 block vs float64 linear resample "
+          f"delayed by {d}: {err:.3e} relative to max (tol {CHAIN_TOL})")
+    assert err <= CHAIN_TOL, err
+    del xb, outs, outs0, got, got0
 
     # 3m. the sharded functions on a one-rank NCCL mesh
     import torch.distributed as dist

@@ -237,6 +237,31 @@ def test_resampler_matches_jax_chunk_by_chunk(spy, factor, kind, S,
     assert spy["resample_rowblock_cuda"] == 0
 
 
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_resampler_block_matches_jax_chunk_by_chunk(spy, kind):
+    """A (3, S) block at 3/2 against JAX's stream of the same block (a
+    (3, T) tail): every chunk's output (1e-5) and tail (exact); each chunk
+    calls K4's wrapper once for all three rows."""
+    C, S, nchunks = 3, 512, 3
+    jr = js.StreamingResampler(jct.SincFunction(), 1.5, 0.25, 10)
+    tr = ts.StreamingResampler(bt.SincFunction(), 1.5, 0.25, 10,
+                               device="cpu")
+    x = _data(37, C * S * nchunks, kind).reshape(C, S * nchunks)
+    jdt = jnp.complex64 if kind == "complex" else jnp.float32
+    jstate = js.ResamplerState(tail=jnp.zeros((C, jr.T), jdt))
+    tstate = tr.init_state(torch.complex64 if kind == "complex"
+                           else torch.float32, channels=C)
+    for k in range(nchunks):
+        c = np.ascontiguousarray(x[:, k * S:(k + 1) * S])
+        jo, jstate = jr.process(jnp.asarray(c), jstate)
+        to, tstate = tr.process(torch.from_numpy(c), tstate)
+        assert to.shape == (C, S * tr.P // tr.Q)
+        assert _rel(to.numpy(), np.asarray(jo)) <= F32
+        assert np.array_equal(tstate.tail.numpy(), np.asarray(jstate.tail))
+    assert spy["resample_direct_cuda"] == nchunks
+    assert spy["resample_rowblock_cuda"] == 0
+
+
 def _linear_resample(x, fun, P, Q, L, delay=0.0):
     """The zero-padded linear resample in float64: out[i] = sum_t
     x[(i//P)*Q + offs[p] + t - L] * fun(t - L - frac[p] + delay), x zero
