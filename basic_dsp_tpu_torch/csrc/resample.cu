@@ -64,6 +64,17 @@
 //   Outputs collect in shared memory (one pad word every 32, so that lanes
 //   a run apart write distinct banks) and leave as coalesced rows.
 // * The base indices kt Q and kt P are formed in 64 bits.
+// * resample_runs<TW, QF, true> reads a stream's extension where it lies
+//   (the streaming resampler's chunk and tail, resample_stream_launch):
+//   ext = [tail (T), chunk (S)] of each row from two row pointers, each
+//   with its own stride, so that the rotated copy x[i] = ext[(i + L) mod
+//   n], n = T + S, is never made: the window x[(kt Q - L + w) mod n] is
+//   ext[(kt Q + w) mod n].  The shared buffer is aligned to the chunk's
+//   16-byte grid (the chunk carries most of the bytes): the chunk's
+//   samples go by cp.async, the tail's and the wrap's by single loads.
+//   After its tiles each block writes its share of the next state's tail,
+//   ext[S : S + T], in pieces of 4 x 256 samples.  The <.., false> form
+//   is the one-source kernel as before.
 //
 // resample_tiles (2L+1 > 32, or a tap table too large for shared memory):
 // the first port's direct stencil.  A CUDA block owns G consecutive output
@@ -117,6 +128,58 @@ __device__ __forceinline__ long long window_start(long long kt, int Q, int L,
   return s < 0 ? s + n : s;
 }
 
+// A stream's extension, read where it lies (resample_runs<.., true>):
+// ext[g] = tail[g] for g < T, chunk[g - T] after, of each row; the chunk is
+// the kernel's x.  `next` (rows, T), contiguous, receives ext[S : S + T].
+struct Ext {
+  const float* tail;      // (rows, T), rows tail_stride apart
+  float* next;            // (rows, T)
+  long long tail_stride;
+  long long x_stride;     // the chunk's rows, x_stride apart
+  long long T;
+};
+
+// The offset in its shared buffer of the window that starts at ext[s]:
+// the buffer lies on the chunk row cr's 16-byte grid.
+__device__ __forceinline__ int ext_phase(const float* cr, long long s,
+                                         long long T) {
+  return static_cast<int>(((reinterpret_cast<uintptr_t>(cr) >> 2) + s - T)
+                          & 3);
+}
+
+// Starts copying the window ext[(s + w) mod n], w < 4 * chunks - a0, of one
+// row (tail tr, chunk cr) to dst[a0 + w], a0 = ext_phase(cr, s, T): 16-byte
+// cp.async copies where four chunk samples are aligned and in range,
+// single loads elsewhere (the tail, the wrap).
+__device__ __forceinline__ void stage_ext(const float* __restrict__ tr,
+                                          const float* __restrict__ cr,
+                                          float* dst, long long T,
+                                          long long n, long long s,
+                                          int chunks) {
+  const long long base = s - ext_phase(cr, s, T);
+  for (int j = threadIdx.x; j < chunks; j += blockDim.x) {
+    long long g = base + 4LL * j;
+    if (g < 0) {
+      g += n;
+    } else if (g >= n) {
+      g %= n;
+    }
+    float* d = dst + 4 * j;
+    if (g >= T && g + 4 <= n
+        && (reinterpret_cast<uintptr_t>(cr + (g - T)) & 15) == 0) {
+      cp_async::copy16(d, cr + (g - T));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        long long ge = g + e;
+        if (ge >= n) ge %= n;
+        d[e] = ge < T ? tr[ge] : cr[ge - T];
+      }
+    }
+  }
+  cp_async::commit();
+}
+
 // Output blocks a lane takes at one phase when Q is fixed (QF = 1 or 2).
 constexpr int kFixedK = 7;
 
@@ -124,14 +187,15 @@ constexpr int kFixedK = 7;
 // run when groups == 1, else one block and a group of ceil(P / groups)
 // phases.  QF = Q in {1, 2} fixes a lane's phase (groups == 0): K =
 // kFixedK blocks, tasks of P phases.  KT = 32 K (tasks a phase group)
-// output blocks a tile; winw words a window buffer.
-template <int TW, int QF>
+// output blocks a tile; winw words a window buffer.  kTwo: x is a
+// stream's chunk and `ext` its tail (above); else `ext` is unused.
+template <int TW, int QF, bool kTwo>
 __global__ void __launch_bounds__(kThreads, 3)
 resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
               const int* __restrict__ offs, float* __restrict__ out,
               long long n, long long out_len, int P, int Q, int L, int K,
               int groups, int KT, int winw, long long tiles_per_row,
-              long long tiles) {
+              long long tiles, const Ext ext) {
   extern __shared__ float4 smem4[];
   float* win0 = reinterpret_cast<float*>(smem4);   // two window buffers
   float* ts = win0 + 2 * winw;        // taps (P, TW), zero past 2L+1
@@ -149,9 +213,15 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
   int cur = 0;
   if (tile < tiles) {            // in flight while the taps are staged
     const long long row = tile / tiles_per_row;
-    stage_window(x + row * n, win0, n,
-                 window_start((tile - row * tiles_per_row) * KT, Q, L, n),
-                 chunks);
+    if constexpr (kTwo) {
+      stage_ext(ext.tail + row * ext.tail_stride, x + row * ext.x_stride,
+                win0, ext.T, n,
+                ((tile - row * tiles_per_row) * KT * Q) % n, chunks);
+    } else {
+      stage_window(x + row * n, win0, n,
+                   window_start((tile - row * tiles_per_row) * KT, Q, L, n),
+                   chunks);
+    }
   }
   // The (P, 2L+1) taps by 16-byte copies into the output buffer (free
   // until the first tile's outputs, and as large: KT >= 32 >= 2L+1), in
@@ -179,15 +249,28 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
   for (; tile < tiles; tile += gridDim.x) {
     const long long row = tile / tiles_per_row;
     const long long kt = (tile - row * tiles_per_row) * KT;
-    const float* xs = win0 + cur * winw + (window_start(kt, Q, L, n) & 3);
+    const float* xs;
+    if constexpr (kTwo) {
+      xs = win0 + cur * winw
+          + ext_phase(x + row * ext.x_stride, (kt * Q) % n, ext.T);
+    } else {
+      xs = win0 + cur * winw + (window_start(kt, Q, L, n) & 3);
+    }
     cp_async::wait_all();
     __syncthreads();
     const long long next = tile + gridDim.x;
     if (next < tiles) {             // the other buffer is free since the
       const long long nrow = next / tiles_per_row;     // barrier
-      stage_window(x + nrow * n, win0 + (cur ^ 1) * winw, n,
-                   window_start((next - nrow * tiles_per_row) * KT, Q, L, n),
-                   chunks);
+      if constexpr (kTwo) {
+        stage_ext(ext.tail + nrow * ext.tail_stride,
+                  x + nrow * ext.x_stride, win0 + (cur ^ 1) * winw, ext.T, n,
+                  ((next - nrow * tiles_per_row) * KT * Q) % n, chunks);
+      } else {
+        stage_window(x + nrow * n, win0 + (cur ^ 1) * winw, n,
+                     window_start((next - nrow * tiles_per_row) * KT, Q, L,
+                                  n),
+                     chunks);
+      }
     }
     for (int task = warp; task < tasks && QF != 0; task += kWarps) {
       // One phase p a task: its taps in registers, the window of its
@@ -292,6 +375,30 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
     for (int j = threadIdx.x; j < m; j += blockDim.x) o[j] = os[padded(j)];
     cur ^= 1;
   }
+  if constexpr (kTwo) {
+    // The next state's tail, ext[S : S + T] of each row, in pieces of
+    // kPiece samples shared out over the blocks.
+    constexpr int kPiece = 4 * kThreads;
+    const long long T = ext.T;
+    const long long S = n - T;
+    const long long pieces = (T + kPiece - 1) / kPiece;
+    for (long long u = blockIdx.x; u < tiles / tiles_per_row * pieces;
+         u += gridDim.x) {
+      const long long row = u / pieces;
+      const long long j0 = (u - row * pieces) * kPiece;
+      const float* tr = ext.tail + row * ext.tail_stride;
+      const float* cr = x + row * ext.x_stride;
+      float* d = ext.next + row * T;
+#pragma unroll
+      for (int e = 0; e < kPiece / kThreads; ++e) {
+        const long long j = j0 + e * kThreads + threadIdx.x;
+        if (j < T) {
+          const long long g = S + j;
+          d[j] = g < T ? tr[g] : cr[g - T];
+        }
+      }
+    }
+  }
 }
 
 template <bool kSharedTaps>
@@ -362,11 +469,11 @@ int launch_tiles(const float* x, const float* taps, const int* offs,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TW, int QF>
+template <int TW, int QF, bool kTwo>
 int launch_runs(const float* x, const float* taps, const int* offs,
                 float* out, long long n, long long out_len, int rows, int P,
                 int Q, int L, int K, int groups, int KT, int win,
-                cudaStream_t stream) {
+                const Ext& ext, cudaStream_t stream) {
   const int winw = ((win + 3) + 3) & ~3;   // the alignment offset and win
   const int nout = KT * P;
   const int smem = static_cast<int>(
@@ -374,18 +481,50 @@ int launch_runs(const float* x, const float* taps, const int* offs,
       + P * sizeof(int));
   int resident = 0;
   const cudaError_t e = persistent::grid(
-      reinterpret_cast<const void*>(resample_runs<TW, QF>), kThreads, smem,
-      &resident);
+      reinterpret_cast<const void*>(resample_runs<TW, QF, kTwo>), kThreads,
+      smem, &resident);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long nblocks = (out_len + P - 1) / P;
   const long long per_row = (nblocks + KT - 1) / KT;
   const long long tiles = per_row * rows;
   const long long grid = tiles < resident ? tiles : resident;
-  resample_runs<TW, QF>
+  resample_runs<TW, QF, kTwo>
       <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       x, taps, offs, out, n, out_len, P, Q, L, K, groups, KT, winw, per_row,
-      tiles);
+      tiles, ext);
   return static_cast<int>(cudaGetLastError());
+}
+
+// resample_runs at the register window tw, QF = 0 (groups >= 1, the
+// phases walked) or Q (groups == 0, Q <= 2).
+template <bool kTwo>
+int launch_any_runs(const float* x, const float* taps, const int* offs,
+                    float* out, long long n, long long out_len, int rows,
+                    int P, int Q, int L, int tw, int K, int groups, int KT,
+                    int win, const Ext& ext, cudaStream_t s) {
+  const int qf = groups == 0 ? Q : 0;
+  if (groups == 0 && (Q > 2 || K != kFixedK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define RESAMPLE_RUNS(TW, QF)                                               \
+  if (tw == TW && qf == QF) {                                               \
+    return launch_runs<TW, QF, kTwo>(x, taps, offs, out, n, out_len, rows,  \
+                                     P, Q, L, K, groups, KT, win, ext, s);  \
+  }
+  RESAMPLE_RUNS(8, 0) RESAMPLE_RUNS(16, 0) RESAMPLE_RUNS(24, 0)
+  RESAMPLE_RUNS(32, 0) RESAMPLE_RUNS(8, 1) RESAMPLE_RUNS(16, 1)
+  RESAMPLE_RUNS(24, 1) RESAMPLE_RUNS(32, 1) RESAMPLE_RUNS(8, 2)
+  RESAMPLE_RUNS(16, 2) RESAMPLE_RUNS(24, 2) RESAMPLE_RUNS(32, 2)
+#undef RESAMPLE_RUNS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The checks of resample_launch's geometry arguments.
+bool bad_geometry(long long n, long long out_len, int rows, int P, int Q,
+                  int L, int tw, int K, int groups, int KT, int win) {
+  return n <= 0 || out_len <= 0 || rows <= 0 || rows > 65535 || P <= 0
+      || Q <= 0 || L < 0 || K <= 0 || groups < 0 || KT <= 0
+      || win < 2 * L + 1 || (tw != 0 && (tw < 2 * L + 1 || KT % (32 * K)));
 }
 
 }  // namespace
@@ -407,9 +546,7 @@ int resample_launch(const float* x, const float* taps, const int* offs,
                     float* out, long long n, long long out_len, int rows,
                     int P, int Q, int L, int tw, int K, int groups, int KT,
                     int win, int shared_taps, void* stream) {
-  if (n <= 0 || out_len <= 0 || rows <= 0 || rows > 65535 || P <= 0
-      || Q <= 0 || L < 0 || K <= 0 || groups < 0 || KT <= 0
-      || win < 2 * L + 1 || (tw != 0 && (tw < 2 * L + 1 || KT % (32 * K)))) {
+  if (bad_geometry(n, out_len, rows, P, Q, L, tw, K, groups, KT, win)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -420,22 +557,32 @@ int resample_launch(const float* x, const float* taps, const int* offs,
         : launch_tiles<false>(x, taps, offs, out, n, out_len, rows, P, Q, L,
                               KT, win, s);
   }
-  // QF: 0 walks the phases (groups >= 1), else Q (groups == 0, Q <= 2).
-  const int qf = groups == 0 ? Q : 0;
-  if (groups == 0 && (Q > 2 || K != kFixedK)) {
+  return launch_any_runs<false>(x, taps, offs, out, n, out_len, rows, P, Q,
+                                L, tw, K, groups, KT, win, Ext{}, s);
+}
+
+// resample_launch over a stream's extension read where it lies: chunk
+// (rows, S) f32 with rows chunk_stride apart, tail (rows, T) f32 with rows
+// tail_stride apart, the extension [tail, chunk] of n = T + S samples a
+// row, which resample_launch would take rotated left by L.  Writes the
+// next state's tail, ext[S : S + T], to next (rows, T) f32, contiguous.
+// resample_runs only (tw != 0); the other arguments as resample_launch's.
+int resample_stream_launch(const float* chunk, long long chunk_stride,
+                           const float* tail, long long tail_stride,
+                           float* next, long long S, long long T,
+                           const float* taps, const int* offs, float* out,
+                           long long out_len, int rows, int P, int Q, int L,
+                           int tw, int K, int groups, int KT, int win,
+                           void* stream) {
+  if (S <= 0 || T < L
+      || bad_geometry(S + T, out_len, rows, P, Q, L, tw, K, groups, KT, win)
+      || tw == 0 || (rows > 1 && (chunk_stride < S || tail_stride < T))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-#define RESAMPLE_RUNS(TW, QF)                                               \
-  if (tw == TW && qf == QF) {                                               \
-    return launch_runs<TW, QF>(x, taps, offs, out, n, out_len, rows, P, Q,  \
-                               L, K, groups, KT, win, s);                   \
-  }
-  RESAMPLE_RUNS(8, 0) RESAMPLE_RUNS(16, 0) RESAMPLE_RUNS(24, 0)
-  RESAMPLE_RUNS(32, 0) RESAMPLE_RUNS(8, 1) RESAMPLE_RUNS(16, 1)
-  RESAMPLE_RUNS(24, 1) RESAMPLE_RUNS(32, 1) RESAMPLE_RUNS(8, 2)
-  RESAMPLE_RUNS(16, 2) RESAMPLE_RUNS(24, 2) RESAMPLE_RUNS(32, 2)
-#undef RESAMPLE_RUNS
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Ext ext{tail, next, tail_stride, chunk_stride, T};
+  return launch_any_runs<true>(chunk, taps, offs, out, S + T, out_len, rows,
+                               P, Q, L, tw, K, groups, KT, win, ext,
+                               static_cast<cudaStream_t>(stream));
 }
 
 const char* resample_error_string(int code) {

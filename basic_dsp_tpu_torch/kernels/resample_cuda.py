@@ -18,6 +18,15 @@ runs its plain PyTorch version:
 :func:`resample_rowblock_plain` (JAX's row-block form, sum_r V[j+r] @ M_r).
 The plain versions also take float64, which the dispatch sends them on any
 device.  The kernel is built at its first launch, never at import.
+
+Given a stream's ``tail`` (rows, T), each wrapper takes ``rows`` as the
+stream's chunk (rows, S) and resamples the extension [tail, chunk] rotated
+left by L, ``x[i] = ext[(i + L) mod n]``, n = T + S, as if it were passed
+that way; it writes the last T samples of [tail, chunk] into
+``next_tail``.  On the card resample_runs reads tail and chunk where they
+lie (``resample_stream_launch``) and writes the next tail in the same
+launch; elsewhere the wrapper builds the rotated extension
+(:func:`stream_extension`).
 """
 from __future__ import annotations
 
@@ -61,6 +70,38 @@ def _check(rows, taps, P: int, Q: int, offs, L: int, out_len: int,
 
 
 _OFFSETS = {}
+
+
+def _check_tail(rows, tail, next_tail, L: int) -> int:
+    """Checks a stream's tail and the next tail against its chunk's rows
+    (R, S): (R, T) float32 tensors on the rows' device, T >= L, next_tail
+    contiguous.  Returns T."""
+    for name, t in (("tail", tail), ("next_tail", next_tail)):
+        if (not isinstance(t, torch.Tensor) or t.dtype is not torch.float32
+                or t.device != rows.device):
+            raise TypeError(f"{name}: expected a float32 tensor on "
+                            f"{rows.device}")
+        if t.shape != tail.shape or t.dim() != 2 or \
+                t.shape[0] != rows.shape[0]:
+            raise ValueError(f"{name}: expected shape ({rows.shape[0]}, T), "
+                             f"got {tuple(t.shape)}")
+    T = tail.shape[-1]
+    if T < L:
+        raise ValueError(f"tail: {T} samples, fewer than L = {L}")
+    if not next_tail.is_contiguous():
+        raise ValueError("next_tail: expected a contiguous tensor")
+    return T
+
+
+def stream_extension(rows, tail, next_tail, L: int) -> torch.Tensor:
+    """The rotated extension ``[tail[:, L:], rows, tail[:, :L]]`` of a
+    stream's chunk rows (R, S) and tail (R, T), built; copies the last T
+    samples of [tail, rows] into next_tail (R, T)."""
+    S, T = rows.shape[-1], tail.shape[-1]
+    rotated = torch.cat([tail[:, L:], rows, tail[:, :L]], dim=-1)
+    next_tail.copy_(rotated[:, S - L:S - L + T] if S >= L
+                    else torch.cat([tail[:, S:], rows], dim=-1))
+    return rotated
 
 
 def _offsets(P: int, Q: int, offs) -> list:
@@ -273,26 +314,38 @@ def _lib() -> ctypes.CDLL:
     vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.resample_launch.argtypes = [vp] * 4 + [ll, ll] + [ci] * 10 + [vp]
     lib.resample_launch.restype = ci
+    lib.resample_stream_launch.argtypes = ([vp, ll, vp, ll, vp, ll, ll]
+                                           + [vp] * 3 + [ll] + [ci] * 9
+                                           + [vp])
+    lib.resample_stream_launch.restype = ci
     lib.resample_error_string.argtypes = [ci]
     lib.resample_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(rows, taps, P, Q, record, L, out_len) -> torch.Tensor:
-    """Runs ``csrc/resample.cu`` on the (R, n) f32 CUDA rows, ``record``
-    from :func:`_offsets`; a geometry seen before builds nothing on the
-    host but the output."""
-    R, n = rows.shape
-    dev = rows.device
-    values = record[1]
+def _geometry(record, P: int, Q: int, L: int) -> tuple:
+    """The launch geometry of ``record`` (:func:`_offsets`) at L, built
+    once."""
     geometry = record[3].get(L)
     if geometry is None:
-        geometry = record[3][L] = _launch_geometry(P, Q, L, values)
+        geometry = record[3][L] = _launch_geometry(P, Q, L, record[1])
+    return geometry
+
+
+def _launch(rows, taps, P, Q, record, L, out_len, tail=None,
+            next_tail=None) -> torch.Tensor:
+    """Runs ``csrc/resample.cu`` on the (R, n) f32 CUDA rows, ``record``
+    from :func:`_offsets`; a geometry seen before builds nothing on the
+    host but the output.  With ``tail``, rows is a stream's chunk and
+    resample_runs reads the extension where it lies (the geometry's tw is
+    not 0)."""
+    R, n = rows.shape
+    dev = rows.device
+    geometry = _geometry(record, P, Q, L)
     o = record[2].get(dev)
     if o is None:
-        o = record[2][dev] = torch.tensor(values, dtype=torch.int32,
+        o = record[2][dev] = torch.tensor(record[1], dtype=torch.int32,
                                           device=dev)
-    rows = rows.contiguous()
     if isinstance(taps, torch.Tensor):
         t = taps
         if (t.device != dev or t.dtype is not torch.float32
@@ -304,9 +357,22 @@ def _launch(rows, taps, P, Q, record, L, out_len) -> torch.Tensor:
     if out_len == 0:
         return out
     lib = _lib()
-    rc = _build.launch(dev, lib.resample_launch, rows.data_ptr(),
-                       t.data_ptr(), o.data_ptr(), out.data_ptr(), n,
-                       out_len, R, P, Q, L, *geometry)
+    if tail is None:
+        rows = rows.contiguous()
+        rc = _build.launch(dev, lib.resample_launch, rows.data_ptr(),
+                           t.data_ptr(), o.data_ptr(), out.data_ptr(), n,
+                           out_len, R, P, Q, L, *geometry)
+    else:
+        # each row's samples in order; the rows may lie apart
+        if rows.stride(-1) != 1:
+            rows = rows.contiguous()
+        if tail.stride(-1) != 1:
+            tail = tail.contiguous()
+        rc = _build.launch(dev, lib.resample_stream_launch, rows.data_ptr(),
+                           rows.stride(0), tail.data_ptr(), tail.stride(0),
+                           next_tail.data_ptr(), n, tail.shape[-1],
+                           t.data_ptr(), o.data_ptr(), out.data_ptr(),
+                           out_len, R, P, Q, L, *geometry[:5])
     if rc != 0:
         raise RuntimeError("resample kernel launch failed: "
                            + lib.resample_error_string(rc).decode())
@@ -320,20 +386,37 @@ def _device_of(rows, who: str) -> str:
     return kind
 
 
+def _stream_rows(kind, rows, P, Q, record, L, out_len, tail, next_tail):
+    """(rows, tail) for the wrappers' next step: a stream's chunk and tail
+    as they are where the kernel reads them in place, else the rotated
+    extension built (:func:`stream_extension`) and no tail."""
+    if (tail is None or (kind == "cuda" and out_len > 0
+                         and _geometry(record, P, Q, L)[0] != 0)):
+        return rows, tail
+    return stream_extension(rows, tail, next_tail, L), None
+
+
 @profiling.spanned("dsp.K4")
 def resample_direct_cuda(rows, taps, P: int, Q: int, offs, L: int,
-                         out_len: int, c: int = 128) -> torch.Tensor:
+                         out_len: int, c: int = 128, *, tail=None,
+                         next_tail=None) -> torch.Tensor:
     """K4: the resampler at the JAX K4 branch's geometries.  rows (R, n)
     f32; taps (P, 2L+1) tensor or numpy (rounded to f32 once); offs P
     ints in [0, Q).  Returns (R, out_len) f32.  A CPU tensor takes
     :func:`resample_direct_plain` (``c`` is its output-block factor; the
     kernel has no use for it); a CUDA tensor launches the kernel and adds
-    one to ``resample_direct_cuda.launches``."""
+    one to ``resample_direct_cuda.launches``.  ``tail``, ``next_tail``: a
+    stream's (module docstring)."""
     record = _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
-    if _device_of(rows, "resample_direct_cuda") == "cpu":
+    if tail is not None:
+        _check_tail(rows, tail, next_tail, L)
+    kind = _device_of(rows, "resample_direct_cuda")
+    rows, tail = _stream_rows(kind, rows, P, Q, record, L, out_len, tail,
+                              next_tail)
+    if kind == "cpu":
         return resample_direct_plain(rows, taps, P, Q, offs, L, out_len, c)
-    _build.refuse_grad("resample_direct_cuda", rows, taps)
-    out = _launch(rows, taps, P, Q, record, L, out_len)
+    _build.refuse_grad("resample_direct_cuda", rows, taps, tail)
+    out = _launch(rows, taps, P, Q, record, L, out_len, tail, next_tail)
     _build.count_launch(resample_direct_cuda)
     return out
 
@@ -343,18 +426,25 @@ resample_direct_cuda.launches = 0
 
 @profiling.spanned("dsp.K5")
 def resample_rowblock_cuda(rows, taps, P: int, Q: int, offs, L: int,
-                           out_len: int) -> torch.Tensor:
+                           out_len: int, *, tail=None,
+                           next_tail=None) -> torch.Tensor:
     """K5: the resampler at the JAX row-block branch's geometries (Q >=
     64, a row-block geometry whose offset fits the signal).  Same
     arguments and result as :func:`resample_direct_cuda`; a CPU tensor
     takes :func:`resample_rowblock_plain`, a CUDA tensor launches the
     kernel and adds one to ``resample_rowblock_cuda.launches``."""
     record = _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
-    _rowblock_split(P, Q, L, rows.shape[-1])
-    if _device_of(rows, "resample_rowblock_cuda") == "cpu":
+    n = rows.shape[-1]
+    if tail is not None:
+        n += _check_tail(rows, tail, next_tail, L)
+    _rowblock_split(P, Q, L, n)
+    kind = _device_of(rows, "resample_rowblock_cuda")
+    rows, tail = _stream_rows(kind, rows, P, Q, record, L, out_len, tail,
+                              next_tail)
+    if kind == "cpu":
         return resample_rowblock_plain(rows, taps, P, Q, offs, L, out_len)
-    _build.refuse_grad("resample_rowblock_cuda", rows, taps)
-    out = _launch(rows, taps, P, Q, record, L, out_len)
+    _build.refuse_grad("resample_rowblock_cuda", rows, taps, tail)
+    out = _launch(rows, taps, P, Q, record, L, out_len, tail, next_tail)
     _build.count_launch(resample_rowblock_cuda)
     return out
 

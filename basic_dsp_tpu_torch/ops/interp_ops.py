@@ -322,8 +322,7 @@ def _interpolatef_direct(x, taps, P, Q, offs, L, out_len, c: int = 128):
     planes = torch.stack((x.real, x.imag), dim=-2) if x.is_complex() else x
     lead = planes.shape[:-1]
     rows = planes.reshape(-1, n)
-    g = _rowblock_geometry(P, Q, L) if Q >= _ROWBLOCK_MIN_Q else None
-    rowblock = g is not None and g[1] <= n   # ext offset must fit the signal
+    rowblock = _takes_rowblock(P, Q, L, n)
     if rows.dtype != torch.float32:
         out = (rc.resample_rowblock_plain(rows, taps, P, Q, offs, L, out_len)
                if rowblock else
@@ -336,6 +335,42 @@ def _interpolatef_direct(x, taps, P, Q, offs, L, out_len, c: int = 128):
     if x.is_complex():
         return torch.complex(out[..., 0, :], out[..., 1, :])
     return out
+
+
+def _takes_rowblock(P, Q, L, n) -> bool:
+    """Whether a signal of n samples takes the row-block branch: Q >= 64
+    and a row-block geometry whose offset fits the signal."""
+    g = _rowblock_geometry(P, Q, L) if Q >= _ROWBLOCK_MIN_Q else None
+    return g is not None and g[1] <= n
+
+
+def _reads_in_place(P, Q, L, offs) -> bool:
+    """Whether :func:`_interpolatef_stream` reads a stream's float32
+    extension where it lies on the card: the geometry runs on
+    ``resample_runs`` (2L+1 <= 32 and its tile fits)."""
+    from ..kernels import resample_cuda as rc
+    return rc._run_geometry(P, Q, L, tuple(offs)) is not None
+
+
+def _as_rows(t):
+    return t if t.dim() == 2 else t.reshape(-1, t.shape[-1])
+
+
+def _interpolatef_stream(chunk, tail, next_tail, taps, P, Q, offs, L,
+                         out_len):
+    """:func:`_interpolatef_direct` of a stream's extension, ``[tail[...,
+    L:], chunk, tail[..., :L]]``, for float32 chunk (..., S) and tail (...,
+    T) given apart: one wrapper call with the tail, which on the card reads
+    both where they lie and writes the last T samples of [tail, chunk] into
+    ``next_tail`` (..., T), contiguous, in the same launch."""
+    from ..kernels import resample_cuda as rc
+    S, T = chunk.shape[-1], tail.shape[-1]
+    wrapper = (rc.resample_rowblock_cuda if _takes_rowblock(P, Q, L, S + T)
+               else rc.resample_direct_cuda)
+    out = wrapper(_as_rows(chunk), taps, P, Q, offs, L, out_len,
+                  tail=_as_rows(tail), next_tail=_as_rows(next_tail))
+    return out if chunk.dim() == 2 else out.reshape(chunk.shape[:-1]
+                                                    + (out_len,))
 
 
 def _phase_correlations(x, taps):

@@ -23,9 +23,13 @@ kernel runs) and ``dsp.assemble`` (the valid outputs sliced out and
 assembled).  ``StreamingFir.chunks`` and ``StreamingFir.rows`` count the
 chunks and the rows (chunks x P) processed, outside CUDA-graph captures.
 Each ``StreamingResampler.process`` is a root ``dsp.resample_stream`` over
-``dsp.rotate`` (the rotated extension and the new tail) and the resampler
-(``dsp.K4`` or ``dsp.K5``); ``StreamingResampler.chunks`` and
-``StreamingResampler.rows`` count its chunks and their channels.
+``dsp.rotate`` (what the join leaves: the new tail's allocation where the
+kernel reads tail and chunk in place, else the rotated extension and the
+new tail; the tail's cast where the state keeps another dtype) and the
+resampler (``dsp.K4`` or ``dsp.K5``); ``StreamingResampler.chunks``,
+``StreamingResampler.rows`` and ``StreamingResampler.in_place`` count its
+chunks, their channels and the chunks whose tail and chunk went to the
+kernel apart.
 """
 from __future__ import annotations
 
@@ -261,21 +265,27 @@ class StreamingResampler:
     matrix's row count ``interp_ops._band_W(P, Q, L, 128)``; the matrix
     itself is not built (18944 x 20480 float32 at 160/147), so ``Q`` may
     reach 512 where JAX stops at 64.  The resampler
-    kernels read ``x[((i//P)*Q + offs + t - L) mod n]``, so ``process``
-    hands them ``ext`` rotated left by L, ``[tail[L:], chunk, tail[:L]]``:
-    the one concatenation that builds the extension builds the rotation,
-    and the stencil needs no shift argument.  The taps are sampled in
-    float32 on ``device`` (the card when None).
+    kernels read ``x[((i//P)*Q + offs + t - L) mod n]`` of ``ext`` rotated
+    left by L, ``[tail[L:], chunk, tail[:L]]``.  A float32 chunk whose
+    geometry runs on ``resample_runs`` (2L+1 <= 32) hands the wrapper its
+    tail apart: on the card the kernel reads tail and chunk where they lie
+    and writes the new tail, the last T samples of [tail, chunk], into a
+    fresh tensor in the same launch (on the CPU the wrapper builds the
+    rotation).  Complex and float64 chunks and the other geometries build
+    the rotation with one concatenation, and keep the new tail as a view
+    of it (S + T samples a channel) until the next chunk.  No state's tail
+    is ever written.  The taps are sampled in float32 on ``device`` (the
+    card when None).
 
     A block of channels streams as one: a (C, S) chunk with a (C, T) tail
-    (``init_state(channels=C)``) is one rotation and one kernel launch of
-    C rows a chunk.  The new state's tail is a view of the rotated
-    extension, which it keeps alive (S + T samples a channel) until the
-    next chunk.
+    (``init_state(channels=C)``) is one kernel launch of C rows a chunk.
     """
 
     chunks = 0
     rows = 0
+    #: chunks whose tail and chunk the wrapper took apart (read in place
+    #: on the card)
+    in_place = 0
 
     def __init__(self, fun, factor: float, delay: float = 0.0,
                  conv_len: int = 10, device=None):
@@ -297,6 +307,7 @@ class StreamingResampler:
         self.T = T0 + ((L - T0) % Q)
         #: concatenated-output delay vs the whole-buffer linear resample
         self.output_delay = (self.T - L) // Q * P
+        self._in_place = interp_ops._reads_in_place(P, Q, L, offs)
 
     def init_state(self, dtype=torch.complex64, device=None,
                    channels=()) -> ResamplerState:
@@ -329,24 +340,37 @@ class StreamingResampler:
         # the casts only where the state keeps another dtype than the
         # chunk's (a no-op `to` still costs the host a dispatch)
         cast = state.tail.dtype != chunk.dtype
+        in_place = self._in_place and S and chunk.dtype == torch.float32
+        out_len = S * self.P // self.Q
         with profiling.span("dsp.resample_stream", chunk):
             with profiling.span("dsp.rotate"):
                 tail = state.tail.to(chunk.dtype) if cast else state.tail
-                rotated = torch.cat([tail[..., L:], chunk, tail[..., :L]],
-                                    dim=-1)
-                # the next tail, the last T samples of [tail, chunk]: a view
-                # of the extension this call made (no copy, and none of
-                # the caller's chunk held)
-                new_tail = (rotated[..., S - L:S - L + T] if S >= L
-                            else torch.cat([tail[..., S:], chunk], dim=-1))
-                if cast:
-                    new_tail = new_tail.to(state.tail.dtype)
-            out = interp_ops._interpolatef_direct(
-                rotated, self.taps, self.P, self.Q, self.offs, L,
-                S * self.P // self.Q, self.c)
+                if in_place:
+                    new_tail = torch.empty(tail.shape, dtype=tail.dtype,
+                                           device=tail.device)
+                else:
+                    rotated = torch.cat([tail[..., L:], chunk,
+                                         tail[..., :L]], dim=-1)
+                    # the next tail, the last T samples of [tail, chunk]: a
+                    # view of the extension this call made (no copy, and
+                    # none of the caller's chunk held)
+                    new_tail = (rotated[..., S - L:S - L + T] if S >= L
+                                else torch.cat([tail[..., S:], chunk],
+                                               dim=-1))
+            if in_place:
+                out = interp_ops._interpolatef_stream(
+                    chunk, tail, new_tail, self.taps, self.P, self.Q,
+                    self.offs, L, out_len)
+            else:
+                out = interp_ops._interpolatef_direct(
+                    rotated, self.taps, self.P, self.Q, self.offs, L,
+                    out_len, self.c)
+            if cast:
+                new_tail = new_tail.to(state.tail.dtype)
         if not (chunk.is_cuda and torch.cuda.is_current_stream_capturing()):
             StreamingResampler.chunks += 1
             StreamingResampler.rows += math.prod(chunk.shape[:-1])
+            StreamingResampler.in_place += bool(in_place)
         if out.dtype != chunk.dtype:
             out = out.to(chunk.dtype)
         return out, ResamplerState(tail=new_tail)

@@ -36,7 +36,8 @@ Phases (any failure raises and exits non-zero):
    stencil, the extended shapes of phases l and m), and
    ``resample_rowblock_cuda`` (K5) at four, among them an n that 147
    does not divide and phase l's extended chunk, the latter also on the
-   64 rows of the audio block; ``channelize_demod_cuda``
+   64 rows of the audio block and, with chunk and tail apart, read in
+   place (bit-equal to the rotated launch); ``channelize_demod_cuda``
    (K6) against ``channelize_demod_plain`` at five (C, S, taps per phase),
    among them config #5's with no prefix and with phase m's zero one, and
    a ragged S with a non-zero prefix, with ``demod`` True (angles, by the
@@ -1155,7 +1156,34 @@ def main(work):
     assert rsc.resample_direct_cuda.launches == 2 * n_direct
     assert rsc.resample_rowblock_cuda.launches == 2 * (len(resample_checks)
                                                        - n_direct) + 1
-    del got, ref, rows
+    # K5's two-source form at the audio cell's shape: a (64, 150528)
+    # column slice of a wider capture and a (64, T) tail read where they
+    # lie, bit-equal to the one-source launch on the rotated extension,
+    # and the next tail the last T samples of [tail, chunk]
+    taps_k, offs = interp_ops.polyphase_taps(sinc, 160, 147, 0.0, 10,
+                                             torch.float32, dev)
+    wide = torch.from_numpy(rng.standard_normal(
+        (AUDIO_CHANNELS, 2 * AUDIO_CHUNK), np.float32)).to(dev)
+    chunk = wide[:, AUDIO_CHUNK:]
+    tail = torch.from_numpy(rng.standard_normal(
+        (AUDIO_CHANNELS, t_audio), np.float32)).to(dev)
+    nxt = torch.empty_like(tail)
+    out_len = AUDIO_CHUNK * 160 // 147
+    got = rsc.resample_rowblock_cuda(chunk, taps_k, 160, 147, offs, 10,
+                                     out_len, tail=tail, next_tail=nxt)
+    ref = rsc.resample_rowblock_cuda(
+        torch.cat([tail[:, 10:], chunk, tail[:, :10]], dim=-1), taps_k, 160,
+        147, offs, 10, out_len)
+    torch.cuda.synchronize()
+    same = torch.equal(got, ref)
+    tail_same = torch.equal(nxt, chunk[:, AUDIO_CHUNK - t_audio:])
+    print(f"resample_rowblock_cuda, tail and chunk in place, at "
+          f"({AUDIO_CHANNELS}, {AUDIO_CHUNK}) + T {t_audio}: bit-equal to "
+          f"the rotated launch {same}, next tail {tail_same}")
+    assert same and tail_same
+    assert rsc.resample_rowblock_cuda.launches == 2 * (len(resample_checks)
+                                                       - n_direct) + 3
+    del got, ref, rows, wide, chunk, tail, nxt
 
     k6_abs_err = None
     for C, S, taps_pp, prefix in K6_GEOMETRIES:
@@ -1762,6 +1790,7 @@ def main(work):
     reset_counts()
     chunks0 = streaming.StreamingResampler.chunks
     rows0 = streaming.StreamingResampler.rows
+    in_place0 = streaming.StreamingResampler.in_place
     state = rs.init_state(torch.float32, channels=AUDIO_CHANNELS)
     one = rs.init_state(torch.float32)
     outs, outs0 = [], []
@@ -1773,6 +1802,7 @@ def main(work):
     block_launches = rsc.resample_rowblock_cuda.launches
     block_chunks = streaming.StreamingResampler.chunks - chunks0
     block_rows = streaming.StreamingResampler.rows - rows0
+    block_in_place = streaming.StreamingResampler.in_place - in_place0
     assert other_launches() == block_launches
     for k in range(AUDIO_BLOCK_CHUNKS):
         out, one = rs.process(xb[0, k * AUDIO_CHUNK:(k + 1) * AUDIO_CHUNK],
@@ -1784,8 +1814,10 @@ def main(work):
     print(f"main path: StreamingResampler 160/147, a block of "
           f"{AUDIO_CHANNELS} real channels in {AUDIO_BLOCK_CHUNKS} chunks of "
           f"{AUDIO_CHUNK}: resample_rowblock_cuda launches {block_launches}, "
-          f"StreamingResampler.chunks {block_chunks}, rows {block_rows}")
+          f"StreamingResampler.chunks {block_chunks}, rows {block_rows}, "
+          f"in_place {block_in_place}")
     assert block_launches == block_chunks == AUDIO_BLOCK_CHUNKS
+    assert block_in_place == AUDIO_BLOCK_CHUNKS
     assert block_rows == AUDIO_CHANNELS * AUDIO_BLOCK_CHUNKS
     assert rsc.resample_rowblock_cuda.launches == 2 * AUDIO_BLOCK_CHUNKS
     assert got.shape == (AUDIO_CHANNELS, out_len)

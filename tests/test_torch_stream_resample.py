@@ -243,6 +243,135 @@ def test_spans_under_one_root_a_chunk(factor, kernel):
     assert glue.value(marked) == pytest.approx(0.03)
 
 
+# (factor, P, Q, chunk lengths): K5, and K4 with the phases walked (5/3)
+# or one phase a lane (3/2); T is 18826, 385 and 256
+IN_PLACE = [(160, 147, 128 * 147), (160, 147, 2 * 128 * 147),
+            (5, 3, 384), (5, 3, 768), (3, 2, 384), (3, 2, 768)]
+
+
+def _chunk(layout, C, S, seed):
+    """A float32 chunk of C rows (one where 1-D) and S samples: the rows of
+    a block, or a column slice of a wider capture (its rows 3 S + 1
+    apart)."""
+    if layout == "1-D":
+        return _signal((S,), seed=seed)
+    if layout == "block":
+        return _signal((C, S), seed=seed)
+    return _signal((C, 3 * S + 1), seed=seed)[:, S + 1:2 * S + 1]
+
+
+def _rotated(tail, chunk, L):
+    return torch.cat([tail[..., L:], chunk, tail[..., :L]], dim=-1)
+
+
+@pytest.mark.parametrize("layout", ["1-D", "block", "column slice"])
+@pytest.mark.parametrize("P,Q,S", IN_PLACE)
+def test_the_wrappers_two_source_form_is_the_rotated_call(P, Q, S, layout):
+    """The wrapper given chunk and tail apart: the one-source call on the
+    rotated extension bit for bit, and the last T samples of [tail,
+    chunk] in next_tail; S >= T and S < T."""
+    rs = streaming.StreamingResampler(bt.SincFunction(), P / Q, 0.0, 10,
+                                      device="cpu")
+    L, T, out_len = rs.L, rs.T, S * P // Q
+    chunk = _chunk(layout, 3, S, seed=P + S)
+    rows = chunk.reshape(-1, S)
+    if layout == "column slice":
+        assert rows.stride(0) == 3 * S + 1
+    tail = _signal((rows.shape[0], T), seed=S)
+    wrapper = (rc.resample_rowblock_cuda
+               if interp_ops._takes_rowblock(P, Q, L, S + T)
+               else rc.resample_direct_cuda)
+    assert (wrapper is rc.resample_rowblock_cuda) == (Q >= 64)
+    nxt = torch.full_like(tail, float("nan"))
+    got = wrapper(rows, rs.taps, P, Q, rs.offs, L, out_len, tail=tail,
+                  next_tail=nxt)
+    want = wrapper(_rotated(tail, rows, L), rs.taps, P, Q, rs.offs, L,
+                   out_len)
+    assert torch.equal(got, want)
+    assert torch.equal(nxt, torch.cat([tail, rows], dim=-1)[:, S:])
+    # the stream's route: the same numbers through interp_ops
+    nxt2 = torch.empty((*chunk.shape[:-1], T))
+    got2 = interp_ops._interpolatef_stream(
+        chunk, tail.reshape(nxt2.shape), nxt2, rs.taps, P, Q, rs.offs, L,
+        out_len)
+    assert got2.shape == chunk.shape[:-1] + (out_len,)
+    assert torch.equal(got2.reshape(-1, out_len), want)
+    assert torch.equal(nxt2.reshape(-1, T), nxt)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda t, n: (t, n[:, 1:].contiguous()), "expected shape"),
+    (lambda t, n: (t[:2], n[:2]), "expected shape"),
+    (lambda t, n: (t[:, :5], n[:, :5]), "fewer than L"),
+    (lambda t, n: (t.double(), n), "float32"),
+    (lambda t, n: (t, n.t().contiguous().t()), "contiguous"),
+    (lambda t, n: (t, None), "float32")])
+def test_the_wrapper_refuses_a_tail_that_does_not_fit(bad, match):
+    P, Q, L, S, T = 160, 147, 10, 128 * 147, 18826
+    rs = _resampler("160/147")
+    rows = _signal((3, S))
+    tail, nxt = bad(torch.zeros(3, T), torch.zeros(3, T))
+    with pytest.raises((TypeError, ValueError), match=match):
+        rc.resample_rowblock_cuda(rows, rs.taps, P, Q, rs.offs, L,
+                                  S * P // Q, tail=tail, next_tail=nxt)
+
+
+@pytest.mark.parametrize("factor", sorted(CASES))
+def test_the_new_tail_is_not_the_callers_chunk_nor_the_old_tail(factor):
+    """After ``process``: writing into the caller's chunk leaves the new
+    tail as it was, and the zero state passed in is still zero."""
+    _, _, C, S, _, _ = CASES[factor]
+    rs = _resampler(factor)
+    zero = rs.init_state(torch.float32, channels=C)
+    kept = zero.tail.clone()
+    x = _signal((C, 2 * S), seed=14)
+    _, state = rs.process(x[:, :S], zero)
+    _, state = rs.process(x[:, S:], state)
+    tail = state.tail.clone()
+    x.fill_(7.0)
+    assert torch.equal(state.tail, tail)
+    assert torch.equal(zero.tail, kept)
+    assert torch.equal(state.tail,
+                       _signal((C, 2 * S), seed=14)[:, 2 * S - rs.T:])
+
+
+@pytest.mark.filterwarnings("ignore:Casting complex values to real")
+@pytest.mark.parametrize("dtype,counted", [
+    (torch.float32, 1), (torch.complex64, 0), (torch.float64, 0)])
+@pytest.mark.parametrize("factor", sorted(CASES))
+def test_in_place_counts_the_float32_chunks(spy, factor, dtype, counted):
+    _, _, C, S, _, route = CASES[factor]
+    rs = _resampler(factor)
+    x = _signal((C, S), dtype, seed=15)
+    for state in (rs.init_state(dtype, channels=C),
+                  rs.init_state(channels=C)):       # complex64 tail
+        in_place0 = streaming.StreamingResampler.in_place
+        rs.process(x, state)
+        assert streaming.StreamingResampler.in_place - in_place0 == counted
+    assert spy[route] == (2 if dtype != torch.float64 else 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_an_empty_chunk_gives_nothing_and_keeps_the_tail(dtype):
+    rs = _resampler("160/147")
+    state = streaming.ResamplerState(tail=_signal((2, rs.T), dtype))
+    out, new = rs.process(torch.zeros((2, 0), dtype=dtype), state)
+    assert out.shape == (2, 0) and out.dtype == dtype
+    assert torch.equal(new.tail, state.tail)
+
+
+def test_a_window_longer_than_the_runs_takes_the_rotation(spy):
+    """2L+1 = 401 > 32: the direct stencil's geometry keeps the rotated
+    copy, and no chunk counts as read in place."""
+    rs = streaming.StreamingResampler(bt.SincFunction(), 2.0, 0.0, 200,
+                                      device="cpu")
+    assert not rs._in_place
+    in_place0 = streaming.StreamingResampler.in_place
+    rs.process(_signal((2, 256)), rs.init_state(torch.float32, channels=2))
+    assert streaming.StreamingResampler.in_place == in_place0
+    assert spy["resample_direct_cuda"] == 1
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -276,3 +405,52 @@ def test_a_64_channel_chunk_is_one_k5_launch_on_the_card(card):
     consts = ref.constants({"factor": "160/147", "conv_len": 10}, 0, card)
     err = ref.errors(block, (ref.resample(consts, x.to(torch.float64)),))
     assert err["out_max_rel_err"] <= F32, err
+
+
+@pytest.mark.card
+def test_the_cells_column_slices_are_read_in_place_on_the_card(card):
+    """The cell's stream: (64, 150528) column slices of a (64, 602112)
+    capture over four chunks, tail and chunk read where they lie: outputs
+    and tails bit-equal to the rotation then K5 (the parent's path), one
+    K5 launch and one chunk read in place a chunk; then the same with the
+    chunk's and the tail's rows off the 16-byte grid, each by its own
+    amount, from a random tail."""
+    rs = streaming.StreamingResampler(bt.SincFunction(), 160 / 147, 0.0,
+                                      10, device=card)
+    C, S, L, T = 64, 150528, rs.L, rs.T
+    out_len = S * rs.P // rs.Q
+    x = _signal((C, 4 * S), seed=16).to(card)
+
+    def parents(chunk, tail):
+        rotated = _rotated(tail, chunk, L)
+        out = rc.resample_rowblock_cuda(rotated, rs.taps, rs.P, rs.Q,
+                                        rs.offs, L, out_len)
+        return out, rotated[:, S - L:S - L + T]
+
+    def check(x, state):
+        tail = state.tail
+        launches0 = rc.resample_rowblock_cuda.launches
+        in_place0 = streaming.StreamingResampler.in_place
+        outs, tails = [], []
+        for k in range(4):
+            out, state = rs.process(x[:, k * S:(k + 1) * S], state)
+            outs.append(out)
+            tails.append(state.tail)
+        torch.cuda.synchronize()
+        assert rc.resample_rowblock_cuda.launches - launches0 == 4
+        assert streaming.StreamingResampler.in_place - in_place0 == 4
+        for k in range(4):
+            want, tail = parents(x[:, k * S:(k + 1) * S], tail)
+            assert torch.equal(outs[k], want), k
+            assert torch.equal(tails[k], tail), k
+
+    rs.process(x[:, :S], rs.init_state(torch.float32, card, channels=C))
+    check(x, rs.init_state(torch.float32, card, channels=C))
+    wide = torch.zeros((C, 4 * S + 3), device=card)
+    wide[:, 1:4 * S + 1] = x                  # rows 4 S + 3 samples apart
+    held = torch.zeros((C, T + 3), device=card)
+    held[:, 1:T + 1] = _signal((C, T), seed=17).to(card)
+    off = streaming.ResamplerState(tail=held[:, 1:T + 1])
+    assert (wide[:, 1:].stride(0) * 4) % 16 and (T + 3) * 4 % 16
+    check(wide[:, 1:4 * S + 1], off)
+    assert not held[:, 0].any() and not held[:, T + 1:].any()
