@@ -75,6 +75,16 @@
 //   After its tiles each block writes its share of the next state's tail,
 //   ext[S : S + T], in pieces of 4 x 256 samples.  The <.., false> form
 //   is the one-source kernel as before.
+// * resample_runs<TW, QF, true, true> is that stream form on complex64
+//   rows (resample_stream_launch_complex): chunk, tail, next tail and
+//   output interleaved (re, im) pairs.  A sample is two floats: the window
+//   is staged as floats of the doubled row (the same copies on the same
+//   16-byte grid), a lane holds its window as float2 pairs and applies the
+//   real taps to re and im in the order the real form applies them to one
+//   plane, so each plane's outputs are bit-equal to the real form's on
+//   that plane; the outputs collect and leave as float2.  Twice the
+//   shared bytes and window registers: two blocks an SM (one where the
+//   tile takes more than half the SM's shared memory, 160/147).
 //
 // resample_tiles (2L+1 > 32, or a tap table too large for shared memory):
 // the first port's direct stencil.  A CUDA block owns G consecutive output
@@ -84,6 +94,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "cp_async.cuh"
 #include "persistent.cuh"
@@ -183,25 +194,51 @@ __device__ __forceinline__ void stage_ext(const float* __restrict__ tr,
 // Output blocks a lane takes at one phase when Q is fixed (QF = 1 or 2).
 constexpr int kFixedK = 7;
 
+// acc + w c for a sample w of a row: a float, or an interleaved complex64
+// (re, im) pair, each plane by the one real tap c.
+__device__ __forceinline__ float fma_tap(float w, float c, float acc) {
+  return fmaf(w, c, acc);
+}
+
+__device__ __forceinline__ float2 fma_tap(float2 w, float c, float2 acc) {
+  return make_float2(fmaf(w.x, c, acc.x), fmaf(w.y, c, acc.y));
+}
+
+template <typename V>
+__device__ __forceinline__ V zero_sample() {
+  if constexpr (sizeof(V) == sizeof(float)) {
+    return 0.0f;
+  } else {
+    return make_float2(0.0f, 0.0f);
+  }
+}
+
 // See the top of this file.  QF == 0 walks the phases: K output blocks a
 // run when groups == 1, else one block and a group of ceil(P / groups)
 // phases.  QF = Q in {1, 2} fixes a lane's phase (groups == 0): K =
 // kFixedK blocks, tasks of P phases.  KT = 32 K (tasks a phase group)
-// output blocks a tile; winw words a window buffer.  kTwo: x is a
+// output blocks a tile; winw floats a window buffer.  kTwo: x is a
 // stream's chunk and `ext` its tail (above); else `ext` is unused.
-template <int TW, int QF, bool kTwo>
-__global__ void __launch_bounds__(kThreads, 3)
+// kCplx: every row, the tail and the output hold complex64 samples (two
+// floats each); n, T, out_len and the strides count samples.
+template <int TW, int QF, bool kTwo, bool kCplx>
+__global__ void __launch_bounds__(kThreads, kCplx ? 2 : 3)
 resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
               const int* __restrict__ offs, float* __restrict__ out,
               long long n, long long out_len, int P, int Q, int L, int K,
               int groups, int KT, int winw, long long tiles_per_row,
               long long tiles, const Ext ext) {
+  static_assert(kTwo || !kCplx, "complex rows: the stream form only");
+  using V = typename std::conditional<kCplx, float2, float>::type;
+  constexpr int kW = kCplx ? 2 : 1;   // floats a sample
   extern __shared__ float4 smem4[];
   float* win0 = reinterpret_cast<float*>(smem4);   // two window buffers
   float* ts = win0 + 2 * winw;        // taps (P, TW), zero past 2L+1
   float* os = ts + P * TW;            // the tile's outputs, padded
+  V* ov = reinterpret_cast<V*>(os);
   const int nout = KT * P;
-  int* step = reinterpret_cast<int*>(os + padded(nout) + 1);
+  // summed in this order, the real forms' SASS is as before
+  int* step = reinterpret_cast<int*>(os + kW * padded(nout) + kW);
   const int T = 2 * L + 1;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -214,9 +251,9 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
   if (tile < tiles) {            // in flight while the taps are staged
     const long long row = tile / tiles_per_row;
     if constexpr (kTwo) {
-      stage_ext(ext.tail + row * ext.tail_stride, x + row * ext.x_stride,
-                win0, ext.T, n,
-                ((tile - row * tiles_per_row) * KT * Q) % n, chunks);
+      stage_ext(ext.tail + kW * row * ext.tail_stride,
+                x + kW * row * ext.x_stride, win0, kW * ext.T, kW * n,
+                kW * (((tile - row * tiles_per_row) * KT * Q) % n), chunks);
     } else {
       stage_window(x + row * n, win0, n,
                    window_start((tile - row * tiles_per_row) * KT, Q, L, n),
@@ -252,7 +289,8 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
     const float* xs;
     if constexpr (kTwo) {
       xs = win0 + cur * winw
-          + ext_phase(x + row * ext.x_stride, (kt * Q) % n, ext.T);
+          + ext_phase(x + kW * row * ext.x_stride, kW * ((kt * Q) % n),
+                      kW * ext.T);
     } else {
       xs = win0 + cur * winw + (window_start(kt, Q, L, n) & 3);
     }
@@ -262,9 +300,11 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
     if (next < tiles) {             // the other buffer is free since the
       const long long nrow = next / tiles_per_row;     // barrier
       if constexpr (kTwo) {
-        stage_ext(ext.tail + nrow * ext.tail_stride,
-                  x + nrow * ext.x_stride, win0 + (cur ^ 1) * winw, ext.T, n,
-                  ((next - nrow * tiles_per_row) * KT * Q) % n, chunks);
+        stage_ext(ext.tail + kW * nrow * ext.tail_stride,
+                  x + kW * nrow * ext.x_stride, win0 + (cur ^ 1) * winw,
+                  kW * ext.T, kW * n,
+                  kW * (((next - nrow * tiles_per_row) * KT * Q) % n),
+                  chunks);
       } else {
         stage_window(x + nrow * n, win0 + (cur ^ 1) * winw, n,
                      window_start((next - nrow * tiles_per_row) * KT, Q, L,
@@ -287,9 +327,14 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
         tap[4 * q + 2] = c.z;
         tap[4 * q + 3] = c.w;
       }
-      const float* xk = xs + k * QF + __ldg(offs + p);
-      float w[kWin];
-      if constexpr (QF == 2) {
+      const V* xk = reinterpret_cast<const V*>(xs) + k * QF
+          + __ldg(offs + p);
+      V w[kWin];
+      if constexpr (kCplx) {
+        // (re, im) pairs: lanes 7 Q pairs apart, conflict-free at Q = 1
+#pragma unroll
+        for (int t = 0; t < kWin; ++t) w[t] = xk[t];
+      } else if constexpr (QF == 2) {
         // Lanes 14 words apart: as float2 pairs (two phases of 16 lanes,
         // 7 pairs apart) no bank is hit twice, where single words would
         // be 2-way.  The pairs' alignment is the warp's (k Q is even).
@@ -317,10 +362,12 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
       }
 #pragma unroll
       for (int j = 0; j < kFixedK; ++j) {
-        float acc = 0.0f;
+        V acc = zero_sample<V>();
 #pragma unroll
-        for (int t = 0; t < TW; ++t) acc = fmaf(w[j * QF + t], tap[t], acc);
-        os[padded((k + j) * P + p)] = acc;
+        for (int t = 0; t < TW; ++t) {
+          acc = fma_tap(w[j * QF + t], tap[t], acc);
+        }
+        ov[padded((k + j) * P + p)] = acc;
       }
     }
     for (int task = warp; task < tasks && QF == 0; task += kWarps) {
@@ -331,21 +378,22 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
       int k = ((task / groups) * 32 + lane) * K;    // local output block
       int p = pb;
       int s = k * Q + offs[p];
-      float w[TW];
+      const V* xv = reinterpret_cast<const V*>(xs);
+      V w[TW];
 #pragma unroll
-      for (int t = 0; t < TW; ++t) w[t] = xs[s + t];
+      for (int t = 0; t < TW; ++t) w[t] = xv[s + t];
       for (int j = 0;;) {
         const float4* tp = reinterpret_cast<const float4*>(ts + p * TW);
-        float acc = 0.0f;
+        V acc = zero_sample<V>();
 #pragma unroll
         for (int q = 0; q < TW / 4; ++q) {
           const float4 c = tp[q];
-          acc = fmaf(w[4 * q], c.x, acc);
-          acc = fmaf(w[4 * q + 1], c.y, acc);
-          acc = fmaf(w[4 * q + 2], c.z, acc);
-          acc = fmaf(w[4 * q + 3], c.w, acc);
+          acc = fma_tap(w[4 * q], c.x, acc);
+          acc = fma_tap(w[4 * q + 1], c.y, acc);
+          acc = fma_tap(w[4 * q + 2], c.z, acc);
+          acc = fma_tap(w[4 * q + 3], c.w, acc);
         }
-        os[padded(k * P + p)] = acc;
+        ov[padded(k * P + p)] = acc;
         if (++j == J) break;
         const int d = step[p];
         if (++p == P) {
@@ -356,23 +404,23 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
         if (d == 1) {
 #pragma unroll
           for (int t = 0; t + 1 < TW; ++t) w[t] = w[t + 1];
-          w[TW - 1] = xs[s + TW - 1];
+          w[TW - 1] = xv[s + TW - 1];
         } else if (d == 2) {
 #pragma unroll
           for (int t = 0; t + 2 < TW; ++t) w[t] = w[t + 2];
-          w[TW - 2] = xs[s + TW - 2];
-          w[TW - 1] = xs[s + TW - 1];
+          w[TW - 2] = xv[s + TW - 2];
+          w[TW - 1] = xv[s + TW - 1];
         } else if (d != 0) {
 #pragma unroll
-          for (int t = 0; t < TW; ++t) w[t] = xs[s + t];
+          for (int t = 0; t < TW; ++t) w[t] = xv[s + t];
         }
       }
     }
     __syncthreads();
     const long long i0 = kt * P;
     const int m = out_len - i0 < nout ? static_cast<int>(out_len - i0) : nout;
-    float* o = out + row * out_len + i0;
-    for (int j = threadIdx.x; j < m; j += blockDim.x) o[j] = os[padded(j)];
+    V* o = reinterpret_cast<V*>(out) + row * out_len + i0;
+    for (int j = threadIdx.x; j < m; j += blockDim.x) o[j] = ov[padded(j)];
     cur ^= 1;
   }
   if constexpr (kTwo) {
@@ -386,9 +434,10 @@ resample_runs(const float* __restrict__ x, const float* __restrict__ taps,
          u += gridDim.x) {
       const long long row = u / pieces;
       const long long j0 = (u - row * pieces) * kPiece;
-      const float* tr = ext.tail + row * ext.tail_stride;
-      const float* cr = x + row * ext.x_stride;
-      float* d = ext.next + row * T;
+      const V* tr = reinterpret_cast<const V*>(ext.tail)
+          + row * ext.tail_stride;
+      const V* cr = reinterpret_cast<const V*>(x) + row * ext.x_stride;
+      V* d = reinterpret_cast<V*>(ext.next) + row * T;
 #pragma unroll
       for (int e = 0; e < kPiece / kThreads; ++e) {
         const long long j = j0 + e * kThreads + threadIdx.x;
@@ -469,26 +518,28 @@ int launch_tiles(const float* x, const float* taps, const int* offs,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TW, int QF, bool kTwo>
+template <int TW, int QF, bool kTwo, bool kCplx>
 int launch_runs(const float* x, const float* taps, const int* offs,
                 float* out, long long n, long long out_len, int rows, int P,
                 int Q, int L, int K, int groups, int KT, int win,
                 const Ext& ext, cudaStream_t stream) {
-  const int winw = ((win + 3) + 3) & ~3;   // the alignment offset and win
+  constexpr int kW = kCplx ? 2 : 1;
+  // the alignment offset and the window's floats
+  const int winw = ((kW * win + 3) + 3) & ~3;
   const int nout = KT * P;
   const int smem = static_cast<int>(
-      (2 * winw + P * TW + nout + (nout >> 5) + 1) * sizeof(float)
+      (2 * winw + P * TW + kW * (nout + (nout >> 5) + 1)) * sizeof(float)
       + P * sizeof(int));
   int resident = 0;
   const cudaError_t e = persistent::grid(
-      reinterpret_cast<const void*>(resample_runs<TW, QF, kTwo>), kThreads,
-      smem, &resident);
+      reinterpret_cast<const void*>(resample_runs<TW, QF, kTwo, kCplx>),
+      kThreads, smem, &resident);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long nblocks = (out_len + P - 1) / P;
   const long long per_row = (nblocks + KT - 1) / KT;
   const long long tiles = per_row * rows;
   const long long grid = tiles < resident ? tiles : resident;
-  resample_runs<TW, QF, kTwo>
+  resample_runs<TW, QF, kTwo, kCplx>
       <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       x, taps, offs, out, n, out_len, P, Q, L, K, groups, KT, winw, per_row,
       tiles, ext);
@@ -497,7 +548,7 @@ int launch_runs(const float* x, const float* taps, const int* offs,
 
 // resample_runs at the register window tw, QF = 0 (groups >= 1, the
 // phases walked) or Q (groups == 0, Q <= 2).
-template <bool kTwo>
+template <bool kTwo, bool kCplx>
 int launch_any_runs(const float* x, const float* taps, const int* offs,
                     float* out, long long n, long long out_len, int rows,
                     int P, int Q, int L, int tw, int K, int groups, int KT,
@@ -508,8 +559,9 @@ int launch_any_runs(const float* x, const float* taps, const int* offs,
   }
 #define RESAMPLE_RUNS(TW, QF)                                               \
   if (tw == TW && qf == QF) {                                               \
-    return launch_runs<TW, QF, kTwo>(x, taps, offs, out, n, out_len, rows,  \
-                                     P, Q, L, K, groups, KT, win, ext, s);  \
+    return launch_runs<TW, QF, kTwo, kCplx>(x, taps, offs, out, n, out_len, \
+                                            rows, P, Q, L, K, groups, KT,   \
+                                            win, ext, s);                   \
   }
   RESAMPLE_RUNS(8, 0) RESAMPLE_RUNS(16, 0) RESAMPLE_RUNS(24, 0)
   RESAMPLE_RUNS(32, 0) RESAMPLE_RUNS(8, 1) RESAMPLE_RUNS(16, 1)
@@ -527,6 +579,25 @@ bool bad_geometry(long long n, long long out_len, int rows, int P, int Q,
       || win < 2 * L + 1 || (tw != 0 && (tw < 2 * L + 1 || KT % (32 * K)));
 }
 
+
+// resample_stream_launch and its complex form (below).
+template <bool kCplx>
+int stream_launch(const float* chunk, long long chunk_stride,
+                  const float* tail, long long tail_stride, float* next,
+                  long long S, long long T, const float* taps,
+                  const int* offs, float* out, long long out_len, int rows,
+                  int P, int Q, int L, int tw, int K, int groups, int KT,
+                  int win, void* stream) {
+  if (S <= 0 || T < L
+      || bad_geometry(S + T, out_len, rows, P, Q, L, tw, K, groups, KT, win)
+      || tw == 0 || (rows > 1 && (chunk_stride < S || tail_stride < T))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Ext ext{tail, next, tail_stride, chunk_stride, T};
+  return launch_any_runs<true, kCplx>(chunk, taps, offs, out, S + T, out_len,
+                                      rows, P, Q, L, tw, K, groups, KT, win,
+                                      ext, static_cast<cudaStream_t>(stream));
+}
 }  // namespace
 
 extern "C" {
@@ -557,8 +628,9 @@ int resample_launch(const float* x, const float* taps, const int* offs,
         : launch_tiles<false>(x, taps, offs, out, n, out_len, rows, P, Q, L,
                               KT, win, s);
   }
-  return launch_any_runs<false>(x, taps, offs, out, n, out_len, rows, P, Q,
-                                L, tw, K, groups, KT, win, Ext{}, s);
+  return launch_any_runs<false, false>(x, taps, offs, out, n, out_len, rows,
+                                       P, Q, L, tw, K, groups, KT, win,
+                                       Ext{}, s);
 }
 
 // resample_launch over a stream's extension read where it lies: chunk
@@ -574,15 +646,26 @@ int resample_stream_launch(const float* chunk, long long chunk_stride,
                            long long out_len, int rows, int P, int Q, int L,
                            int tw, int K, int groups, int KT, int win,
                            void* stream) {
-  if (S <= 0 || T < L
-      || bad_geometry(S + T, out_len, rows, P, Q, L, tw, K, groups, KT, win)
-      || tw == 0 || (rows > 1 && (chunk_stride < S || tail_stride < T))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Ext ext{tail, next, tail_stride, chunk_stride, T};
-  return launch_any_runs<true>(chunk, taps, offs, out, S + T, out_len, rows,
-                               P, Q, L, tw, K, groups, KT, win, ext,
-                               static_cast<cudaStream_t>(stream));
+  return stream_launch<false>(chunk, chunk_stride, tail, tail_stride, next, S,
+                              T, taps, offs, out, out_len, rows, P, Q, L, tw,
+                              K, groups, KT, win, stream);
+}
+
+// resample_stream_launch on complex64 rows: chunk, tail, next and out hold
+// interleaved (re, im) float pairs, S, T, out_len and the strides count
+// complex samples; the real taps apply to both planes.  win counts
+// samples, as resample_launch's.
+int resample_stream_launch_complex(const float* chunk, long long chunk_stride,
+                                   const float* tail, long long tail_stride,
+                                   float* next, long long S, long long T,
+                                   const float* taps, const int* offs,
+                                   float* out, long long out_len, int rows,
+                                   int P, int Q, int L, int tw, int K,
+                                   int groups, int KT, int win,
+                                   void* stream) {
+  return stream_launch<true>(chunk, chunk_stride, tail, tail_stride, next, S,
+                             T, taps, offs, out, out_len, rows, P, Q, L, tw,
+                             K, groups, KT, win, stream);
 }
 
 const char* resample_error_string(int code) {

@@ -2,7 +2,8 @@
 (counterpart of ``basic_dsp_tpu/kernels/resample_pallas.py``: K4
 ``resample_direct_pallas`` and K5 ``resample_rowblock_pallas``).
 
-Both wrappers compute, for each row of a (rows, n) real signal::
+Both wrappers compute, for each row of a (rows, n) real or complex64
+signal, against real taps::
 
     out[r, i] = sum_{t=0..2L} x[r, ((i//P)*Q + offs[i%P] + t - L) mod n]
                               * taps[i%P, t]
@@ -12,8 +13,9 @@ branch, :func:`resample_rowblock_cuda` those of its row-block branch
 (Q >= 64).  For a float32 CUDA tensor both launch ``csrc/resample.cu``
 (runs of outputs over a register window with broadcast taps, or for tap
 rows longer than 32 the direct stencil), each adding one to its own
-``launches``; a failed build or launch raises.  For a CPU tensor each
-runs its plain PyTorch version:
+``launches``; a failed build or launch raises.  The card takes complex64
+rows only as a stream's chunk read in place (below).  For a CPU tensor
+each runs its plain PyTorch version, plane by plane on complex rows:
 :func:`resample_direct_plain` (JAX's XLA band path, windows @ M) and
 :func:`resample_rowblock_plain` (JAX's row-block form, sum_r V[j+r] @ M_r).
 The plain versions also take float64, which the dispatch sends them on any
@@ -24,8 +26,10 @@ stream's chunk (rows, S) and resamples the extension [tail, chunk] rotated
 left by L, ``x[i] = ext[(i + L) mod n]``, n = T + S, as if it were passed
 that way; it writes the last T samples of [tail, chunk] into
 ``next_tail``.  On the card resample_runs reads tail and chunk where they
-lie (``resample_stream_launch``) and writes the next tail in the same
-launch; elsewhere the wrapper builds the rotated extension
+lie (``resample_stream_launch``; complex64 rows, tail and next tail
+interleaved, ``resample_stream_launch_complex``, counted in the wrapper's
+``complex_launches`` too) and writes the next tail in the same launch;
+elsewhere the wrapper builds the rotated extension
 (:func:`stream_extension`).
 """
 from __future__ import annotations
@@ -49,8 +53,11 @@ SMEM_TAPS_MAX = 96 * 1024  # taps and offs are staged in shared memory
 RUN_WIDTHS = (8, 16, 24, 32)   # the register windows compiled
 RUN_OUTPUTS = 16               # outputs a run covers at least, P <= 32
 RUN_PHASES = 24                # phases a group covers at most, P > 32
-RUN_SMEM_MAX = 96 * 1024       # two blocks an SM at least
+RUN_SMEM_MAX = 96 * 1024       # two blocks an SM at least (real rows;
+                               # complex rows as many samples a block)
 WARPS = 8
+# what the wrappers take; the plain versions take float64 rows too
+TAKES = (torch.float32, torch.complex64)
 
 
 def _check(rows, taps, P: int, Q: int, offs, L: int, out_len: int,
@@ -74,12 +81,12 @@ _OFFSETS = {}
 
 def _check_tail(rows, tail, next_tail, L: int) -> int:
     """Checks a stream's tail and the next tail against its chunk's rows
-    (R, S): (R, T) float32 tensors on the rows' device, T >= L, next_tail
-    contiguous.  Returns T."""
+    (R, S): (R, T) tensors of the rows' dtype on their device, T >= L,
+    next_tail contiguous.  Returns T."""
     for name, t in (("tail", tail), ("next_tail", next_tail)):
-        if (not isinstance(t, torch.Tensor) or t.dtype is not torch.float32
+        if (not isinstance(t, torch.Tensor) or t.dtype is not rows.dtype
                 or t.device != rows.device):
-            raise TypeError(f"{name}: expected a float32 tensor on "
+            raise TypeError(f"{name}: expected a {rows.dtype} tensor on "
                             f"{rows.device}")
         if t.shape != tail.shape or t.dim() != 2 or \
                 t.shape[0] != rows.shape[0]:
@@ -88,8 +95,9 @@ def _check_tail(rows, tail, next_tail, L: int) -> int:
     T = tail.shape[-1]
     if T < L:
         raise ValueError(f"tail: {T} samples, fewer than L = {L}")
-    if not next_tail.is_contiguous():
-        raise ValueError("next_tail: expected a contiguous tensor")
+    if not next_tail.is_contiguous() or next_tail.is_conj():
+        raise ValueError("next_tail: expected a contiguous tensor without "
+                         "a conjugate bit")
     return T
 
 
@@ -231,21 +239,24 @@ def _tile_geometry(P: int, Q: int, L: int, offs: tuple):
     return G, (G - 1) * Q + maxoff + T, shared_taps
 
 
-def run_smem(P: int, tw: int, KT: int, win: int) -> int:
-    """Shared bytes of resample_runs: two window buffers of win + 3 words
-    (the tile's alignment offset) rounded to 16 bytes, the (P, tw) taps,
-    the tile's KT * P outputs with a pad word every 32, and P steps."""
-    winw = (win + 3 + 3) & ~3
+def run_smem(P: int, tw: int, KT: int, win: int, words: int = 1) -> int:
+    """Shared bytes of resample_runs: two window buffers of win samples of
+    ``words`` floats (2: complex64) and 3 floats (the tile's alignment
+    offset) rounded to 16 bytes, the (P, tw) taps, the tile's KT * P
+    outputs with a pad sample every 32, and P steps."""
+    winw = (words * win + 3 + 3) & ~3
     nout = KT * P
-    return 4 * (2 * winw + P * tw + nout + (nout >> 5) + 1) + 4 * P
+    return (4 * (2 * winw + P * tw + words * (nout + (nout >> 5) + 1))
+            + 4 * P)
 
 
 FIXED_K = 7          # output blocks a lane takes at one phase (Q <= 2)
 
 
-def _run_geometry(P: int, Q: int, L: int, offs: tuple):
-    """(tw, K, groups, KT, win) of resample_runs, or None when the direct
-    stencil takes the geometry (2L+1 > 32, or no tile fits).  tw: the
+def _run_geometry(P: int, Q: int, L: int, offs: tuple, words: int = 1):
+    """(tw, K, groups, KT, win) of resample_runs on rows of ``words``
+    floats a sample (2: complex64), or None when the direct stencil takes
+    the geometry (2L+1 > 32, or no tile fits).  tw: the
     register window, the least of RUN_WIDTHS >= 2L+1.  Q <= 2: groups = 0,
     a lane at one phase over K = FIXED_K output blocks, 8 // gcd(P, 8)
     tasks of P phases a tile (so that the 8 warps share them evenly).  Q >
@@ -254,7 +265,9 @@ def _run_geometry(P: int, Q: int, L: int, offs: tuple):
     RUN_PHASES)) groups, 8 // groups (at least 1) tasks a group.  A task
     is a warp's 32 lanes, so a tile holds KT = 32 K tasks-a-group output
     blocks; win = (KT-1)*Q + max(offs) + tw.  K, then the tasks a group,
-    halve until the block's shared memory fits RUN_SMEM_MAX."""
+    halve until the block's shared memory fits ``words`` x RUN_SMEM_MAX
+    (as many samples a block for complex rows: at 160/147 their smallest
+    tile, 134 kB, leaves one block an SM)."""
     T = 2 * L + 1
     tw = next((w for w in RUN_WIDTHS if w >= T), None)
     if tw is None or 4 * P * (tw + 1) > SMEM_TAPS_MAX:
@@ -272,7 +285,7 @@ def _run_geometry(P: int, Q: int, L: int, offs: tuple):
     while True:
         KT = 32 * K * per_group
         win = (KT - 1) * Q + maxoff + tw
-        if run_smem(P, tw, KT, win) <= RUN_SMEM_MAX:
+        if run_smem(P, tw, KT, win, words) <= words * RUN_SMEM_MAX:
             return tw, K, groups, KT, win
         if K > 1 and groups:
             K = max(1, K // 2) | 1 if K > 2 else 1
@@ -318,18 +331,26 @@ def _lib() -> ctypes.CDLL:
                                            + [vp] * 3 + [ll] + [ci] * 9
                                            + [vp])
     lib.resample_stream_launch.restype = ci
+    lib.resample_stream_launch_complex.argtypes = \
+        lib.resample_stream_launch.argtypes
+    lib.resample_stream_launch_complex.restype = ci
     lib.resample_error_string.argtypes = [ci]
     lib.resample_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _geometry(record, P: int, Q: int, L: int) -> tuple:
+def _geometry(record, P: int, Q: int, L: int, cplx: bool = False):
     """The launch geometry of ``record`` (:func:`_offsets`) at L, built
-    once."""
-    geometry = record[3].get(L)
-    if geometry is None:
-        geometry = record[3][L] = _launch_geometry(P, Q, L, record[1])
-    return geometry
+    once: ``resample_launch``'s (:func:`_launch_geometry`), or for complex
+    rows the in-place stream's, resample_runs' or None."""
+    key = (L, "complex") if cplx else L
+    try:
+        return record[3][key]
+    except KeyError:
+        geometry = record[3][key] = (
+            _run_geometry(P, Q, L, record[1], 2) if cplx
+            else _launch_geometry(P, Q, L, record[1]))
+        return geometry
 
 
 def _launch(rows, taps, P, Q, record, L, out_len, tail=None,
@@ -338,10 +359,12 @@ def _launch(rows, taps, P, Q, record, L, out_len, tail=None,
     from :func:`_offsets`; a geometry seen before builds nothing on the
     host but the output.  With ``tail``, rows is a stream's chunk and
     resample_runs reads the extension where it lies (the geometry's tw is
-    not 0)."""
+    not 0); the chunk may then be complex64 rows, with a complex64 tail
+    and next tail, and so is the output."""
     R, n = rows.shape
     dev = rows.device
-    geometry = _geometry(record, P, Q, L)
+    cplx = rows.is_complex()
+    geometry = _geometry(record, P, Q, L, cplx)
     o = record[2].get(dev)
     if o is None:
         o = record[2][dev] = torch.tensor(record[1], dtype=torch.int32,
@@ -353,7 +376,7 @@ def _launch(rows, taps, P, Q, record, L, out_len, tail=None,
             t = t.to(device=dev, dtype=torch.float32).contiguous()
     else:
         t = _device_taps(_interp_ops()._taps_key(taps), dev)
-    out = torch.empty((R, out_len), dtype=torch.float32, device=dev)
+    out = torch.empty((R, out_len), dtype=rows.dtype, device=dev)
     if out_len == 0:
         return out
     lib = _lib()
@@ -363,12 +386,17 @@ def _launch(rows, taps, P, Q, record, L, out_len, tail=None,
                            t.data_ptr(), o.data_ptr(), out.data_ptr(), n,
                            out_len, R, P, Q, L, *geometry)
     else:
-        # each row's samples in order; the rows may lie apart
+        # each row's samples in order; the rows may lie apart; a lazy
+        # conjugate resolved (the kernel reads the memory, not the bit)
+        if rows.is_conj() or tail.is_conj():
+            rows, tail = rows.resolve_conj(), tail.resolve_conj()
         if rows.stride(-1) != 1:
             rows = rows.contiguous()
         if tail.stride(-1) != 1:
             tail = tail.contiguous()
-        rc = _build.launch(dev, lib.resample_stream_launch, rows.data_ptr(),
+        entry = (lib.resample_stream_launch_complex if cplx
+                 else lib.resample_stream_launch)
+        rc = _build.launch(dev, entry, rows.data_ptr(),
                            rows.stride(0), tail.data_ptr(), tail.stride(0),
                            next_tail.data_ptr(), n, tail.shape[-1],
                            t.data_ptr(), o.data_ptr(), out.data_ptr(),
@@ -386,14 +414,53 @@ def _device_of(rows, who: str) -> str:
     return kind
 
 
+def reads_in_place(P: int, Q: int, L: int, offs, dtype) -> bool:
+    """Whether the card reads a stream's chunk of ``dtype`` and its tail
+    where they lie: float32 or complex64 rows on a resample_runs geometry
+    (2L+1 <= 32 and its tile, of complex samples for complex64, fits)."""
+    return _in_place(_offsets(P, Q, offs), P, Q, L, dtype)
+
+
+def _in_place(record, P, Q, L, dtype) -> bool:
+    if dtype not in TAKES:
+        return False
+    geometry = _geometry(record, P, Q, L, dtype is torch.complex64)
+    return geometry is not None and geometry[0] != 0
+
+
 def _stream_rows(kind, rows, P, Q, record, L, out_len, tail, next_tail):
     """(rows, tail) for the wrappers' next step: a stream's chunk and tail
     as they are where the kernel reads them in place, else the rotated
     extension built (:func:`stream_extension`) and no tail."""
-    if (tail is None or (kind == "cuda" and out_len > 0
-                         and _geometry(record, P, Q, L)[0] != 0)):
+    if tail is None or (kind == "cuda" and out_len > 0 and _in_place(
+            record, P, Q, L, rows.dtype)):
         return rows, tail
     return stream_extension(rows, tail, next_tail, L), None
+
+
+def _resample(name, wrapper, plain, rows, taps, P, Q, record, L, out_len,
+              tail, next_tail) -> torch.Tensor:
+    """The two wrappers' route once their arguments are checked: the plain
+    version on the CPU (plane by plane on complex rows), else the kernel,
+    ``wrapper``'s counters adding one a launch (and ``complex_launches``
+    one a complex64 chunk read in place)."""
+    kind = _device_of(rows, name)
+    cplx = rows.is_complex()
+    rows, tail = _stream_rows(kind, rows, P, Q, record, L, out_len, tail,
+                              next_tail)
+    if kind == "cpu":
+        return (torch.complex(plain(rows.real), plain(rows.imag)) if cplx
+                else plain(rows))
+    if cplx and tail is None:
+        raise TypeError(f"{name}: the card takes complex64 rows only as a "
+                        "stream's chunk with its tail on a geometry read in "
+                        "place; resample the planes as float32 rows")
+    _build.refuse_grad(name, rows, taps, tail)
+    out = _launch(rows, taps, P, Q, record, L, out_len, tail, next_tail)
+    _build.count_launch(wrapper)
+    if cplx and not torch.cuda.is_current_stream_capturing():
+        wrapper.complex_launches += 1
+    return out
 
 
 @profiling.spanned("dsp.K4")
@@ -401,27 +468,24 @@ def resample_direct_cuda(rows, taps, P: int, Q: int, offs, L: int,
                          out_len: int, c: int = 128, *, tail=None,
                          next_tail=None) -> torch.Tensor:
     """K4: the resampler at the JAX K4 branch's geometries.  rows (R, n)
-    f32; taps (P, 2L+1) tensor or numpy (rounded to f32 once); offs P
-    ints in [0, Q).  Returns (R, out_len) f32.  A CPU tensor takes
-    :func:`resample_direct_plain` (``c`` is its output-block factor; the
-    kernel has no use for it); a CUDA tensor launches the kernel and adds
-    one to ``resample_direct_cuda.launches``.  ``tail``, ``next_tail``: a
-    stream's (module docstring)."""
-    record = _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
+    f32 or complex64; taps (P, 2L+1) tensor or numpy (rounded to f32
+    once); offs P ints in [0, Q).  Returns (R, out_len) of the rows'
+    dtype.  A CPU tensor takes :func:`resample_direct_plain` (``c`` is its
+    output-block factor; the kernel has no use for it); a CUDA tensor
+    launches the kernel and adds one to ``resample_direct_cuda.launches``
+    a launch.  ``tail``, ``next_tail``: a stream's (module docstring)."""
+    record = _check(rows, taps, P, Q, offs, L, out_len, TAKES)
     if tail is not None:
         _check_tail(rows, tail, next_tail, L)
-    kind = _device_of(rows, "resample_direct_cuda")
-    rows, tail = _stream_rows(kind, rows, P, Q, record, L, out_len, tail,
-                              next_tail)
-    if kind == "cpu":
-        return resample_direct_plain(rows, taps, P, Q, offs, L, out_len, c)
-    _build.refuse_grad("resample_direct_cuda", rows, taps, tail)
-    out = _launch(rows, taps, P, Q, record, L, out_len, tail, next_tail)
-    _build.count_launch(resample_direct_cuda)
-    return out
+    return _resample(
+        "resample_direct_cuda", resample_direct_cuda,
+        lambda r: resample_direct_plain(r, taps, P, Q, offs, L, out_len, c),
+        rows, taps, P, Q, record, L, out_len, tail, next_tail)
 
 
 resample_direct_cuda.launches = 0
+#: launches that read a stream's complex64 chunk and tail where they lie
+resample_direct_cuda.complex_launches = 0
 
 
 @profiling.spanned("dsp.K5")
@@ -433,20 +497,16 @@ def resample_rowblock_cuda(rows, taps, P: int, Q: int, offs, L: int,
     arguments and result as :func:`resample_direct_cuda`; a CPU tensor
     takes :func:`resample_rowblock_plain`, a CUDA tensor launches the
     kernel and adds one to ``resample_rowblock_cuda.launches``."""
-    record = _check(rows, taps, P, Q, offs, L, out_len, (torch.float32,))
+    record = _check(rows, taps, P, Q, offs, L, out_len, TAKES)
     n = rows.shape[-1]
     if tail is not None:
         n += _check_tail(rows, tail, next_tail, L)
     _rowblock_split(P, Q, L, n)
-    kind = _device_of(rows, "resample_rowblock_cuda")
-    rows, tail = _stream_rows(kind, rows, P, Q, record, L, out_len, tail,
-                              next_tail)
-    if kind == "cpu":
-        return resample_rowblock_plain(rows, taps, P, Q, offs, L, out_len)
-    _build.refuse_grad("resample_rowblock_cuda", rows, taps, tail)
-    out = _launch(rows, taps, P, Q, record, L, out_len, tail, next_tail)
-    _build.count_launch(resample_rowblock_cuda)
-    return out
+    return _resample(
+        "resample_rowblock_cuda", resample_rowblock_cuda,
+        lambda r: resample_rowblock_plain(r, taps, P, Q, offs, L, out_len),
+        rows, taps, P, Q, record, L, out_len, tail, next_tail)
 
 
 resample_rowblock_cuda.launches = 0
+resample_rowblock_cuda.complex_launches = 0

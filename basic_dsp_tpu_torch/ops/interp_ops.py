@@ -344,14 +344,6 @@ def _takes_rowblock(P, Q, L, n) -> bool:
     return g is not None and g[1] <= n
 
 
-def _reads_in_place(P, Q, L, offs) -> bool:
-    """Whether :func:`_interpolatef_stream` reads a stream's float32
-    extension where it lies on the card: the geometry runs on
-    ``resample_runs`` (2L+1 <= 32 and its tile fits)."""
-    from ..kernels import resample_cuda as rc
-    return rc._run_geometry(P, Q, L, tuple(offs)) is not None
-
-
 def _as_rows(t):
     return t if t.dim() == 2 else t.reshape(-1, t.shape[-1])
 
@@ -359,10 +351,12 @@ def _as_rows(t):
 def _interpolatef_stream(chunk, tail, next_tail, taps, P, Q, offs, L,
                          out_len):
     """:func:`_interpolatef_direct` of a stream's extension, ``[tail[...,
-    L:], chunk, tail[..., :L]]``, for float32 chunk (..., S) and tail (...,
-    T) given apart: one wrapper call with the tail, which on the card reads
-    both where they lie and writes the last T samples of [tail, chunk] into
-    ``next_tail`` (..., T), contiguous, in the same launch."""
+    L:], chunk, tail[..., :L]]``, for a float32 or complex64 chunk (...,
+    S) and tail (..., T) of its dtype given apart: one wrapper call with
+    the tail, which on the card reads both where they lie and writes the
+    last T samples of [tail, chunk] into ``next_tail`` (..., T),
+    contiguous, in the same launch; a complex64 chunk's output is written
+    as complex64 by the kernel itself (no planes stacked or joined)."""
     from ..kernels import resample_cuda as rc
     S, T = chunk.shape[-1], tail.shape[-1]
     wrapper = (rc.resample_rowblock_cuda if _takes_rowblock(P, Q, L, S + T)

@@ -148,25 +148,33 @@ RS_CUTS = {
         ("for (int task = warp; task < tasks && QF == 0; task += kWarps) {",
          "for (int task = warp; task < 0 && QF == 0; task += kWarps) {")],
     "two blocks an SM (128 registers)": [
-        ("__global__ void __launch_bounds__(kThreads, 3)\nresample_runs(",
+        ("__global__ void __launch_bounds__(kThreads, kCplx ? 2 : 3)\n"
+         "resample_runs(",
          "__global__ void __launch_bounds__(kThreads, 2)\nresample_runs(")],
-    "no FMAs (an add a float4 of taps)": [
-        ("          acc = fmaf(w[4 * q], c.x, acc);\n"
-         "          acc = fmaf(w[4 * q + 1], c.y, acc);\n"
-         "          acc = fmaf(w[4 * q + 2], c.z, acc);\n"
-         "          acc = fmaf(w[4 * q + 3], c.w, acc);",
-         "          acc += w[4 * q] + c.x;"),
-        ("for (int t = 0; t < TW; ++t) acc = fmaf(w[j * QF + t], tap[t], acc);",
-         "for (int t = 0; t < TW; t += 4) acc += w[j * QF + t] + tap[t];")],
+    "a quarter of the FMAs (one a float4 of taps)": [
+        ("          acc = fma_tap(w[4 * q], c.x, acc);\n"
+         "          acc = fma_tap(w[4 * q + 1], c.y, acc);\n"
+         "          acc = fma_tap(w[4 * q + 2], c.z, acc);\n"
+         "          acc = fma_tap(w[4 * q + 3], c.w, acc);",
+         "          acc = fma_tap(w[4 * q], c.x, acc);"),
+        ("        for (int t = 0; t < TW; ++t) {\n"
+         "          acc = fma_tap(w[j * QF + t], tap[t], acc);",
+         "        for (int t = 0; t < TW; t += 4) {\n"
+         "          acc = fma_tap(w[j * QF + t], tap[t], acc);")],
+    # the first float of each output decides (complex forms: the real
+    # plane), so that the sums stay live
     "no output staging (no shared stores)": [
-        ("        os[padded((k + j) * P + p)] = acc;",
-         "        if (acc == 1234.5f) os[padded((k + j) * P + p)] = acc;"),
-        ("        os[padded(k * P + p)] = acc;",
-         "        if (acc == 1234.5f) os[padded(k * P + p)] = acc;")],
+        ("        ov[padded((k + j) * P + p)] = acc;",
+         "        if (reinterpret_cast<const float*>(&acc)[0] == 1234.5f)\n"
+         "          ov[padded((k + j) * P + p)] = acc;"),
+        ("        ov[padded(k * P + p)] = acc;",
+         "        if (reinterpret_cast<const float*>(&acc)[0] == 1234.5f)\n"
+         "          ov[padded(k * P + p)] = acc;")],
     "no stores to device memory": [
-        ("for (int j = threadIdx.x; j < m; j += blockDim.x) o[j] = os[padded(j)];",
+        ("for (int j = threadIdx.x; j < m; j += blockDim.x) o[j] = ov[padded(j)];",
          "for (int j = threadIdx.x; j < m; j += blockDim.x) {\n"
-         "      if (os[padded(j)] == 1234.5f) o[j] = 0.0f;\n    }")],
+         "      if (reinterpret_cast<const float*>(ov + padded(j))[0]\n"
+         "          == 1234.5f) o[j] = V{};\n    }")],
     "no register shifts (a reload every move)": [
         ("        if (d == 1) {", "        if (d == 1234) {"),
         ("        } else if (d == 2) {", "        } else if (d == 1235) {")],

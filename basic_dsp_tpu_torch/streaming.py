@@ -28,8 +28,8 @@ kernel reads tail and chunk in place, else the rotated extension and the
 new tail; the tail's cast where the state keeps another dtype) and the
 resampler (``dsp.K4`` or ``dsp.K5``); ``StreamingResampler.chunks``,
 ``StreamingResampler.rows`` and ``StreamingResampler.in_place`` count its
-chunks, their channels and the chunks whose tail and chunk went to the
-kernel apart.
+chunks, their channels and the chunks (float32 or complex64) whose tail
+and chunk went to the kernel apart.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from . import config, profiling
+from .kernels import resample_cuda
 from .ops import conv_ops, interp_ops
 
 
@@ -266,14 +267,16 @@ class StreamingResampler:
     itself is not built (18944 x 20480 float32 at 160/147), so ``Q`` may
     reach 512 where JAX stops at 64.  The resampler
     kernels read ``x[((i//P)*Q + offs + t - L) mod n]`` of ``ext`` rotated
-    left by L, ``[tail[L:], chunk, tail[:L]]``.  A float32 chunk whose
-    geometry runs on ``resample_runs`` (2L+1 <= 32) hands the wrapper its
-    tail apart: on the card the kernel reads tail and chunk where they lie
-    and writes the new tail, the last T samples of [tail, chunk], into a
-    fresh tensor in the same launch (on the CPU the wrapper builds the
-    rotation).  Complex and float64 chunks and the other geometries build
-    the rotation with one concatenation, and keep the new tail as a view
-    of it (S + T samples a channel) until the next chunk.  No state's tail
+    left by L, ``[tail[L:], chunk, tail[:L]]``.  A float32 or complex64
+    chunk whose geometry runs on ``resample_runs`` (2L+1 <= 32) hands the
+    wrapper its tail apart: on the card the kernel reads tail and chunk
+    where they lie and writes the output and the new tail, the last T
+    samples of [tail, chunk], into fresh tensors of the chunk's dtype in
+    the same launch (complex64 interleaved, as it lies: no planes stacked
+    or joined; on the CPU the wrapper builds the rotation).  float64
+    chunks and the other geometries (2L+1 > 32) build the rotation with
+    one concatenation, and keep the new tail as a view of it (S + T
+    samples a channel) until the next chunk.  No state's tail
     is ever written.  The taps are sampled in float32 on ``device`` (the
     card when None).
 
@@ -283,8 +286,8 @@ class StreamingResampler:
 
     chunks = 0
     rows = 0
-    #: chunks whose tail and chunk the wrapper took apart (read in place
-    #: on the card)
+    #: float32 and complex64 chunks whose tail and chunk the wrapper took
+    #: apart (read in place on the card)
     in_place = 0
 
     def __init__(self, fun, factor: float, delay: float = 0.0,
@@ -307,7 +310,10 @@ class StreamingResampler:
         self.T = T0 + ((L - T0) % Q)
         #: concatenated-output delay vs the whole-buffer linear resample
         self.output_delay = (self.T - L) // Q * P
-        self._in_place = interp_ops._reads_in_place(P, Q, L, offs)
+        # the chunk dtypes read in place
+        self._in_place = frozenset(
+            dt for dt in (torch.float32, torch.complex64)
+            if resample_cuda.reads_in_place(P, Q, L, offs, dt))
 
     def init_state(self, dtype=torch.complex64, device=None,
                    channels=()) -> ResamplerState:
@@ -340,7 +346,7 @@ class StreamingResampler:
         # the casts only where the state keeps another dtype than the
         # chunk's (a no-op `to` still costs the host a dispatch)
         cast = state.tail.dtype != chunk.dtype
-        in_place = self._in_place and S and chunk.dtype == torch.float32
+        in_place = S and chunk.dtype in self._in_place
         out_len = S * self.P // self.Q
         with profiling.span("dsp.resample_stream", chunk):
             with profiling.span("dsp.rotate"):

@@ -37,7 +37,11 @@ Phases (any failure raises and exits non-zero):
    ``resample_rowblock_cuda`` (K5) at four, among them an n that 147
    does not divide and phase l's extended chunk, the latter also on the
    64 rows of the audio block and, with chunk and tail apart, read in
-   place (bit-equal to the rotated launch); ``channelize_demod_cuda``
+   place (bit-equal to the rotated launch); both wrappers' complex64
+   two-source launch (K4 at 10/1 on the modulation cell's (64, 65536),
+   K5 at 160/147 on (64, 150528)) bit-equal to the planar route, each
+   plane's two-source launch, and against the plain version of each
+   plane of the rotated extension; ``channelize_demod_cuda``
    (K6) against ``channelize_demod_plain`` at five (C, S, taps per phase),
    among them config #5's with no prefix and with phase m's zero one, and
    a ragged S with a non-zero prefix, with ``demod`` True (angles, by the
@@ -351,6 +355,7 @@ CFG4_SYMBOLS = 1 << 17
 AUDIO_N = 1 << 20
 AUDIO_CHUNK, AUDIO_CHUNKS = 150528, 7     # 8 * 128 * 147 samples a chunk
 AUDIO_CHANNELS, AUDIO_BLOCK_CHUNKS = 64, 3   # the audio cell's MADI block
+MOD_CHUNK = 65536    # the modulation cell's complex64 chunk, 64 carriers
 CHAN_N = 1 << 22
 CHAN_C = 1024
 CHAN_TAPS = 8
@@ -1183,7 +1188,56 @@ def main(work):
     assert same and tail_same
     assert rsc.resample_rowblock_cuda.launches == 2 * (len(resample_checks)
                                                        - n_direct) + 3
-    del got, ref, rows, wide, chunk, tail, nxt
+    # the complex64 form of the two-source launch: a (64, S) complex64
+    # column slice and its (64, T) tail read where they lie, one launch,
+    # bit-equal to each plane's two-source launch joined (the planar
+    # route), at the modulation cell's 10/1 (K4) and the audio cell's
+    # 160/147 (K5)
+    for kind, fun, P, Q, S in (
+            ("direct", bt.RaisedCosineFunction(0.35), 10, 1, MOD_CHUNK),
+            ("rowblock", sinc, 160, 147, AUDIO_CHUNK)):
+        wrapper = getattr(rsc, f"resample_{kind}_cuda")
+        rs_c = streaming.StreamingResampler(fun, P / Q, 0.0, 10, device=dev)
+        T, out_len = rs_c.T, S * P // Q
+        wide = torch.complex(*planes(AUDIO_CHANNELS, 2 * S))
+        chunk = wide[:, S:]
+        tail = torch.complex(*planes(AUDIO_CHANNELS, T))
+        nxt = torch.empty_like(tail)
+        launches0 = wrapper.launches
+        complex0 = wrapper.complex_launches
+        got = wrapper(chunk, rs_c.taps, P, Q, rs_c.offs, 10, out_len,
+                      tail=tail, next_tail=nxt)
+        parts = [wrapper(part(chunk).contiguous(), rs_c.taps, P, Q,
+                         rs_c.offs, 10, out_len,
+                         tail=part(tail).contiguous(),
+                         next_tail=torch.empty((AUDIO_CHANNELS, T),
+                                               device=dev))
+                 for part in (torch.real, torch.imag)]
+        # and against the plain version of each plane of the rotated
+        # extension, built apart
+        ext = rsc.stream_extension(chunk, tail, torch.empty_like(tail), 10)
+        if kind == "direct":
+            ref = torch.complex(*(rsc.resample_direct_plain(
+                part(ext), rs_c.taps, P, Q, rs_c.offs, 10, out_len, rs_c.c)
+                for part in (torch.real, torch.imag)))
+        else:
+            ref = torch.complex(*(rsc.resample_rowblock_plain(
+                part(ext), rs_c.taps, P, Q, rs_c.offs, 10, out_len)
+                for part in (torch.real, torch.imag)))
+        torch.cuda.synchronize()
+        same = got.dtype == torch.complex64 and torch.equal(
+            got, torch.complex(*parts))
+        tail_same = torch.equal(nxt, chunk[:, S - T:])
+        err = rel_err(got, ref)
+        print(f"resample_{kind}_cuda, complex64 tail and chunk in place, at "
+              f"{P}/{Q}, ({AUDIO_CHANNELS}, {S}) + T {T}: bit-equal to the "
+              f"planar route {same}, next tail {tail_same}; vs plain "
+              f"{err:.3e} relative to max (tol {KERNEL_TOL})")
+        assert same and tail_same
+        assert err <= KERNEL_TOL, (kind, P, Q, err)
+        assert wrapper.launches - launches0 == 3
+        assert wrapper.complex_launches - complex0 == 1
+    del got, ref, rows, wide, chunk, tail, nxt, parts, ext
 
     k6_abs_err = None
     for C, S, taps_pp, prefix in K6_GEOMETRIES:

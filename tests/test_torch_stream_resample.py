@@ -31,18 +31,32 @@ def one_thread():
     torch.set_num_threads(before)
 
 
+WRAPPERS = ("resample_direct_cuda", "resample_rowblock_cuda")
+# the wrappers themselves, which hold the counters, whatever a spy patches
+COUNTED = {n: getattr(rc, n) for n in WRAPPERS}
+
+
 @pytest.fixture
 def spy(monkeypatch):
-    """Counts the calls of the two resampler wrappers."""
-    calls = {"resample_direct_cuda": 0, "resample_rowblock_cuda": 0}
-    for name in calls:
+    """Counts the calls of the two resampler wrappers, each under its
+    name, and under "complex" those given a complex64 chunk with its tail
+    (the calls that read complex64 rows in place on the card, where the
+    wrappers' ``complex_launches`` count them)."""
+    calls = dict.fromkeys(WRAPPERS, 0)
+    for name in WRAPPERS:
         real = getattr(rc, name)
 
         def wrapped(*a, _real=real, _name=name, **k):
             calls[_name] += 1
+            if a[0].is_complex() and k.get("tail") is not None:
+                calls["complex"] = calls.get("complex", 0) + 1
             return _real(*a, **k)
         monkeypatch.setattr(rc, name, wrapped)
     return calls
+
+
+def _wrapper_calls(spy):
+    return {n: spy[n] for n in WRAPPERS}
 
 
 def _resampler(factor):
@@ -79,7 +93,8 @@ def test_a_block_of_channels_is_the_plain_reference(spy, factor):
                                                         * P // Q)
     assert state.tail.dtype == torch.float32
     assert state.tail.shape == (C, rs.T)
-    assert spy[route] == nchunks and sum(spy.values()) == nchunks
+    assert spy[route] == nchunks
+    assert sum(_wrapper_calls(spy).values()) == nchunks
     consts = ref.constants({"factor": factor, "conv_len": 10}, 0, "cpu")
     assert consts["delay"] // Q * P == rs.output_delay
     err = ref.errors(got, (ref.resample(consts, x.to(torch.float64)),))
@@ -138,8 +153,8 @@ def test_a_1d_stream_is_the_parents_bit_for_bit(spy, S, dtype):
         s1 = dict(spy)
         b, old = _parents_process(rs, chunk, old)
         # the same route, one wrapper call each
-        assert {n: s1[n] - s0[n] for n in spy} == \
-            {n: spy[n] - s1[n] for n in spy} == \
+        assert {n: s1[n] - s0[n] for n in WRAPPERS} == \
+            {n: spy[n] - s1[n] for n in WRAPPERS} == \
             {"resample_direct_cuda": 0, "resample_rowblock_cuda": 1}
         assert a.dtype == b.dtype == dtype and a.shape == (S * 160 // 147,)
         assert torch.equal(a, b)
@@ -337,18 +352,23 @@ def test_the_new_tail_is_not_the_callers_chunk_nor_the_old_tail(factor):
 
 @pytest.mark.filterwarnings("ignore:Casting complex values to real")
 @pytest.mark.parametrize("dtype,counted", [
-    (torch.float32, 1), (torch.complex64, 0), (torch.float64, 0)])
+    (torch.float32, 1), (torch.complex64, 1), (torch.float64, 0)])
 @pytest.mark.parametrize("factor", sorted(CASES))
-def test_in_place_counts_the_float32_chunks(spy, factor, dtype, counted):
+def test_in_place_counts_the_float32_and_complex64_chunks(spy, factor, dtype,
+                                                          counted):
     _, _, C, S, _, route = CASES[factor]
     rs = _resampler(factor)
     x = _signal((C, S), dtype, seed=15)
+    launches0 = {n: w.complex_launches for n, w in COUNTED.items()}
     for state in (rs.init_state(dtype, channels=C),
                   rs.init_state(channels=C)):       # complex64 tail
         in_place0 = streaming.StreamingResampler.in_place
         rs.process(x, state)
         assert streaming.StreamingResampler.in_place - in_place0 == counted
     assert spy[route] == (2 if dtype != torch.float64 else 0)
+    assert spy.get("complex", 0) == (2 if dtype == torch.complex64 else 0)
+    # the CPU launches no kernel: no complex launch is counted
+    assert launches0 == {n: w.complex_launches for n, w in COUNTED.items()}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
