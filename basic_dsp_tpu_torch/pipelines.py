@@ -33,7 +33,7 @@ import torch
 
 from . import profiling
 from .conv_types import RaisedCosineFunction
-from .kernels import fir_cuda, spectrum_cuda
+from .kernels import _build, fir_cuda, spectrum_cuda
 from .ops import conv_ops, fft_ops, fourstep, interp_ops
 
 BUDGETS = (None, "high", "high-xla", "high-kernel")
@@ -167,16 +167,149 @@ def fir_fft_chain_planar(xr: torch.Tensor, xi: torch.Tensor,
                              fused)
 
 
+class _ChainPlan:
+    """The unfused chain's three launches on one card, resolved once for a
+    :class:`FirFftChainPlanar` (:func:`_chain_plan`): K7's clipped taps
+    and window, K1's twiddle planes, each checked once and held with its
+    pointer, the geometry and the three C entries.  A call
+    (:meth:`__call__`, on planes :meth:`admits`) allocates one scratch
+    block of 5n float32 (K7's two planes, K8's two planes, K1's (n1, L2,
+    128) block) and the (n,) output, and passes ``fir_window_launch``,
+    ``fourstep_stage1_launch`` and ``rowfft_mag_natural_launch`` the
+    arguments that ``fir_cuda.fir_window_cuda``, ``spectrum_cuda.
+    stage1_cuda`` and ``spectrum_cuda.rowfft_mag_natural`` pass them, each
+    launch under its wrapper's span and counted in its wrapper's
+    ``launches``."""
+
+    def __init__(self, device, taps, m_eff, window, Tfac, W, n1, n2):
+        self.device, self.index = device, device.index
+        self.n, self.n1, self.n2 = n1 * n2, n1, n2
+        self.shape = (n1 * n2,)
+        # the held planes stay alive while the plan points at them
+        self.held = (taps, window, *Tfac, *W)
+        self.fir, self.rows = fir_cuda._lib(), spectrum_cuda._lib()
+        self.k7 = self.fir.fir_window_launch
+        self.k8 = self.rows.fourstep_stage1_launch
+        self.k1 = self.rows.rowfft_mag_natural_launch
+        self.k7_held = (taps.data_ptr(), window.data_ptr())
+        self.k7_tail = (self.n, m_eff)
+        self.k1_held = tuple(p.data_ptr() for p in (*Tfac, *W))
+        self.k1_tail = (n1, n2 // spectrum_cuda.LANES,
+                        spectrum_cuda.LANES // 2)
+
+    def admits(self, xr, xi) -> bool:
+        """Whether the planes take the plan: float32, (n,), contiguous and
+        16-byte aligned on the plan's card, and none requiring grad under
+        grad mode (which the wrappers refuse)."""
+        return (xr.dtype is torch.float32 and xi.dtype is torch.float32
+                and xr.shape == self.shape and xi.shape == self.shape
+                and xi.get_device() == self.index
+                and xr.is_contiguous() and xi.is_contiguous()
+                and xr.data_ptr() % 16 == 0 and xi.data_ptr() % 16 == 0
+                and not (torch.is_grad_enabled()
+                         and (xr.requires_grad or xi.requires_grad)))
+
+    def __call__(self, xr, xi) -> torch.Tensor:
+        n = self.n
+        scratch = torch.empty(5 * n, dtype=torch.float32, device=self.device)
+        # its own allocation: a held spectrum pins no scratch
+        out = torch.empty(n, dtype=torch.float32, device=self.device)
+        if torch.cuda.current_device() == self.index:
+            self._issue(xr.data_ptr(), xi.data_ptr(), scratch.data_ptr(),
+                        out.data_ptr())
+        else:
+            with torch.cuda.device(self.index):
+                self._issue(xr.data_ptr(), xi.data_ptr(),
+                            scratch.data_ptr(), out.data_ptr())
+        return out
+
+    def _issue(self, xr, xi, s, out) -> None:
+        b = 4 * self.n
+        stream = _build._raw_stream(self.index)
+        counted = not torch.cuda.is_current_stream_capturing()
+        with profiling.span("dsp.fir"), profiling.span("dsp.K7"):
+            _launched("fir_window", self.fir.fir_window_error_string,
+                      self.k7(xr, xi, *self.k7_held, s, s + b,
+                              *self.k7_tail, stream))
+        if counted:
+            fir_cuda.fir_window_cuda.launches += 1
+        with profiling.span("dsp.stage1"), profiling.span("dsp.K8"):
+            _launched("stage1_cuda", self.rows.rowfft_mag_error_string,
+                      self.k8(s, s + b, s + 2 * b, s + 3 * b, self.n1,
+                              self.n2, stream))
+        if counted:
+            spectrum_cuda.stage1_cuda.launches += 1
+        with profiling.span("dsp.K1"):
+            _launched("rowfft_mag_natural", self.rows.rowfft_mag_error_string,
+                      self.k1(s + 2 * b, s + 3 * b, *self.k1_held, s + 4 * b,
+                              out, *self.k1_tail, stream))
+        if counted:
+            spectrum_cuda.rowfft_mag_natural.launches += 1
+            FirFftChainPlanar.planned_calls += 1
+
+
+def _launched(name, error_string, rc) -> None:
+    """Raises, as the kernel's wrapper does, where its C entry returned a
+    code other than 0."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + error_string(rc).decode())
+
+
+def _chain_plan(chain: "FirFftChainPlanar", device) -> "_ChainPlan | None":
+    """A :class:`_ChainPlan` of ``chain`` on the card ``device``, or None
+    where the chain does not take K7, K8 and K1 there: fused, an n1 that
+    ``spectrum_cuda.stage1_supported`` refuses, taps that K7 refuses, or a
+    held plane not float32 on ``device`` (the window and the twiddles also
+    contiguous and 16-byte aligned), or requiring grad."""
+    n1, n2 = chain.n1, chain.n2
+    n, L2, lanes = n1 * n2, n2 // spectrum_cuda.LANES, spectrum_cuda.LANES
+    if chain.fused or not spectrum_cuda.stage1_supported(n1, n2):
+        return None
+    taps = chain.taps
+    start, m_eff, _ = conv_ops._clip_kernel(n, taps.shape[-1])
+    # K7 reads the taps where they lie, as its wrapper passes them
+    if (taps.dim() != 1 or taps.dtype is not torch.float32
+            or taps.device != device or taps.requires_grad
+            or not fir_cuda.supported(n, m_eff)):
+        return None
+    taps = taps[start:start + m_eff].contiguous()
+    Tfac = (chain.tw_ar, chain.tw_ai, chain.tw_br, chain.tw_bi)
+    W = (chain.w_r, chain.w_i)
+    want = [(chain.window, (n,)), (Tfac[0], (n1, L2)),
+            (Tfac[1], (n1, L2)), (Tfac[2], (n1, lanes)),
+            (Tfac[3], (n1, lanes)), (W[0], (L2, lanes)), (W[1], (L2, lanes))]
+    for p, shape in want:
+        if (p.dtype is not torch.float32 or p.shape != shape
+                or p.device != device or not p.is_contiguous()
+                or p.data_ptr() % 16 != 0 or p.requires_grad):
+            return None
+    return _ChainPlan(device, taps, m_eff, chain.window, Tfac, W, n1, n2)
+
+
 class FirFftChainPlanar(torch.nn.Module):
     """:func:`fir_fft_chain_planar` with its constants as buffers: the
     Toeplitz band matrices where K7 does not take the taps (more than
     ``fir_cuda.MAX_TAPS`` after clipping), the window, the inner twiddle
     and the factored big twiddle.  The signal length is the window's.
-    ``forward(xr, xi)`` returns the (n,) magnitude spectrum."""
+    ``forward(xr, xi)`` returns the (n,) magnitude spectrum.
+
+    On a card the unfused chain resolves its three launches once a device
+    (:class:`_ChainPlan`, built by the first call there and dropped when
+    the module moves or a buffer is replaced): a call whose planes the
+    plan admits checks only them and issues K7, K8 and K1 itself, adding
+    one to ``FirFftChainPlanar.planned_calls`` (none while a CUDA graph
+    is captured).  Any other call (CPU planes, ``fused``, taps or an n1
+    the kernels refuse, misaligned views, other dtypes, planes requiring
+    grad) takes :func:`_planar_chain`, the wrappers' route; both give the
+    same bits."""
+
+    planned_calls = 0
 
     def __init__(self, taps: torch.Tensor, window: torch.Tensor,
                  n1: int = 0, fused: bool = False):
         super().__init__()
+        self._plans = {}
         n = window.shape[-1]
         self.fused = bool(fused)
         self.n1, self.n2 = _geometry(n, n1, self.fused)
@@ -193,8 +326,34 @@ class FirFftChainPlanar(torch.nn.Module):
         self.register_buffer("w_r", W[0])
         self.register_buffer("w_i", W[1])
 
+    def _plan(self, xr) -> "_ChainPlan | None":
+        """The plan for planes on ``xr``'s card, built at the first call
+        there; None off the card or where the chain takes no plan."""
+        if not xr.is_cuda:
+            return None
+        index = xr.get_device()
+        if index not in self._plans:
+            self._plans[index] = _chain_plan(self, xr.device)
+        return self._plans[index]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._plans.clear()           # the held pointers move with it
+        return super()._apply(fn, *args, **kwargs)
+
+    def __setattr__(self, name, value):
+        if name in self.__dict__.get("_buffers", ()):
+            self._plans.clear()
+        super().__setattr__(name, value)
+
+    def __getstate__(self):
+        # a copy holds its own buffers: it builds its own plans
+        return dict(super().__getstate__(), _plans={})
+
     def forward(self, xr: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
         with profiling.span("dsp.chain", xr):
+            plan = self._plan(xr)
+            if plan is not None and plan.admits(xr, xi):
+                return plan(xr, xi)
             n = self.n1 * self.n2
             if xr.shape != (n,) or xi.shape != (n,):
                 raise ValueError(f"expected two ({n},) planes, got "
