@@ -25,10 +25,14 @@ import site
 import subprocess
 import sys
 import sysconfig
+import time
 from pathlib import Path
 from typing import List, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+from .. import profiling
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -195,10 +199,33 @@ def launch(dev, fn, *args) -> int:
     """Calls the C entry ``fn(*args, stream)``, ``stream`` the current
     stream of ``dev``, and returns its code.  Enters ``dev``'s device
     context only when ``dev`` is not the current device; builds no Stream
-    object."""
+    object.  While a profiler is active, the call's host ns (the device
+    lookup, the stream and the C entry) go to the open kernel span's
+    ``launch_ns`` (``profiling.launched``); off, one flag check."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _launch(dev, fn, args)
+    start = time.perf_counter_ns()
+    rc = _launch(dev, fn, args)
+    profiling.launched(start)
+    return rc
+
+
+def _launch(dev, fn, args) -> int:
     current = torch.cuda.current_device()
     index = current if dev.index is None else dev.index
     if index == current:
         return fn(*args, _raw_stream(index))
     with torch.cuda.device(index):
         return fn(*args, _raw_stream(index))
+
+
+def call(fn, *args) -> int:
+    """Calls the C entry ``fn(*args)``, its arguments (the stream among
+    them) resolved by the caller, and returns its code: :func:`launch`'s
+    call, timed the same way while a profiler is active."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return fn(*args)
+    start = time.perf_counter_ns()
+    rc = fn(*args)
+    profiling.launched(start)
+    return rc

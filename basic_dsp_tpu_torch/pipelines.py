@@ -178,8 +178,9 @@ class _ChainPlan:
     ``fourstep_stage1_launch`` and ``rowfft_mag_natural_launch`` the
     arguments that ``fir_cuda.fir_window_cuda``, ``spectrum_cuda.
     stage1_cuda`` and ``spectrum_cuda.rowfft_mag_natural`` pass them, each
-    launch under its wrapper's span and counted in its wrapper's
-    ``launches``."""
+    launch under its wrapper's span (the entry called through
+    ``_build.call``, which times it into that span's ``launch_ns`` while a
+    profiler is active) and counted in its wrapper's ``launches``."""
 
     def __init__(self, device, taps, m_eff, window, Tfac, W, n1, n2):
         self.device, self.index = device, device.index
@@ -229,20 +230,21 @@ class _ChainPlan:
         counted = not torch.cuda.is_current_stream_capturing()
         with profiling.span("dsp.fir"), profiling.span("dsp.K7"):
             _launched("fir_window", self.fir.fir_window_error_string,
-                      self.k7(xr, xi, *self.k7_held, s, s + b,
-                              *self.k7_tail, stream))
+                      _build.call(self.k7, xr, xi, *self.k7_held, s, s + b,
+                                  *self.k7_tail, stream))
         if counted:
             fir_cuda.fir_window_cuda.launches += 1
         with profiling.span("dsp.stage1"), profiling.span("dsp.K8"):
             _launched("stage1_cuda", self.rows.rowfft_mag_error_string,
-                      self.k8(s, s + b, s + 2 * b, s + 3 * b, self.n1,
-                              self.n2, stream))
+                      _build.call(self.k8, s, s + b, s + 2 * b, s + 3 * b,
+                                  self.n1, self.n2, stream))
         if counted:
             spectrum_cuda.stage1_cuda.launches += 1
         with profiling.span("dsp.K1"):
             _launched("rowfft_mag_natural", self.rows.rowfft_mag_error_string,
-                      self.k1(s + 2 * b, s + 3 * b, *self.k1_held, s + 4 * b,
-                              out, *self.k1_tail, stream))
+                      _build.call(self.k1, s + 2 * b, s + 3 * b,
+                                  *self.k1_held, s + 4 * b, out,
+                                  *self.k1_tail, stream))
         if counted:
             spectrum_cuda.rowfft_mag_natural.launches += 1
             FirFftChainPlanar.planned_calls += 1

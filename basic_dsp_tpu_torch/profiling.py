@@ -13,18 +13,33 @@ each span is also a ``torch.profiler.record_function`` of its name, so the
 profiler's trace holds it on the device trace's clock, and it leaves a
 record in a bounded ring in memory (:func:`spans`, :func:`reset_spans`):
 its name, its call id (a span opened with none open is a root and starts a
-call; its descendants share the id), its parent's index and its host start
-and end.  On a CUDA input, and not while the stream captures a CUDA graph,
-a root records a CUDA event on the current stream as it opens, and each
-of its direct children one on the same stream as it closes; the root ends
-at its last child's event (at its own, recorded as it closes, where it
-has no child), so nothing the device should count may follow the last
-child inside a root.  A record's stream ms runs from the event before it
-to its own: a root's is the whole call on the device's timeline, the
-device's waits for the host included, and its children's add up to it.
-Deeper spans and CPU calls have no stream ms.  The events come from a
-pool: a root takes back, before its first event, the events of the
-finished calls that the device has passed, their stream ms read.
+call; its descendants share the id), its parent's index, its host start
+and end, ``trace_ns``, ``launch_ns`` and ``launches``.  A span takes its
+host start before its ``record_function`` opens and before any of the
+recorder's bookkeeping, and its host end last, after its
+``record_function`` closed, so the profiler's event of the span and all
+the recorder's work for it lie inside the record's host interval;
+``trace_ns`` is the recorder's own host time inside that interval, its
+descendants' included: the host interval less ``trace_ns`` is the
+program's own time.  The host clock is ``time.perf_counter_ns``.  A
+kernel's C entry is called through ``kernels._build.launch`` or
+``kernels._build.call``, which, while a profiler is active, add the host
+ns of the call (the device lookup, the stream and the ctypes call) to the
+innermost open span's ``launch_ns`` and count it in its ``launches``
+(:func:`launched`): the wrapper's ``dsp.K*`` span.  That costs two clock
+reads and no ``record_function``.
+
+On a CUDA input, and not while the stream captures a CUDA graph,
+a root records a CUDA event on the current stream as its code starts, and
+each of its direct children one on the same stream as its code ends; the
+root ends at its last child's event (at its own, recorded as its code
+ends, where it has no child), so nothing the device should count may
+follow the last child inside a root.  A record's stream ms runs from the
+event before it to its own: a root's is the whole call on the device's
+timeline, the device's waits for the host included, and its children's
+add up to it.  Deeper spans and CPU calls have no stream ms.  The events
+come from a pool: a root takes back, before its first event, the events
+of the finished calls that the device has passed, their stream ms read.
 """
 from __future__ import annotations
 
@@ -98,9 +113,10 @@ def trace(log_dir: str):
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-# Records the ring holds: a profiled second of the chain (~1,500 calls of
-# 6 records) or of the channelizer (~9,000 calls of 2) with room to spare.
-RING_RECORDS = 1 << 15
+# Records the ring holds: a profiled second of the chain (~3,000 calls of
+# 6 records), of the channelizer (~9,000 calls of 2) or of a stream cell
+# (~2,500 chunks of up to 5) with room to spare.
+RING_RECORDS = 1 << 16
 
 
 class _Call:
@@ -136,14 +152,18 @@ class _Span:
     """One span: its own record once entered."""
 
     __slots__ = ("recorder", "name", "on", "call", "index", "parent",
-                 "depth", "start_ns", "end_ns", "before", "end",
-                 "stream_ms", "_stack", "_rf")
+                 "depth", "start_ns", "end_ns", "trace_ns", "launch_ns",
+                 "launches", "before", "end", "stream_ms", "_stack", "_rf")
 
     def __init__(self, recorder: "SpanRecorder", name: str, on=None):
         self.recorder, self.name, self.on = recorder, name, on
-        self.before = self.end = self.stream_ms = None
+        self.before = self.end = self.stream_ms = self.end_ns = None
+        self.launch_ns = self.launches = 0
 
     def __enter__(self):
+        self.start_ns = time.perf_counter_ns()
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
         rec = self.recorder
         self._stack = stack = rec._stack()
         if stack:
@@ -155,33 +175,39 @@ class _Span:
         else:
             self.call = rec._open_call(self.on)
             self.parent, self.depth = None, 0
-            self.before = rec._mark(self.call)
         self.on = None        # the ring holds no tensor
         self.index = next(rec._indices)
         self.call.records.append(self)
         stack.append(self)
-        self._rf = torch.profiler.record_function(self.name)
-        self._rf.__enter__()
-        self.start_ns = time.perf_counter_ns()
+        if self.depth == 0:
+            self.before = rec._mark(self.call)
+        self.trace_ns = time.perf_counter_ns() - self.start_ns
         return self
 
     def __exit__(self, *exc):
-        self.end_ns = time.perf_counter_ns()
+        code_end = time.perf_counter_ns()
         call = self.call
         if self.depth == 1 or (self.depth == 0 and call.last is self.before):
             self.end = self.recorder._mark(call)
         elif self.depth == 0:
             self.end = call.last          # its last child's
-        self._rf.__exit__(*exc)
-        self._stack.pop()
         if self.depth == 0:
             self.recorder._close_call(call)
+        self._rf.__exit__(*exc)
+        stack = self._stack
+        stack.pop()
+        self.end_ns = time.perf_counter_ns()
+        self.trace_ns += self.end_ns - code_end
+        if stack:
+            stack[-1].trace_ns += self.trace_ns
         return False
 
     def as_dict(self) -> dict:
         return {"name": self.name, "call": self.call.id, "index": self.index,
                 "parent": self.parent, "start_ns": self.start_ns,
-                "end_ns": self.end_ns, "stream_ms": self.stream_ms}
+                "end_ns": self.end_ns, "trace_ns": self.trace_ns,
+                "launch_ns": self.launch_ns, "launches": self.launches,
+                "stream_ms": self.stream_ms}
 
 
 class SpanRecorder:
@@ -264,9 +290,11 @@ class SpanRecorder:
         """The records of every finished call in the ring, in the order
         the spans opened, as plain dicts (``name``, ``call``, ``index``,
         ``parent`` (the parent's ``index``, None for a root),
-        ``start_ns``, ``end_ns`` (``time.perf_counter_ns``) and
-        ``stream_ms`` (None without markers)).  Waits once for each
-        device whose events are still unread."""
+        ``start_ns``, ``end_ns`` (``time.perf_counter_ns``),
+        ``trace_ns`` (the recorder's own ns inside them), ``launch_ns``
+        and ``launches`` (its C entries' calls) and ``stream_ms`` (None
+        without markers)).  Waits once for each device whose events are still
+        unread."""
         with self._lock:
             for device in sorted({c.device for c in self._unread
                                   if c.events}):
@@ -311,6 +339,20 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return wrapper
     return decorate
+
+
+def launched(start_ns: int) -> None:
+    """Adds one C entry's call, from ``start_ns`` (``time.perf_counter_ns``)
+    to now, to the innermost open span's ``launch_ns`` and counts it in its
+    ``launches``; this bookkeeping counts in the span's ``trace_ns``.
+    Nothing where no span is open."""
+    end = time.perf_counter_ns()
+    stack = _RECORDER._stack()
+    if stack:
+        inner = stack[-1]
+        inner.launch_ns += end - start_ns
+        inner.launches += 1
+        inner.trace_ns += time.perf_counter_ns() - end
 
 
 def spans() -> List[dict]:

@@ -189,7 +189,7 @@ class StreamingFir:
                 new_tail = ext[ext.shape[-1] - (self.m - 1):].to(
                     tail.dtype, copy=True)
             out = self._fir(ext, chunk.shape[-1], chunk)
-        self._count(chunk)
+            self._count(chunk)
         return out, FirState(tail=new_tail)
 
     def _process_sharded(self, chunk, state: FirState):
@@ -373,10 +373,12 @@ class StreamingResampler:
                     out_len, self.c)
             if cast:
                 new_tail = new_tail.to(state.tail.dtype)
-        if not (chunk.is_cuda and torch.cuda.is_current_stream_capturing()):
-            StreamingResampler.chunks += 1
-            StreamingResampler.rows += math.prod(chunk.shape[:-1])
-            StreamingResampler.in_place += bool(in_place)
+            # host work only: the root still ends at its last child's marker
+            if not (chunk.is_cuda
+                    and torch.cuda.is_current_stream_capturing()):
+                StreamingResampler.chunks += 1
+                StreamingResampler.rows += math.prod(chunk.shape[:-1])
+                StreamingResampler.in_place += bool(in_place)
         if out.dtype != chunk.dtype:
             out = out.to(chunk.dtype)
         return out, ResamplerState(tail=new_tail)

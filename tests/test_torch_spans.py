@@ -1,22 +1,31 @@
 """PyTorch port, the spans of the call path (basic_dsp_tpu_torch/
 profiling.py ``span``, ``spanned``, ``spans``, ``reset_spans``) and the
 benchmark's readers of them (dspbench/metrics/call_idle_share.py,
-fir_stream_ms.py, stage1_stream_ms.py), on the CPU: off without a
-profiler; under ``torch.profiler`` the chain's and the channelizer's span
-trees, one call id a call, a ``record_function`` of each name, no stream
-ms; the ring's bound; the readers on hand-made records.  The tests marked
-``card`` skip without CUDA (on the card: ``python3 -m pytest --noconftest
+fir_stream_ms.py, stage1_stream_ms.py, launch_host_us.py,
+dispatch_host_us.py), on the CPU: off without a profiler; under
+``torch.profiler`` the chain's and the channelizer's span trees, one call
+id a call, a ``record_function`` of each name, no stream ms; each C
+entry's call (``_build.launch``, ``_build.call``) timed into its kernel
+span's ``launch_ns`` and counted in its ``launches``, nothing off; the
+recorder's own time (``trace_ns``) inside its spans' events and
+intervals; the stream roots' counters inside them; the ring's bound; the
+readers on hand-made records.  The tests marked ``card`` skip without
+CUDA (on the card: ``python3 -m pytest --noconftest
 tests/test_torch_spans.py``, since tests/conftest.py imports JAX): the
-markers resolve, a root's stream ms covers its children's, and a CUDA
-graph capture leaves the launch counts as they were.  This file imports
-no JAX."""
+markers resolve, a root's stream ms covers its children's, each root's
+records count each launch its wrappers count, and a CUDA graph capture
+leaves the launch counts as they were.  This file imports no JAX."""
+import math
+import time
+
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from basic_dsp_tpu_torch import kernels, pipelines, profiling
+from basic_dsp_tpu_torch import kernels, pipelines, profiling, streaming
 from basic_dsp_tpu_torch.conv_types import RaisedCosineFunction
-from basic_dsp_tpu_torch.kernels import channelizer_cuda, fir_cuda
+from basic_dsp_tpu_torch.conv_types import SincFunction
+from basic_dsp_tpu_torch.kernels import _build, channelizer_cuda, fir_cuda
 from basic_dsp_tpu_torch.kernels import overlap_save_cuda
 from basic_dsp_tpu_torch.kernels import resample_cuda, spectrum_cuda
 from basic_dsp_tpu_torch.ops import interp_ops
@@ -64,6 +73,10 @@ def _chain(device="cpu", n=N, fused=False):
 def _prototype(device="cpu"):
     m = C * TAPS_PER_PHASE
     return (torch.hamming_window(m + C)[:m] / C).to(device)
+
+
+def _dur(r):
+    return r["end_ns"] - r["start_ns"]
 
 
 def _profiled(fn, *args):
@@ -234,8 +247,10 @@ def test_the_ring_is_bounded_and_keeps_the_newest_calls():
     assert all(calls.count(c) == 3 for c in calls)
     rec.reset()
     assert rec.records() == []
-    # the module's ring holds a profiled second of either cell
-    assert profiling.RING_RECORDS >= max(1500 * 6, 9000 * 2)
+    # the module's ring holds a profiled second of any cell: the chain's
+    # calls of 6 records, the channelizer's of 2, a stream's chunks of up
+    # to 5
+    assert profiling.RING_RECORDS >= max(3000 * 6, 9000 * 2, 2500 * 5)
 
 
 class _FakeEvent:
@@ -334,6 +349,216 @@ def test_no_markers_while_a_graph_is_captured(fake_card, monkeypatch):
     assert _FakeEvent.made == 0
 
 
+STREAM = 0x5EED
+
+
+class _Entry:
+    """A C entry's stand-in: records its arguments, sleeps ``sleep_s``,
+    returns ``rc``."""
+
+    def __init__(self, rc=0, sleep_s=0.0):
+        self.rc, self.calls, self.sleep_s = rc, [], sleep_s
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        if self.sleep_s:
+            time.sleep(self.sleep_s)
+        return self.rc
+
+
+class _EntryLib:
+    """The chain plan's library: its three entries and error strings."""
+
+    def __init__(self):
+        self.fir_window_launch = _Entry()
+        self.fourstep_stage1_launch = _Entry()
+        self.rowfft_mag_natural_launch = _Entry()
+
+    def fir_window_error_string(self, rc):
+        return b"fake"
+
+    rowfft_mag_error_string = fir_window_error_string
+
+
+@pytest.fixture
+def fake_entries(fake_card, monkeypatch):
+    """The C entries on the CPU: a stand-in library for the plan, the
+    current stream ``STREAM``."""
+    lib = _EntryLib()
+    monkeypatch.setattr(fir_cuda, "_lib", lambda: lib)
+    monkeypatch.setattr(spectrum_cuda, "_lib", lambda: lib)
+    monkeypatch.setattr(_build, "_raw_stream", lambda index: STREAM)
+    return lib
+
+
+def _launches(recs):
+    """{span name: the launches its records count}, each such span checked
+    to be a kernel span."""
+    out = {}
+    for r in recs:
+        if r["launches"]:
+            assert r["name"].startswith("dsp.K"), r["name"]
+            out[r["name"]] = out.get(r["name"], 0) + r["launches"]
+    return out
+
+
+def test_a_launch_is_timed_into_its_kernel_span(fake_entries):
+    entry = _Entry(rc=3, sleep_s=0.002)
+
+    @profiling.spanned("dsp.K3")
+    def wrapper(dev):
+        return _build.launch(dev, entry, 1, 2)
+    prof = _profiled(wrapper, torch.device("cuda"))
+    assert entry.calls == [(1, 2, STREAM)]
+    (k3,) = profiling.spans()
+    assert k3["name"] == "dsp.K3" and k3["launches"] == 1
+    # the entry's call lies in launch_ns, the recorder's work beside it
+    assert 2_000_000 <= k3["launch_ns"] <= _dur(k3) - k3["trace_ns"]
+    # and it opens no record_function of its own
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "dsp.K3" in names and not any(
+        n.startswith("dsp.") and n != "dsp.K3" for n in names)
+
+
+def test_a_launch_outside_any_span_records_nothing(fake_entries):
+    entry = _Entry(rc=4)
+    got = []
+    _profiled(lambda: got.append(
+        (_build.launch(torch.device("cuda"), entry, 1),
+         _build.call(entry, 2, STREAM))))
+    assert got == [(4, 4)] and entry.calls == [(1, STREAM), (2, STREAM)]
+    assert profiling.spans() == []
+
+
+def test_a_plan_times_each_entry_into_its_kernel_span(fake_entries,
+                                                      monkeypatch):
+    # the wrappers' counters as they were after the test
+    for counted in (fir_cuda.fir_window_cuda, spectrum_cuda.stage1_cuda,
+                    spectrum_cuda.rowfft_mag_natural):
+        monkeypatch.setattr(counted, "launches", counted.launches)
+    monkeypatch.setattr(pipelines.FirFftChainPlanar, "planned_calls",
+                        pipelines.FirFftChainPlanar.planned_calls)
+    n1, n2, L2 = 128, 512, 4
+    f32 = torch.zeros
+    Tfac = (f32(n1, L2), f32(n1, L2), f32(n1, 128), f32(n1, 128))
+    W = (f32(L2, 128), f32(L2, 128))
+    plan = pipelines._ChainPlan(torch.device("cuda", 0), f32(128), 128,
+                                f32(n1 * n2), Tfac, W, n1, n2)
+    before = kernels.launch_counts()
+
+    def call():
+        with profiling.span("dsp.chain", torch.device("cuda")):
+            plan._issue(16, 32, 48, 64)
+    _profiled(call)
+    after = kernels.launch_counts()
+    recs = profiling.spans()
+    assert _launches(recs) == {"dsp.K7": 1, "dsp.K8": 1, "dsp.K1": 1}
+    assert len(recs) == 1 + len(CHAIN) + len(NESTED)
+    for r in recs:
+        assert 0 <= r["launch_ns"] <= _dur(r) - r["trace_ns"]
+    # one launch counted a launch the wrappers count
+    assert {k: after[k] - before[k] for k in ("K7", "K8", "K1n")} == \
+        {"K7": 1, "K8": 1, "K1n": 1}
+    for e in (fake_entries.fir_window_launch,
+              fake_entries.fourstep_stage1_launch,
+              fake_entries.rowfft_mag_natural_launch):
+        assert len(e.calls) == 1 and e.calls[0][-1] == STREAM
+
+
+def test_off_a_launch_records_nothing_and_makes_no_span(fake_entries,
+                                                         monkeypatch):
+    def no_span(*args, **kwargs):
+        raise AssertionError("a span made with the profiler off")
+    monkeypatch.setattr(profiling, "span", no_span)
+    monkeypatch.setattr(profiling, "_Span", no_span)
+    monkeypatch.setattr(profiling, "launched", no_span)
+    entry = _Entry(rc=5)
+    assert _build.launch(torch.device("cuda"), entry, 1) == 5
+    assert _build.call(entry, 2, STREAM) == 5
+    assert entry.calls == [(1, STREAM), (2, STREAM)]
+    assert profiling.spans() == []
+
+
+def test_trace_ns_is_the_recorders_own_time_inside_each_interval():
+    rec = profiling.SpanRecorder()
+    with rec.span("dsp.root"):
+        with rec.span("dsp.a"):
+            time.sleep(0.002)
+        with rec.span("dsp.b"):
+            with rec.span("dsp.b.inner"):
+                pass
+    root, a, b, inner = rec.records()
+    for r in (root, a, b, inner):
+        assert 0 < r["trace_ns"] < _dur(r)
+    # a root's host interval encloses its children's, and its trace time
+    # holds theirs
+    for r in (a, b, inner):
+        assert root["start_ns"] < r["start_ns"] <= r["end_ns"] \
+            < root["end_ns"]
+    assert b["start_ns"] < inner["start_ns"] <= inner["end_ns"] \
+        < b["end_ns"]
+    assert b["trace_ns"] > inner["trace_ns"]
+    assert root["trace_ns"] > a["trace_ns"] + b["trace_ns"]
+    # the program's sleep is no trace time
+    assert _dur(a) - a["trace_ns"] >= 2_000_000
+    assert _dur(root) - root["trace_ns"] >= 2_000_000
+
+
+def test_the_recorders_work_lies_inside_its_spans(fake_card, monkeypatch):
+    """A root's taking back of finished calls' events runs inside its
+    ``record_function`` and counts in its ``trace_ns``."""
+    def slow_query(self):
+        time.sleep(0.003)
+        return True
+    monkeypatch.setattr(_FakeEvent, "query", slow_query)
+    rec = profiling.SpanRecorder()
+
+    def call():
+        with rec.span("dsp.root", fake_card):
+            with rec.span("dsp.a"):
+                pass
+    call()                          # leaves two events to take back
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call()
+    second = [r for r in rec.records() if r["call"] == 1]
+    root = second[0]
+    assert root["parent"] is None and root["trace_ns"] >= 3_000_000
+    assert _dur(root) - root["trace_ns"] < 3_000_000
+    (event,) = [e for e in prof.profiler.kineto_results.events()
+                if e.name() == "dsp.root"]
+    assert event.duration_ns() >= 3_000_000
+
+
+def test_stream_roots_hold_their_counters(monkeypatch):
+    for name in ("chunks", "rows", "in_place"):
+        monkeypatch.setattr(streaming.StreamingResampler, name,
+                            getattr(streaming.StreamingResampler, name))
+    depth = []
+
+    def count(self, chunk):
+        depth.append(len(profiling._RECORDER._stack()))
+    monkeypatch.setattr(streaming.StreamingFir, "_count", count)
+    prod = math.prod
+
+    def counting_prod(shape):
+        depth.append(len(profiling._RECORDER._stack()))
+        return prod(shape)
+    monkeypatch.setattr(streaming.math, "prod", counting_prod)
+    fir = streaming.StreamingFir(torch.randn(2, 33))
+    rs = streaming.StreamingResampler(SincFunction(), 160 / 147, 0.0, 10,
+                                      device="cpu")
+    chunk = torch.randn(2, 128 * 147)
+
+    def both():
+        fir.process(chunk[0], fir.init_state(torch.float32, "cpu"))
+        rs.process(chunk, rs.init_state(torch.float32, "cpu", channels=2))
+    _profiled(both)
+    # each counted inside its root, after its last child closed
+    assert depth == [1, 1]
+    roots = [r["name"] for r in profiling.spans() if r["parent"] is None]
+    assert roots == ["dsp.stream", "dsp.resample_stream"]
+
+
 def _reader(name):
     return cells.module(cells.ROOT, "metrics", name)
 
@@ -371,8 +596,39 @@ def test_readers_on_hand_made_records():
     assert _reader("stage1_stream_ms").value(recs) == pytest.approx(0.12)
 
 
+def _timed(name, call, index, parent, start, end, trace, launch_ns=0,
+           launches=0):
+    return dict(_rec(name, call, index, parent, None), start_ns=start,
+                end_ns=end, trace_ns=trace, launch_ns=launch_ns,
+                launches=launches)
+
+
+def test_host_split_readers_on_hand_made_records():
+    """Three roots: 100, 60 and 80 us, each with its recorder's time and
+    its kernel spans' launches (one, two in two spans, two in one); a root
+    without a launch counts for nothing."""
+    recs = []
+    roots = [(100_000, 10_000, [(6_000, 1)]),
+             (60_000, 6_000, [(3_000, 1), (2_000, 1)]),
+             (80_000, 8_000, [(7_000, 2)])]
+    i = 0
+    for call, (dur, trace, kernels_) in enumerate(roots):
+        t0 = call * 1_000_000
+        recs.append(_timed("dsp.chain", call, i, None, t0, t0 + dur, trace))
+        for j, (launch_ns, launches) in enumerate(kernels_):
+            recs.append(_timed("dsp.K7", call, i + 1 + j, i, t0,
+                               t0 + dur // 2, trace // 4, launch_ns,
+                               launches))
+        i += 1 + len(kernels_)
+    recs.append(_timed("dsp.chain", 3, i, None, 0, 10**9, 0))
+    # launch ns 6000, 5000, 7000; dispatch ns 84000, 49000, 65000
+    assert _reader("launch_host_us").value(recs) == pytest.approx(6.0)
+    assert _reader("dispatch_host_us").value(recs) == pytest.approx(65.0)
+
+
 @pytest.mark.parametrize("name", ["call_idle_share", "fir_stream_ms",
-                                  "stage1_stream_ms"])
+                                  "stage1_stream_ms", "launch_host_us",
+                                  "dispatch_host_us"])
 def test_readers_give_none_without_marked_records(name):
     unmarked = [_rec("dsp.chain", 0, 0, None, None),
                 _rec("dsp.fir", 0, 1, 0, None),
@@ -441,3 +697,50 @@ def test_a_graph_capture_leaves_the_launch_counts(card):
     want = dict(before, K1n=before["K1n"] + 1, K6=before["K6"] + 1,
                 K7=before["K7"] + 1, K8=before["K8"] + 1)
     assert kernels.launch_counts() == want
+
+
+@pytest.mark.card
+def test_each_launch_is_counted_in_its_root(card):
+    """Chain 3, channelizer 1, a stream chunk 1 (StreamingFir's bank,
+    StreamingResampler on float32 and complex64): the launches each root's
+    records count equal its wrappers' launches, and both readers read."""
+    chain, planes = _chain(card, n=1 << 20), _planes(card, n=1 << 20)
+    mod = channelizer.ChannelizeAndDemodPlanar(_prototype(card), C)
+    g = torch.Generator().manual_seed(3)
+    bank = streaming.StreamingFir(torch.randn(4, 129, generator=g).to(card))
+    x = torch.randn(1 << 16, generator=g).to(card)
+    rs = streaming.StreamingResampler(SincFunction(), 160 / 147, 0.0, 10,
+                                      device=card)
+    rows = torch.randn(4, 128 * 147, generator=g).to(card)
+    zero = {dt: rs.init_state(dt, card, channels=4)
+            for dt in (torch.float32, torch.complex64)}
+    calls = {"dsp.chain": lambda: chain(*planes),
+             "dsp.channelize": lambda: mod(*planes),
+             "dsp.stream": lambda: bank.process(
+                 x, bank.init_state(torch.float32, card)),
+             "dsp.resample_stream": lambda: (
+                 rs.process(rows, zero[torch.float32]),
+                 rs.process(rows.to(torch.complex64),
+                            zero[torch.complex64]))}
+    for fn in calls.values():      # builds and warms the kernels
+        fn()
+    torch.cuda.synchronize()
+    for root, fn in calls.items():
+        profiling.reset_spans()
+        before = kernels.launch_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            fn()
+            torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        recs = profiling.spans()
+        launched = sum(after[k] - before[k] for k in after)
+        roots = [r for r in recs if r["parent"] is None]
+        assert [r["name"] for r in roots] == [root] * len(roots)
+        assert sum(_launches(recs).values()) == launched >= len(roots)
+        for r in roots:
+            mine = [q for q in recs if q["call"] == r["call"]]
+            assert sum(_launches(mine).values()) == \
+                (3 if root == "dsp.chain" else 1)
+        for name in ("launch_host_us", "dispatch_host_us"):
+            assert _reader(name).value(recs) > 0
