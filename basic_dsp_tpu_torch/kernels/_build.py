@@ -186,6 +186,15 @@ def aligned(p: torch.Tensor) -> torch.Tensor:
     return p if p.data_ptr() % 16 == 0 else p.clone()
 
 
+def check_launch(name: str, error_string, rc: int) -> None:
+    """Raises ``RuntimeError`` where a C entry returned a code other than
+    0, with the kernel's ``name`` and ``error_string(rc)``, the library's
+    text for the code."""
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + error_string(rc).decode())
+
+
 def count_launch(wrapper) -> None:
     """Adds one to ``wrapper.launches`` unless the current stream is
     capturing a CUDA graph: a wrapper called then records its kernel into

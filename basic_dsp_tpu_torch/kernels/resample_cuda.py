@@ -365,17 +365,8 @@ def _launch(rows, taps, P, Q, record, L, out_len, tail=None,
     dev = rows.device
     cplx = rows.is_complex()
     geometry = _geometry(record, P, Q, L, cplx)
-    o = record[2].get(dev)
-    if o is None:
-        o = record[2][dev] = torch.tensor(record[1], dtype=torch.int32,
-                                          device=dev)
-    if isinstance(taps, torch.Tensor):
-        t = taps
-        if (t.device != dev or t.dtype is not torch.float32
-                or not t.is_contiguous()):
-            t = t.to(device=dev, dtype=torch.float32).contiguous()
-    else:
-        t = _device_taps(_interp_ops()._taps_key(taps), dev)
+    o = device_offs(record, dev)
+    t = launch_taps(taps, dev)
     out = torch.empty((R, out_len), dtype=rows.dtype, device=dev)
     if out_len == 0:
         return out
@@ -401,10 +392,29 @@ def _launch(rows, taps, P, Q, record, L, out_len, tail=None,
                            next_tail.data_ptr(), n, tail.shape[-1],
                            t.data_ptr(), o.data_ptr(), out.data_ptr(),
                            out_len, R, P, Q, L, *geometry[:5])
-    if rc != 0:
-        raise RuntimeError("resample kernel launch failed: "
-                           + lib.resample_error_string(rc).decode())
+    _build.check_launch("resample", lib.resample_error_string, rc)
     return out
+
+
+def device_offs(record, dev) -> torch.Tensor:
+    """The offsets of ``record`` (:func:`_offsets`) as the int32 tensor the
+    kernel reads on ``dev``, copied there once."""
+    o = record[2].get(dev)
+    if o is None:
+        o = record[2][dev] = torch.tensor(record[1], dtype=torch.int32,
+                                          device=dev)
+    return o
+
+
+def launch_taps(taps, dev) -> torch.Tensor:
+    """The (P, 2L+1) taps as the kernel reads them: contiguous float32 on
+    ``dev``, the tensor itself where it already is."""
+    if not isinstance(taps, torch.Tensor):
+        return _device_taps(_interp_ops()._taps_key(taps), dev)
+    if (taps.device != dev or taps.dtype is not torch.float32
+            or not taps.is_contiguous()):
+        return taps.to(device=dev, dtype=torch.float32).contiguous()
+    return taps
 
 
 def _device_of(rows, who: str) -> str:

@@ -229,33 +229,27 @@ class _ChainPlan:
         stream = _build._raw_stream(self.index)
         counted = not torch.cuda.is_current_stream_capturing()
         with profiling.span("dsp.fir"), profiling.span("dsp.K7"):
-            _launched("fir_window", self.fir.fir_window_error_string,
-                      _build.call(self.k7, xr, xi, *self.k7_held, s, s + b,
-                                  *self.k7_tail, stream))
+            _build.check_launch(
+                "fir_window", self.fir.fir_window_error_string,
+                _build.call(self.k7, xr, xi, *self.k7_held, s, s + b,
+                            *self.k7_tail, stream))
         if counted:
             fir_cuda.fir_window_cuda.launches += 1
         with profiling.span("dsp.stage1"), profiling.span("dsp.K8"):
-            _launched("stage1_cuda", self.rows.rowfft_mag_error_string,
-                      _build.call(self.k8, s, s + b, s + 2 * b, s + 3 * b,
-                                  self.n1, self.n2, stream))
+            _build.check_launch(
+                "stage1_cuda", self.rows.rowfft_mag_error_string,
+                _build.call(self.k8, s, s + b, s + 2 * b, s + 3 * b,
+                            self.n1, self.n2, stream))
         if counted:
             spectrum_cuda.stage1_cuda.launches += 1
         with profiling.span("dsp.K1"):
-            _launched("rowfft_mag_natural", self.rows.rowfft_mag_error_string,
-                      _build.call(self.k1, s + 2 * b, s + 3 * b,
-                                  *self.k1_held, s + 4 * b, out,
-                                  *self.k1_tail, stream))
+            _build.check_launch(
+                "rowfft_mag_natural", self.rows.rowfft_mag_error_string,
+                _build.call(self.k1, s + 2 * b, s + 3 * b, *self.k1_held,
+                            s + 4 * b, out, *self.k1_tail, stream))
         if counted:
             spectrum_cuda.rowfft_mag_natural.launches += 1
             FirFftChainPlanar.planned_calls += 1
-
-
-def _launched(name, error_string, rc) -> None:
-    """Raises, as the kernel's wrapper does, where its C entry returned a
-    code other than 0."""
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + error_string(rc).decode())
 
 
 def _chain_plan(chain: "FirFftChainPlanar", device) -> "_ChainPlan | None":

@@ -29,7 +29,8 @@ new tail; the tail's cast where the state keeps another dtype) and the
 resampler (``dsp.K4`` or ``dsp.K5``); ``StreamingResampler.chunks``,
 ``StreamingResampler.rows`` and ``StreamingResampler.in_place`` count its
 chunks, their channels and the chunks (float32 or complex64) whose tail
-and chunk went to the kernel apart.
+and chunk went to the kernel apart, ``StreamingResampler.planned_chunks``
+those its held launch plan issued.
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from . import config, profiling
-from .kernels import resample_cuda
+from .kernels import _build, resample_cuda
 from .ops import conv_ops, interp_ops
 
 
@@ -243,6 +244,118 @@ class ResamplerState(NamedTuple):
     tail: torch.Tensor
 
 
+class _StreamPlan:
+    """A :class:`StreamingResampler`'s in-place launch for (R, S) chunks of
+    one dtype on one card, resolved once (:func:`_stream_plan`): the route
+    (K5 ``resample_rowblock_cuda`` where ``interp_ops._takes_rowblock``
+    holds at S + T, else K4 ``resample_direct_cuda``), the offsets and the
+    float32 taps on the card, held with their pointers, resample_runs'
+    geometry and the C entry (``resample_stream_launch``, or
+    ``resample_stream_launch_complex`` for complex64).  A chunk whose tail
+    the plan :meth:`admits` allocates the next tail and the output and
+    passes the entry what ``resample_cuda._launch`` passes it, under the
+    wrappers' route's spans (``dsp.rotate`` around the next tail's
+    allocation, ``dsp.K5`` or ``dsp.K4`` around the launch, the entry
+    called through ``_build.call``, which times it into that span's
+    ``launch_ns`` while a profiler is active), counted in the wrapper's
+    ``launches`` (and ``complex_launches``) and the stream's counters."""
+
+    def __init__(self, rs: "StreamingResampler", R: int, S: int, dtype,
+                 device):
+        P, Q, L, T = rs.P, rs.Q, rs.L, rs.T
+        record = resample_cuda._offsets(P, Q, rs.offs)
+        self.cplx = dtype is torch.complex64
+        if interp_ops._takes_rowblock(P, Q, L, S + T):
+            self.wrapper, self.span = (resample_cuda.resample_rowblock_cuda,
+                                       "dsp.K5")
+        else:
+            self.wrapper, self.span = (resample_cuda.resample_direct_cuda,
+                                       "dsp.K4")
+        self.dtype, self.device, self.index = dtype, device, device.index
+        self.rows, self.shape, self.tail_shape = R, (R, S), (R, T)
+        out_len = S * P // Q
+        self.out_shape = (R, out_len)
+        offs = resample_cuda.device_offs(record, device)
+        taps = resample_cuda.launch_taps(rs.taps, device)
+        # the held tensors stay alive while the plan points at them
+        self.held = (offs, taps)
+        lib = resample_cuda._lib()
+        self.entry = (lib.resample_stream_launch_complex if self.cplx
+                      else lib.resample_stream_launch)
+        self.error_string = lib.resample_error_string
+        self.lengths = (S, T, taps.data_ptr(), offs.data_ptr())
+        self.geometry = (out_len, R, P, Q, L,
+                         *resample_cuda._geometry(record, P, Q, L,
+                                                  self.cplx)[:5])
+
+    def admits(self, chunk, tail) -> bool:
+        """Whether a chunk and its tail take the plan: a (R, S) chunk and
+        a (R, T) tail of the plan's dtype on its card, each row's samples
+        in order in both (last stride 1), neither with a conjugate bit,
+        and neither requiring grad under grad mode (which the wrappers
+        refuse)."""
+        return (chunk.dtype is self.dtype and tail.dtype is self.dtype
+                and chunk.shape == self.shape
+                and tail.shape == self.tail_shape
+                and chunk.get_device() == self.index
+                and tail.get_device() == self.index
+                and chunk.stride(-1) == 1 and tail.stride(-1) == 1
+                and not chunk.is_conj() and not tail.is_conj()
+                and not (torch.is_grad_enabled()
+                         and (chunk.requires_grad or tail.requires_grad)))
+
+    def __call__(self, chunk, tail):
+        """(out, next tail) of the chunk, inside its root span."""
+        counted = not torch.cuda.is_current_stream_capturing()
+        with profiling.span("dsp.rotate"):
+            new_tail = torch.empty(self.tail_shape, dtype=self.dtype,
+                                   device=self.device)
+        with profiling.span(self.span):
+            out = torch.empty(self.out_shape, dtype=self.dtype,
+                              device=self.device)
+            if torch.cuda.current_device() == self.index:
+                rc = self._issue(chunk, tail, new_tail, out)
+            else:
+                with torch.cuda.device(self.index):
+                    rc = self._issue(chunk, tail, new_tail, out)
+            _build.check_launch("resample", self.error_string, rc)
+            if counted:
+                self.wrapper.launches += 1
+                if self.cplx:
+                    self.wrapper.complex_launches += 1
+        # host work only: the root still ends at its last child's marker
+        if counted:
+            StreamingResampler.chunks += 1
+            StreamingResampler.rows += self.rows
+            StreamingResampler.in_place += 1
+            StreamingResampler.planned_chunks += 1
+        return out, new_tail
+
+    def _issue(self, chunk, tail, new_tail, out) -> int:
+        return _build.call(self.entry, chunk.data_ptr(), chunk.stride(0),
+                           tail.data_ptr(), tail.stride(0),
+                           new_tail.data_ptr(), *self.lengths,
+                           out.data_ptr(), *self.geometry,
+                           _build._raw_stream(self.index))
+
+
+def _stream_plan(rs: "StreamingResampler", chunk) -> "_StreamPlan | None":
+    """A :class:`_StreamPlan` of ``rs`` for chunks of ``chunk``'s shape,
+    dtype and card, or None where they do not take the in-place launch:
+    off the card, not (R, S) with R >= 1, a dtype the card does not read
+    in place at the geometry (float64; 2L+1 > 32), S not a positive
+    multiple of 128*Q (which the chunk checks refuse), or taps requiring
+    grad."""
+    if (not chunk.is_cuda or chunk.dim() != 2
+            or chunk.dtype not in rs._in_place
+            or rs.taps.requires_grad):
+        return None
+    R, S = chunk.shape
+    if R < 1 or S < 1 or S % (128 * rs.Q):
+        return None
+    return _StreamPlan(rs, R, S, chunk.dtype, chunk.device)
+
+
 # Denominators up to 512, interpolatef's own bound (``interp_ops._branch``);
 # the JAX package stops at 64, where its dense band matrix M (W x 128 P
 # floats, built per resampler) still fits: at 160/147 it would be 1.55 GB.
@@ -282,6 +395,17 @@ class StreamingResampler:
 
     A block of channels streams as one: a (C, S) chunk with a (C, T) tail
     (``init_state(channels=C)``) is one kernel launch of C rows a chunk.
+
+    On a card the resampler resolves its in-place launch once
+    (:class:`_StreamPlan`, for the shape, dtype and card of the first
+    (C, S) chunk read in place, and dropped when an attribute of the
+    resampler is replaced): a chunk the plan admits, with its tail, is
+    checked alone and issues K4 or K5 itself, adding one to
+    ``StreamingResampler.planned_chunks`` (none while a CUDA graph is
+    captured).  Any other chunk (CPU, 1-D, float64, 2L+1 > 32, a
+    conjugate or strided row, another shape or card, a tail of another
+    dtype, shape or card, grad) takes the wrappers' route; both give the
+    same bits.
     """
 
     chunks = 0
@@ -289,9 +413,12 @@ class StreamingResampler:
     #: float32 and complex64 chunks whose tail and chunk the wrapper took
     #: apart (read in place on the card)
     in_place = 0
+    #: chunks that a held launch plan issued
+    planned_chunks = 0
 
     def __init__(self, fun, factor: float, delay: float = 0.0,
                  conv_len: int = 10, device=None):
+        self._launch_plan = None
         P, Q = interp_ops.parse_rational_factor(factor, "StreamingResampler",
                                                 _MAX_DEN)
         L = int(conv_len)
@@ -315,6 +442,16 @@ class StreamingResampler:
             dt for dt in (torch.float32, torch.complex64)
             if resample_cuda.reads_in_place(P, Q, L, offs, dt))
 
+    def __setattr__(self, name, value):
+        # the plan holds what it was built from
+        if name != "_launch_plan":
+            self.__dict__["_launch_plan"] = None
+        super().__setattr__(name, value)
+
+    def __getstate__(self):
+        # a copy builds its own plan
+        return dict(self.__dict__, _launch_plan=None)
+
     def init_state(self, dtype=torch.complex64, device=None,
                    channels=()) -> ResamplerState:
         """Zero tail of ``T`` samples of ``dtype`` on ``device`` (the taps'
@@ -331,6 +468,13 @@ class StreamingResampler:
         channel a row, with a tail of shape (..., T); returns (out,
         new_state) with ``out.shape[-1] == S*P//Q``.  Every channel of the
         chunk resamples in the one kernel launch."""
+        plan = self._launch_plan
+        if plan is None:
+            plan = self._launch_plan = _stream_plan(self, chunk)
+        if plan is not None and plan.admits(chunk, state.tail):
+            with profiling.span("dsp.resample_stream", chunk):
+                out, new_tail = plan(chunk, state.tail)
+            return out, ResamplerState(tail=new_tail)
         S = chunk.shape[-1]
         span = 128 * self.Q
         if S % span != 0:
